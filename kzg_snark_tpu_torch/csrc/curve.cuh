@@ -1,0 +1,212 @@
+// Short-Weierstrass (a = 0) group law in Jacobian coordinates over field.cuh.
+//
+// Counterpart of kzg_snark_tpu/ops/regcurve.py (RegCurve): the same formulas
+// in the same order (dbl-2009-l, add-2007-bl, madd-2007-bl), so every
+// representative (X, Y, Z) equals the JAX package's.  The identity is Z = 0.
+// Where the TPU computed every case and selected lane-wise, a thread here
+// branches: the selected value is the same.
+#pragma once
+
+#include "field.cuh"
+
+struct G1J {
+  uint32_t X[NL], Y[NL], Z[NL];
+};
+
+// A point batch in device memory is (3, 8, m): coordinate c, limb k, point i
+// at (c * 8 + k) * m + i.
+KZG_HD void g1_load(G1J& P, const uint32_t* base, int64_t m, int64_t i) {
+  fe_load(P.X, base, m, i);
+  fe_load(P.Y, base + NL * m, m, i);
+  fe_load(P.Z, base + 2 * NL * m, m, i);
+}
+
+KZG_HD void g1_store(uint32_t* base, int64_t m, int64_t i, const G1J& P) {
+  fe_store(base, m, i, P.X);
+  fe_store(base + NL * m, m, i, P.Y);
+  fe_store(base + 2 * NL * m, m, i, P.Z);
+}
+
+// dbl-2009-l; the identity maps to Z3 = 0.
+KZG_HD void g1_double(G1J& R, const G1J& P, const FieldConsts& F) {
+  uint32_t A[NL], B[NL], C[NL], t[NL], D[NL], E[NL], FF[NL], X3[NL], Y3[NL],
+      Z3[NL], u[NL];
+  fe_square(A, P.X, F);
+  fe_square(B, P.Y, F);
+  fe_square(C, B, F);
+  fe_add(t, P.X, B, F);
+  fe_square(t, t, F);
+  fe_sub(D, t, A, F);
+  fe_sub(D, D, C, F);
+  fe_double(D, D, F);
+  fe_double(E, A, F);
+  fe_add(E, E, A, F);
+  fe_square(FF, E, F);
+  fe_double(u, D, F);
+  fe_sub(X3, FF, u, F);
+  fe_double(u, C, F);
+  fe_double(u, u, F);
+  fe_double(u, u, F);  // 8C
+  fe_sub(t, D, X3, F);
+  fe_mul(Y3, E, t, F);
+  fe_sub(Y3, Y3, u, F);
+  fe_mul(Z3, P.Y, P.Z, F);
+  fe_double(Z3, Z3, F);
+  fe_copy(R.X, X3);
+  fe_copy(R.Y, Y3);
+  fe_copy(R.Z, Z3);
+}
+
+// Complete Jacobian + Jacobian (add-2007-bl with the case analysis of
+// RegCurve.add).  R may alias P or Q.
+KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
+  bool p_inf = fe_is_zero(P.Z);
+  bool q_inf = fe_is_zero(Q.Z);
+  if (p_inf) {
+    R = Q;
+    return;
+  }
+  if (q_inf) {
+    R = P;
+    return;
+  }
+  uint32_t Z1Z1[NL], Z2Z2[NL], U1[NL], U2[NL], S1[NL], S2[NL], H[NL], Rr[NL];
+  fe_square(Z1Z1, P.Z, F);
+  fe_square(Z2Z2, Q.Z, F);
+  fe_mul(U1, P.X, Z2Z2, F);
+  fe_mul(U2, Q.X, Z1Z1, F);
+  fe_mul(S1, P.Y, Q.Z, F);
+  fe_mul(S1, S1, Z2Z2, F);
+  fe_mul(S2, Q.Y, P.Z, F);
+  fe_mul(S2, S2, Z1Z1, F);
+  fe_sub(H, U2, U1, F);
+  fe_sub(Rr, S2, S1, F);
+  if (fe_is_zero(H)) {
+    if (fe_is_zero(Rr)) {
+      g1_double(R, P, F);
+    } else {
+      fe_copy(R.X, F.one);
+      fe_copy(R.Y, F.one);
+      for (int k = 0; k < NL; k++) R.Z[k] = 0;
+    }
+    return;
+  }
+  uint32_t HH[NL], I[NL], J[NL], r2[NL], V[NL], X3[NL], Y3[NL], Z3[NL], t[NL];
+  fe_square(HH, H, F);
+  fe_double(I, HH, F);
+  fe_double(I, I, F);
+  fe_mul(J, H, I, F);
+  fe_double(r2, Rr, F);
+  fe_mul(V, U1, I, F);
+  fe_square(X3, r2, F);
+  fe_sub(X3, X3, J, F);
+  fe_double(t, V, F);
+  fe_sub(X3, X3, t, F);
+  fe_sub(t, V, X3, F);
+  fe_mul(Y3, r2, t, F);
+  fe_mul(t, S1, J, F);
+  fe_double(t, t, F);
+  fe_sub(Y3, Y3, t, F);
+  fe_add(t, P.Z, Q.Z, F);
+  fe_square(t, t, F);
+  fe_sub(t, t, Z1Z1, F);
+  fe_sub(t, t, Z2Z2, F);
+  fe_mul(Z3, t, H, F);
+  fe_copy(R.X, X3);
+  fe_copy(R.Y, Y3);
+  fe_copy(R.Z, Z3);
+}
+
+// Shared general case of madd-2007-bl: P + (qx, qy, 1).  Returns H and Rr so
+// the complete variant can classify the equal and opposite cases.
+KZG_HD void g1_madd_general(G1J& R, uint32_t H[NL], uint32_t Rr[NL],
+                            const G1J& P, const uint32_t qx[NL],
+                            const uint32_t qy[NL], const FieldConsts& F) {
+  uint32_t Z1Z1[NL], U2[NL], S2[NL];
+  fe_square(Z1Z1, P.Z, F);
+  fe_mul(U2, qx, Z1Z1, F);
+  fe_mul(S2, qy, P.Z, F);
+  fe_mul(S2, S2, Z1Z1, F);
+  fe_sub(H, U2, P.X, F);
+  fe_sub(Rr, S2, P.Y, F);
+  uint32_t HH[NL], I[NL], J[NL], r2[NL], V[NL], X3[NL], Y3[NL], Z3[NL], t[NL];
+  fe_square(HH, H, F);
+  fe_double(I, HH, F);
+  fe_double(I, I, F);
+  fe_mul(J, H, I, F);
+  fe_double(r2, Rr, F);
+  fe_mul(V, P.X, I, F);
+  fe_square(X3, r2, F);
+  fe_sub(X3, X3, J, F);
+  fe_double(t, V, F);
+  fe_sub(X3, X3, t, F);
+  fe_sub(t, V, X3, F);
+  fe_mul(Y3, r2, t, F);
+  fe_mul(t, P.Y, J, F);
+  fe_double(t, t, F);
+  fe_sub(Y3, Y3, t, F);
+  fe_add(t, P.Z, H, F);
+  fe_square(t, t, F);
+  fe_sub(t, t, Z1Z1, F);
+  fe_sub(Z3, t, HH, F);
+  fe_copy(R.X, X3);
+  fe_copy(R.Y, Y3);
+  fe_copy(R.Z, Z3);
+}
+
+// Incomplete mixed add (RegCurve.add_mixed_fast): exact when P is the
+// identity and when P == -q; P == q yields the identity instead of 2q.
+KZG_HD void g1_add_mixed_fast(G1J& R, const G1J& P, const uint32_t qx[NL],
+                              const uint32_t qy[NL], const FieldConsts& F) {
+  if (fe_is_zero(P.Z)) {
+    fe_copy(R.X, qx);
+    fe_copy(R.Y, qy);
+    fe_copy(R.Z, F.one);
+    return;
+  }
+  uint32_t H[NL], Rr[NL];
+  g1_madd_general(R, H, Rr, P, qx, qy, F);
+}
+
+// Complete mixed add (RegCurve.add_mixed); q must be a finite point.
+KZG_HD void g1_add_mixed(G1J& R, const G1J& P, const uint32_t qx[NL],
+                         const uint32_t qy[NL], const FieldConsts& F) {
+  if (fe_is_zero(P.Z)) {
+    fe_copy(R.X, qx);
+    fe_copy(R.Y, qy);
+    fe_copy(R.Z, F.one);
+    return;
+  }
+  G1J S;
+  uint32_t H[NL], Rr[NL];
+  g1_madd_general(S, H, Rr, P, qx, qy, F);
+  if (fe_is_zero(H)) {
+    if (fe_is_zero(Rr)) {
+      g1_double(R, P, F);
+    } else {
+      fe_copy(R.X, F.one);
+      fe_copy(R.Y, F.one);
+      for (int k = 0; k < NL; k++) R.Z[k] = 0;
+    }
+    return;
+  }
+  R = S;
+}
+
+// Thread bodies of the K6 / K7 replacements: one point per thread.
+KZG_HD void g1_add_thread(int64_t i, const uint32_t* p, const uint32_t* q,
+                          uint32_t* out, int64_t m, const FieldConsts& F) {
+  G1J P, Q, R;
+  g1_load(P, p, m, i);
+  g1_load(Q, q, m, i);
+  g1_add(R, P, Q, F);
+  g1_store(out, m, i, R);
+}
+
+KZG_HD void g1_double_thread(int64_t i, const uint32_t* p, uint32_t* out,
+                             int64_t m, const FieldConsts& F) {
+  G1J P, R;
+  g1_load(P, p, m, i);
+  g1_double(R, P, F);
+  g1_store(out, m, i, R);
+}

@@ -1,0 +1,60 @@
+// K6 and K7 replacements: batched complete Jacobian add and doubling on G1.
+//
+// Replaces kzg_snark_tpu/ops/pallas_fr.py:_add_call (fused_curve_add) and
+// :_double_call (fused_curve_double).  They build the SRS table and window
+// bases, fold the MSM bucket tables (lanes, bucket suffix ladder, windows)
+// and run the Horner fold.
+//
+// What bounds it on the H100: a complete add is about 16 Montgomery products
+// and 20 add/subs on 96-byte points (288 bytes moved): compute-bound at
+// large batches, launch-bound in the Horner fold, where the batch is the
+// number of scalars.  Design: one thread per point, the formulas of
+// curve.cuh in registers, limb-major (3, 8, m) words for coalesced loads.
+#include <cuda_runtime.h>
+#include <string.h>
+
+#include "curve.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void k_g1_add(const uint32_t* __restrict__ p,
+                         const uint32_t* __restrict__ q,
+                         uint32_t* __restrict__ out, int64_t m, FieldConsts F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  g1_add_thread(i, p, q, out, m, F);
+}
+
+__global__ void k_g1_double(const uint32_t* __restrict__ p,
+                            uint32_t* __restrict__ out, int64_t m,
+                            FieldConsts F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  g1_double_thread(i, p, out, m, F);
+}
+
+}  // namespace
+
+extern "C" int kzg_g1_add(const void* p, const void* q, void* out, int64_t m,
+                          const void* consts, void* stream) {
+  if (m <= 0) return 0;
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  int64_t blocks = (m + kThreads - 1) / kThreads;
+  k_g1_add<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, m, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_g1_double(const void* p, void* out, int64_t m,
+                             const void* consts, void* stream) {
+  if (m <= 0) return 0;
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  int64_t blocks = (m + kThreads - 1) / kThreads;
+  k_g1_double<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)p, (uint32_t*)out, m, F);
+  return (int)cudaGetLastError();
+}

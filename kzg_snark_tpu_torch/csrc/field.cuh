@@ -1,0 +1,180 @@
+// Montgomery arithmetic over 8 x 32-bit limbs (R = 2^256), for BN254 Fr and Fq.
+//
+// Counterpart of kzg_snark_tpu/ops/regfield.py (RegField): the same canonical
+// values in and out (every op takes and returns elements < p), the same
+// Montgomery form (R = 2^256, so the integers equal the JAX package's 16 x
+// 16-bit limb form).  The functions are __host__ __device__: nvcc builds them
+// into the kernels, and g++ builds them into a CPU library that the tests use
+// to check this very code against the plain PyTorch versions.
+//
+// Layout in device memory: an (8, n) array of uint32 words, limb-major (limb
+// k of element i at k * ld + i), least significant limb first.  Neighbouring
+// threads read neighbouring words.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define KZG_HD static __host__ __device__ __forceinline__
+#else
+#define KZG_HD static inline
+#endif
+
+#define NL 8
+
+// Field constants, passed to every kernel by value.
+struct FieldConsts {
+  uint32_t p[NL];    // modulus
+  uint32_t one[NL];  // R mod p: Montgomery one
+  uint32_t pinv;     // -p^{-1} mod 2^32
+};
+
+KZG_HD void fe_copy(uint32_t r[NL], const uint32_t a[NL]) {
+#pragma unroll
+  for (int i = 0; i < NL; i++) r[i] = a[i];
+}
+
+KZG_HD void fe_select(uint32_t r[NL], bool c, const uint32_t a[NL],
+                      const uint32_t b[NL]) {
+#pragma unroll
+  for (int i = 0; i < NL; i++) r[i] = c ? a[i] : b[i];
+}
+
+KZG_HD bool fe_is_zero(const uint32_t a[NL]) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) acc |= a[i];
+  return acc == 0;
+}
+
+KZG_HD void fe_load(uint32_t r[NL], const uint32_t* base, int64_t ld,
+                    int64_t i) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = base[k * ld + i];
+}
+
+KZG_HD void fe_store(uint32_t* base, int64_t ld, int64_t i,
+                     const uint32_t a[NL]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) base[k * ld + i] = a[k];
+}
+
+// r = a - b mod 2^256; returns the borrow (0 or 1).  r may alias a or b.
+KZG_HD uint32_t fe_sub_raw(uint32_t r[NL], const uint32_t a[NL],
+                           const uint32_t b[NL]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint64_t d = (uint64_t)a[i] - b[i] - borrow;
+    r[i] = (uint32_t)d;
+    borrow = (uint32_t)(d >> 63);
+  }
+  return borrow;
+}
+
+// r = a + b mod 2^256; returns the carry (0 or 1).  r may alias a or b.
+KZG_HD uint32_t fe_add_raw(uint32_t r[NL], const uint32_t a[NL],
+                           const uint32_t b[NL]) {
+  uint64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint64_t s = (uint64_t)a[i] + b[i] + carry;
+    r[i] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  return (uint32_t)carry;
+}
+
+// (a + b) mod p.  p < 2^255, so a + b never carries out of 256 bits.
+KZG_HD void fe_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                   const FieldConsts& F) {
+  uint32_t s[NL], d[NL];
+  fe_add_raw(s, a, b);
+  uint32_t borrow = fe_sub_raw(d, s, F.p);
+  fe_select(r, borrow != 0, s, d);
+}
+
+// (a - b) mod p.
+KZG_HD void fe_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                   const FieldConsts& F) {
+  uint32_t d[NL], c[NL];
+  uint32_t borrow = fe_sub_raw(d, a, b);
+  fe_add_raw(c, d, F.p);
+  fe_select(r, borrow != 0, c, d);
+}
+
+KZG_HD void fe_double(uint32_t r[NL], const uint32_t a[NL],
+                      const FieldConsts& F) {
+  fe_add(r, a, a, F);
+}
+
+KZG_HD void fe_neg(uint32_t r[NL], const uint32_t a[NL],
+                   const FieldConsts& F) {
+  uint32_t z[NL] = {0, 0, 0, 0, 0, 0, 0, 0};
+  fe_sub(r, z, a, F);
+}
+
+// Montgomery product a b R^{-1} mod p (CIOS).  With a, b < p < R/4 the
+// running value stays below 2p, so one conditional subtraction ends it.
+KZG_HD void fe_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                   const FieldConsts& F) {
+  uint32_t t[NL + 2];
+#pragma unroll
+  for (int i = 0; i < NL + 2; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; j++) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[NL] + c;
+    t[NL] = (uint32_t)s;
+    t[NL + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * F.pinv;
+    s = (uint64_t)m * F.p[0] + t[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < NL; j++) {
+      s = (uint64_t)m * F.p[j] + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (uint64_t)t[NL] + c;
+    t[NL - 1] = (uint32_t)s;
+    t[NL] = t[NL + 1] + (uint32_t)(s >> 32);
+  }
+  uint32_t d[NL];
+  uint32_t borrow = fe_sub_raw(d, t, F.p);
+  fe_select(r, borrow == 0 || t[NL] != 0, d, t);
+}
+
+KZG_HD void fe_square(uint32_t r[NL], const uint32_t a[NL],
+                      const FieldConsts& F) {
+  fe_mul(r, a, a, F);
+}
+
+// Elementwise thread bodies shared by the K1 kernels and the CPU build.
+// Operand x is read at limb stride ldx and column step incx (0 broadcasts a
+// single element over the batch, 1 walks it); the output is (8, n) dense.
+enum { FE_OP_MUL = 0, FE_OP_ADD = 1, FE_OP_SUB = 2 };
+
+template <int OP>
+KZG_HD void fe_ewise_thread(int64_t i, const uint32_t* a, int64_t lda,
+                            int64_t inca, const uint32_t* b, int64_t ldb,
+                            int64_t incb, uint32_t* out, int64_t n,
+                            const FieldConsts& F) {
+  uint32_t x[NL], y[NL], r[NL];
+  fe_load(x, a, lda, i * inca);
+  fe_load(y, b, ldb, i * incb);
+  if (OP == FE_OP_MUL) {
+    fe_mul(r, x, y, F);
+  } else if (OP == FE_OP_ADD) {
+    fe_add(r, x, y, F);
+  } else {
+    fe_sub(r, x, y, F);
+  }
+  fe_store(out, n, i, r);
+}

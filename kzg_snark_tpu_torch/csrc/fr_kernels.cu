@@ -1,0 +1,70 @@
+// K1 replacement: elementwise Montgomery product, plus the add and sub
+// entry points the field backend routes through the card.
+//
+// Replaces kzg_snark_tpu/ops/pallas_fr.py:_mul_call (fused_mul), which ran
+// the iNTT n^-1 scale and the coset shifts; on this port every field mul,
+// square, add, sub and neg on a CUDA tensor comes here.
+//
+// What bounds it on the H100: a mul reads 64 bytes and writes 32 per
+// element and does 64 32x32->64 multiply-adds for the product plus 64 for
+// the reduction, about 2 integer ops per byte: memory-bound at large n
+// until the CIOS loop's dependent carries limit issue rate.  add/sub are
+// memory-bound.  Design: one thread per element, limb-major (8, n) words so
+// each warp's loads of one limb are one coalesced 128-byte line; operands
+// may broadcast one element (column step 0), which saves materialising the
+// scalar operand of the many scalar-times-vector products.
+#include <cuda_runtime.h>
+#include <string.h>
+
+#include "field.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int OP>
+__global__ void k_fr_ewise(const uint32_t* __restrict__ a, int64_t lda,
+                           int64_t inca, const uint32_t* __restrict__ b,
+                           int64_t ldb, int64_t incb, uint32_t* __restrict__ out,
+                           int64_t n, FieldConsts F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fe_ewise_thread<OP>(i, a, lda, inca, b, ldb, incb, out, n, F);
+}
+
+template <int OP>
+int launch_ewise(const void* a, int64_t lda, int64_t inca, const void* b,
+                 int64_t ldb, int64_t incb, void* out, int64_t n,
+                 const void* consts, void* stream) {
+  if (n <= 0) return 0;
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  k_fr_ewise<OP><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, lda, inca, (const uint32_t*)b, ldb, incb,
+      (uint32_t*)out, n, F);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int kzg_fr_mul(const void* a, int64_t lda, int64_t inca,
+                          const void* b, int64_t ldb, int64_t incb, void* out,
+                          int64_t n, const void* consts, void* stream) {
+  return launch_ewise<FE_OP_MUL>(a, lda, inca, b, ldb, incb, out, n, consts,
+                                 stream);
+}
+
+extern "C" int kzg_fr_add(const void* a, int64_t lda, int64_t inca,
+                          const void* b, int64_t ldb, int64_t incb, void* out,
+                          int64_t n, const void* consts, void* stream) {
+  return launch_ewise<FE_OP_ADD>(a, lda, inca, b, ldb, incb, out, n, consts,
+                                 stream);
+}
+
+extern "C" int kzg_fr_sub(const void* a, int64_t lda, int64_t inca,
+                          const void* b, int64_t ldb, int64_t incb, void* out,
+                          int64_t n, const void* consts, void* stream) {
+  return launch_ewise<FE_OP_SUB>(a, lda, inca, b, ldb, incb, out, n, consts,
+                                 stream);
+}

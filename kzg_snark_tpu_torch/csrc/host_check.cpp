@@ -1,0 +1,84 @@
+// CPU build of the kernels' thread bodies (g++ only, never nvcc).
+//
+// Each entry loops over the thread indices a launch would cover and calls
+// the same __host__ __device__ body the CUDA kernel calls, so the tests on
+// a machine without a card check the kernels' arithmetic and indexing
+// against the plain PyTorch versions.
+#include <stdint.h>
+#include <string.h>
+
+#include "msm.cuh"
+#include "ntt.cuh"
+
+static FieldConsts consts_of(const void* consts) {
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  return F;
+}
+
+extern "C" int host_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
+                             const void* b, int64_t ldb, int64_t incb,
+                             void* out, int64_t n, const void* consts) {
+  FieldConsts F = consts_of(consts);
+  const uint32_t* x = (const uint32_t*)a;
+  const uint32_t* y = (const uint32_t*)b;
+  uint32_t* o = (uint32_t*)out;
+  for (int64_t i = 0; i < n; i++) {
+    if (op == FE_OP_MUL) {
+      fe_ewise_thread<FE_OP_MUL>(i, x, lda, inca, y, ldb, incb, o, n, F);
+    } else if (op == FE_OP_ADD) {
+      fe_ewise_thread<FE_OP_ADD>(i, x, lda, inca, y, ldb, incb, o, n, F);
+    } else {
+      fe_ewise_thread<FE_OP_SUB>(i, x, lda, inca, y, ldb, incb, o, n, F);
+    }
+  }
+  return 0;
+}
+
+extern "C" int host_g1_add(const void* p, const void* q, void* out, int64_t m,
+                           const void* consts) {
+  FieldConsts F = consts_of(consts);
+  for (int64_t i = 0; i < m; i++)
+    g1_add_thread(i, (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out,
+                  m, F);
+  return 0;
+}
+
+extern "C" int host_g1_double(const void* p, void* out, int64_t m,
+                              const void* consts) {
+  FieldConsts F = consts_of(consts);
+  for (int64_t i = 0; i < m; i++)
+    g1_double_thread(i, (const uint32_t*)p, (uint32_t*)out, m, F);
+  return 0;
+}
+
+extern "C" int host_ntt_radix2(const void* x, void* y, const void* tw,
+                               int64_t n, int64_t span, const void* consts) {
+  FieldConsts F = consts_of(consts);
+  for (int64_t t = 0; t < n / 2; t++)
+    ntt_radix2_thread(t, (const uint32_t*)x, (uint32_t*)y,
+                      (const uint32_t*)tw, n, span, F);
+  return 0;
+}
+
+extern "C" int host_ntt_radix4(const void* x, void* y, const void* tw,
+                               int64_t n, int64_t span, const void* consts) {
+  FieldConsts F = consts_of(consts);
+  for (int64_t t = 0; t < n / 4; t++)
+    ntt_radix4_thread(t, (const uint32_t*)x, (uint32_t*)y,
+                      (const uint32_t*)tw, n, span, F);
+  return 0;
+}
+
+extern "C" int host_msm_bucket(const void* px, const void* py, int64_t npts,
+                               const void* digits, void* table,
+                               int64_t windows, int64_t lanes, int nb,
+                               int complete, const void* consts) {
+  FieldConsts F = consts_of(consts);
+  int64_t cells = windows * lanes;
+  for (int64_t c = 0; c < cells; c++)
+    msm_bucket_thread(c, (const uint32_t*)px, (const uint32_t*)py, npts,
+                      (const int32_t*)digits, (uint32_t*)table, cells, lanes,
+                      nb, complete, F);
+  return 0;
+}

@@ -1,0 +1,88 @@
+"""Pseudo-random G1 bases for MSM checks, and a product-tree inversion.
+
+Counterpart of ``kzg_snark_tpu/ops/benchpoints.py``: P_i = k_i G with k_i
+odd 128-bit multipliers from ``random.Random(seed)``, so the incomplete
+bucket add is sound on the basis and any MSM has a one-multiplication host
+oracle: sum_i s_i P_i = (sum_i s_i k_i mod r) G.  The basis is built on the
+device (128 complete adds of 2^j G, K6) and normalized to Z = 1; the JAX
+package's disk cache is not kept.
+"""
+
+from __future__ import annotations
+
+import random
+
+import torch
+
+from .fr import FieldBackend
+from .g1 import curve_ops
+from .limbs import NUM_LIMBS, ints_to_words, to_tensor
+
+K_BITS = 128
+
+
+def batch_inv(f: FieldBackend, x: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of an (8, n) batch via a product tree: about 2
+    muls an element up, one width-1 Fermat inverse at the root, 2 down.
+    Zero inputs map to zero."""
+    L, n = x.shape
+    zero = f.is_zero(x)
+    v = torch.where(zero[None], f.one_mont, x)
+    m = 1
+    while m < n:
+        m *= 2
+    if m > n:
+        v = torch.cat([v, f.full(f.one_mont, m - n)], dim=1)
+    levels = []
+    while v.shape[1] > 1:
+        levels.append(v)
+        half = v.shape[1] // 2
+        v = f.mul(v[:, :half], v[:, half:])
+    inv = f.inv(v)
+    for lvl in reversed(levels):
+        half = lvl.shape[1] // 2
+        inv = torch.cat([f.mul(inv, lvl[:, half:]), f.mul(inv, lvl[:, :half])],
+                        dim=1)
+    inv = inv[:, :n]
+    return torch.where(zero[None], torch.zeros_like(inv), inv)
+
+
+def normalize_points(f: FieldBackend, pts: torch.Tensor) -> torch.Tensor:
+    """(3, 8, n) Jacobian -> the same points with Z = 1 (no identities)."""
+    zinv = batch_inv(f, pts[2].contiguous())
+    zinv2 = f.mul(zinv, zinv)
+    ax = f.mul(pts[0], zinv2)
+    ay = f.mul(pts[1], f.mul(zinv2, zinv))
+    return torch.stack([ax, ay, f.full(f.one_mont, ax.shape[1])])
+
+
+def random_point_basis(curve_type: str, size: int, seed: int,
+                       device="cpu") -> tuple[torch.Tensor, list[int]]:
+    """(points (3, 8, size) with Z = 1 on ``device``, multipliers k_i)."""
+    from kzg_snark_tpu import constants as C
+    from kzg_snark_tpu.ops.host import curve as hc
+    from kzg_snark_tpu.ops.host.field import base_field
+
+    rng = random.Random(seed)
+    ks = [(rng.getrandbits(K_BITS) | (1 << (K_BITS - 1)) | 1)
+          for _ in range(size)]
+
+    Fp = base_field(curve_type)
+    P = (Fp(C.BN254_G1[0]), Fp(C.BN254_G1[1]), Fp(1))
+    bx, by = [], []
+    for _ in range(K_BITS):
+        a = hc.normalize(P)
+        bx.append(int(a[0]))
+        by.append(int(a[1]))
+        P = hc.double(P)
+    curve = curve_ops(curve_type, device)
+    f = curve.f
+    bases = curve.from_affine_ints(bx, by)                 # (3, 8, K_BITS)
+    kw = to_tensor(ints_to_words(ks), device)              # (8, size)
+    acc = curve.identity((size,)).contiguous()
+    for j in range(K_BITS):
+        word = (kw[j // 32].to(torch.int64) >> (j % 32)) & 1
+        taken = curve.add(acc, bases[:, :, j:j + 1].expand(3, NUM_LIMBS,
+                                                           size))
+        acc = torch.where((word == 1)[None, None], taken, acc)
+    return normalize_points(f, acc), ks

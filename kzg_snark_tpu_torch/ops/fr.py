@@ -1,0 +1,272 @@
+"""Batched prime-field arithmetic on PyTorch tensors.
+
+Counterpart of ``kzg_snark_tpu/ops/fr.py`` ``FieldBackend``: the same ops
+with the same semantics over ``(8, ...)`` int32 limb tensors (see
+``ops/limbs.py``), Montgomery form with R = 2^256, canonical values in and
+out.  Scalars are ``(8, 1)`` columns that broadcast over ``(8, n)``.
+
+Elementwise mul/square/add/sub/neg go through the K1 wrappers of
+``ops/cuda_fr.py``: the kernel for CUDA tensors, the plain version for CPU
+tensors.  Scans, inverses and reductions are Python compositions of those
+ops, as the JAX package composed XLA ops.  One backend serves one
+(modulus, device).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_fr
+from .limbs import (NUM_LIMBS, FieldConsts, ints_to_words, to_tensor,
+                    to_words, words_to_ints)
+
+
+def canonical_device(device) -> torch.device:
+    """torch.device with the CUDA index made explicit ("cuda" -> "cuda:0"),
+    so caches keyed by device agree with ``tensor.device``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class FieldBackend:
+    """Montgomery-limb arithmetic for one prime modulus on one device."""
+
+    _CACHE: dict = {}
+
+    def __new__(cls, modulus: int, device="cpu"):
+        device = canonical_device(device)
+        key = (modulus, str(device))
+        if key in cls._CACHE:
+            return cls._CACHE[key]
+        self = super().__new__(cls)
+        self._init(modulus, device)
+        cls._CACHE[key] = self
+        return self
+
+    def _init(self, modulus: int, device: torch.device) -> None:
+        self.modulus = modulus
+        self.device = device
+        self.num_limbs = NUM_LIMBS
+        self.consts = FieldConsts(modulus)
+        fc = self.consts
+        col = lambda v: to_tensor(ints_to_words([v]), device)   # noqa: E731
+        self.one_mont = col(fc.one_mont)            # (8, 1)
+        self.r2_limbs = col(fc.r2)
+        self.one_canonical = col(1)                 # from_mont multiplier
+        self.zero_limbs = col(0)
+
+    # ------------------------------------------------------------------
+    # Host <-> device conversion (canonical ints at the boundary).
+    # ------------------------------------------------------------------
+    def from_ints(self, values) -> torch.Tensor:
+        """Python ints -> Montgomery limb tensor (8, N) on the device."""
+        p = self.modulus
+        raw = to_tensor(ints_to_words([int(v) % p for v in values]),
+                        self.device)
+        return self.to_mont(raw)
+
+    def to_ints(self, arr: torch.Tensor) -> list[int]:
+        """Montgomery limb tensor (8, ...) -> flat list of canonical ints."""
+        flat = arr.reshape(NUM_LIMBS, -1)
+        return words_to_ints(to_words(self.from_mont(flat)))
+
+    def scalar(self, value: int) -> torch.Tensor:
+        """One element in Montgomery form, shape (8, 1)."""
+        return self.from_ints([value])
+
+    def full(self, col: torch.Tensor, count: int) -> torch.Tensor:
+        """An (8, 1) column repeated to (8, count)."""
+        return col.expand(NUM_LIMBS, count).contiguous()
+
+    # ------------------------------------------------------------------
+    # Elementwise ring ops (K1 and its add/sub entry points).
+    # ------------------------------------------------------------------
+    def _ewise(self, op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Apply an (8, n)-shaped wrapper to any broadcastable (8, ...)."""
+        if a.dim() == 2 and b.dim() == 2 and (
+                a.shape == b.shape or 1 in (a.shape[1], b.shape[1])):
+            return op(self.consts, a.contiguous(), b.contiguous())
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        if a.shape == shape and b.numel() == NUM_LIMBS:
+            out = op(self.consts, a.reshape(NUM_LIMBS, -1).contiguous(),
+                     b.reshape(NUM_LIMBS, 1).contiguous())
+        elif b.shape == shape and a.numel() == NUM_LIMBS:
+            out = op(self.consts, a.reshape(NUM_LIMBS, 1).contiguous(),
+                     b.reshape(NUM_LIMBS, -1).contiguous())
+        else:
+            out = op(self.consts,
+                     a.expand(shape).reshape(NUM_LIMBS, -1).contiguous(),
+                     b.expand(shape).reshape(NUM_LIMBS, -1).contiguous())
+        return out.reshape(shape)
+
+    def mul(self, a, b):
+        """Montgomery product (a b R^-1) mod p."""
+        return self._ewise(cuda_fr.fr_mul, a, b)
+
+    def square(self, a):
+        return self._ewise(cuda_fr.fr_mul, a, a)
+
+    def add(self, a, b):
+        return self._ewise(cuda_fr.fr_add, a, b)
+
+    def sub(self, a, b):
+        return self._ewise(cuda_fr.fr_sub, a, b)
+
+    def neg(self, a):
+        return self._ewise(cuda_fr.fr_sub, self.zero_limbs, a)
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def to_mont(self, a_canonical):
+        return self.mul(a_canonical, self.r2_limbs)
+
+    def from_mont(self, a):
+        """Montgomery -> canonical: the product with the integer 1."""
+        return self.mul(a, self.one_canonical)
+
+    # ------------------------------------------------------------------
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        return (a == 0).all(dim=0)
+
+    def select(self, cond, a, b):
+        """where(cond, a, b) with cond broadcast over the limb axis."""
+        return torch.where(cond[None], a, b)
+
+    # ------------------------------------------------------------------
+    def pow_const(self, a: torch.Tensor, exponent: int) -> torch.Tensor:
+        """a^e for a static exponent: square-and-multiply, LSB first."""
+        if exponent < 0:
+            raise ValueError("negative exponents: use inv() then pow_const")
+        result = None
+        base = a
+        while exponent:
+            if exponent & 1:
+                result = base if result is None else self.mul(result, base)
+            exponent >>= 1
+            if exponent:
+                base = self.square(base)
+        if result is None:
+            return self.one_mont.expand(a.shape).contiguous()
+        return result
+
+    def inv(self, a):
+        """Batched inversion by Fermat: a^(p-2).  inv(0) = 0."""
+        return self.pow_const(a, self.modulus - 2)
+
+    @staticmethod
+    def _lanes(n: int) -> int:
+        """Chain count of the two-level scans: about sqrt(n), so the
+        sequential depth (n / lanes steps, then lanes chain steps) is
+        balanced."""
+        return max(1, 1 << ((n - 1).bit_length() // 2)) if n > 1 else 1
+
+    def _pad_ones(self, a: torch.Tensor, total: int) -> torch.Tensor:
+        n = a.shape[1]
+        if total == n:
+            return a
+        return torch.cat([a, self.full(self.one_mont, total - n)], dim=1)
+
+    def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Montgomery-trick inversion of an (8, N) batch: lane chains of
+        prefix and suffix products, one Fermat inversion of the chain
+        totals.  Zero entries map to zero."""
+        L, n = a.shape
+        lanes = self._lanes(n)
+        steps = -(-n // lanes)
+        zero = self.is_zero(a)
+        safe = torch.where(zero[None], self.one_mont, a)
+        x = self._pad_ones(safe, steps * lanes).reshape(L, steps, lanes)
+        pre = [None] * steps
+        acc = self.full(self.one_mont, lanes)
+        for t in range(steps):
+            pre[t] = acc
+            acc = self.mul(acc, x[:, t].contiguous())
+        chain_inv = self.inv(acc)
+        suf = [None] * steps
+        acc = self.full(self.one_mont, lanes)
+        for t in range(steps - 1, -1, -1):
+            suf[t] = acc
+            acc = self.mul(acc, x[:, t].contiguous())
+        pre_t = torch.stack(pre, dim=1).reshape(L, -1)
+        suf_t = torch.stack(suf, dim=1).reshape(L, -1)
+        chain = chain_inv[:, None, :].expand(L, steps, lanes).reshape(L, -1)
+        out = self.mul(self.mul(pre_t, suf_t), chain)[:, :n]
+        return torch.where(zero[None], torch.zeros_like(out), out)
+
+    def exclusive_prefix_prod(self, a: torch.Tensor) -> torch.Tensor:
+        """out[j] = prod_{i<j} a[i] for an (8, N); out[0] = 1.  Two-level
+        blocked scan (the PLONK grand-product accumulator)."""
+        L, n = a.shape
+        lanes = self._lanes(n)
+        steps = -(-n // lanes)
+        # chain c = contiguous block [c * steps, (c + 1) * steps)
+        x = self._pad_ones(a, steps * lanes).reshape(L, lanes, steps)
+        pre = [None] * steps
+        acc = self.full(self.one_mont, lanes)
+        for t in range(steps):
+            pre[t] = acc
+            acc = self.mul(acc, x[:, :, t].contiguous())
+        chain_excl = [None] * lanes
+        run = self.one_mont
+        for c in range(lanes):
+            chain_excl[c] = run
+            run = self.mul(run, acc[:, c:c + 1].contiguous())
+        chain = torch.cat(chain_excl, dim=1)                  # (L, lanes)
+        pre_t = torch.stack(pre, dim=2)                  # (L, lanes, steps)
+        out = self.mul(pre_t, chain[:, :, None])
+        return out.reshape(L, steps * lanes)[:, :n].contiguous()
+
+    def sum_reduce(self, a: torch.Tensor) -> torch.Tensor:
+        """Sum an (8, N) batch along the last axis -> (8, 1), by a padded
+        halving tree of adds."""
+        L, n = a.shape
+        while n > 1:
+            if n % 2:
+                a = torch.cat([a, self.zero_limbs], dim=1)
+                n += 1
+            half = n // 2
+            a = self.add(a[:, :half], a[:, half:])
+            n = half
+        return a
+
+    def suffix_sums_exclusive(self, a: torch.Tensor) -> torch.Tensor:
+        """out[j] = sum_{i>j} a[i] for an (8, N): one shift plus an
+        inclusive Hillis-Steele ladder (log2 N full-width adds)."""
+        L, n = a.shape
+        x = torch.cat([a[:, 1:], self.zero_limbs], dim=1)
+        shift = 1
+        while shift < n:
+            rolled = torch.cat(
+                [x[:, shift:], self.zero_limbs.expand(L, shift)], dim=1)
+            x = self.add(x, rolled)
+            shift *= 2
+        return x
+
+    def powers_of(self, c: int, count: int) -> torch.Tensor:
+        """[1, c, ..., c^(count-1)] (8, count) Montgomery, by doubling
+        concatenation (log2(count) muls)."""
+        c = c % self.modulus
+        table = self.one_mont
+        length = 1
+        while length < count:
+            c_pow = self.scalar(pow(c, length, self.modulus))
+            table = torch.cat([table, self.mul(table, c_pow)], dim=1)
+            length *= 2
+        return table[:, :count].contiguous()
+
+
+def fr_backend(curve_type: str = "bn254", device="cpu") -> FieldBackend:
+    from kzg_snark_tpu import constants as C
+    if curve_type != "bn254":
+        raise ValueError("the port supports bn254 only so far")
+    return FieldBackend(C.BN254_R, device)
+
+
+def fq_backend(curve_type: str = "bn254", device="cpu") -> FieldBackend:
+    from kzg_snark_tpu import constants as C
+    if curve_type != "bn254":
+        raise ValueError("the port supports bn254 only so far")
+    return FieldBackend(C.BN254_P, device)

@@ -1,0 +1,95 @@
+"""Batched short-Weierstrass (a = 0) curve arithmetic on PyTorch tensors.
+
+Counterpart of ``kzg_snark_tpu/ops/g1.py`` ``CurveOps``.  A batch of points
+is an int32 tensor of shape (3, 8, ...): Jacobian (X, Y, Z) over Fq limbs in
+Montgomery form, the identity encoded as Z = 0.  ``add`` and ``double``
+dispatch as ``g1.py:77-94`` does: to the K6 / K7 kernels for CUDA tensors
+and to their plain versions for CPU tensors.  The formulas are those of
+``ops/regcurve.py``, so every representative equals the JAX package's.
+
+``add_mixed`` (p + an affine q) is the complete add with q lifted to Z = 1:
+the same point as the JAX ``add_mixed_xla``, but the representative of the
+add-2007-bl formula (the madd-2007-bl kernel K9 is not ported yet).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_fr
+from .fr import FieldBackend, fq_backend
+from .limbs import NUM_LIMBS
+
+
+class CurveOps:
+    """Jacobian ops over one base field on one device."""
+
+    def __init__(self, backend: FieldBackend):
+        self.f = backend
+
+    # -- constructors ---------------------------------------------------
+    def _ones(self, batch_shape) -> torch.Tensor:
+        col = self.f.one_mont.reshape((NUM_LIMBS,) + (1,) * len(batch_shape))
+        return col.expand((NUM_LIMBS,) + tuple(batch_shape))
+
+    def identity(self, batch_shape=(1,)) -> torch.Tensor:
+        x = self._ones(batch_shape)
+        return torch.stack([x, x, torch.zeros_like(x)])
+
+    def from_affine_ints(self, xs, ys) -> torch.Tensor:
+        """Host ints -> (3, 8, N) Jacobian with Z = 1."""
+        x = self.f.from_ints(xs)
+        y = self.f.from_ints(ys)
+        return torch.stack([x, y, self._ones(x.shape[1:])])
+
+    def to_affine_ints(self, pts: torch.Tensor) -> list:
+        """(3, 8, ...) -> list of (x, y) int tuples, None for the identity."""
+        f = self.f
+        flat = pts.reshape(3, NUM_LIMBS, -1)
+        X, Y, Z = flat[0], flat[1], flat[2]
+        zinv = f.inv(Z)
+        zinv2 = f.mul(zinv, zinv)
+        ax = f.to_ints(f.mul(X, zinv2))
+        ay = f.to_ints(f.mul(Y, f.mul(zinv2, zinv)))
+        inf = f.is_zero(Z).cpu().tolist()
+        return [None if inf[i] else (ax[i], ay[i]) for i in range(len(ax))]
+
+    # -- group law (K6 / K7) ----------------------------------------------
+    def _flat(self, pts: torch.Tensor) -> torch.Tensor:
+        return pts.reshape(3, NUM_LIMBS, -1).contiguous()
+
+    def add(self, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """Complete Jacobian add; batches broadcast against each other."""
+        shape = torch.broadcast_shapes(p.shape, q.shape)
+        out = cuda_fr.g1_add(self.f.consts, self._flat(p.expand(shape)),
+                             self._flat(q.expand(shape)))
+        return out.reshape(shape)
+
+    def double(self, pts: torch.Tensor) -> torch.Tensor:
+        out = cuda_fr.g1_double(self.f.consts, self._flat(pts))
+        return out.reshape(pts.shape)
+
+    def add_mixed(self, p: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
+                  ) -> torch.Tensor:
+        """Complete p + (qx, qy, 1) through the complete add."""
+        batch = p.shape[2:]
+        qx = qx.expand((NUM_LIMBS,) + batch)
+        qy = qy.expand((NUM_LIMBS,) + batch)
+        return self.add(p, torch.stack([qx, qy, self._ones(batch)]))
+
+    # -- reductions -----------------------------------------------------
+    def tree_sum(self, pts: torch.Tensor) -> torch.Tensor:
+        """Sum a (3, 8, N) batch along the last axis -> (3, 8, 1)."""
+        n = pts.shape[-1]
+        while n > 1:
+            if n % 2:
+                pts = torch.cat([pts, self.identity()], dim=-1)
+                n += 1
+            half = n // 2
+            pts = self.add(pts[..., :half], pts[..., half:])
+            n = half
+        return pts
+
+
+def curve_ops(curve_type: str = "bn254", device="cpu") -> CurveOps:
+    return CurveOps(fq_backend(curve_type, device))

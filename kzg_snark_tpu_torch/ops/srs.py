@@ -1,0 +1,106 @@
+"""Structured reference string on the device.
+
+Counterpart of ``kzg_snark_tpu/ops/srs.py``: ``DeviceSRS`` holds
+[G1, tau G1, ..., tau^d G1] as a (3, 8, d+1) tensor with Z = 1, and
+``setup_g1_powers`` builds it by a windowed fixed-base method: a table
+T[j, v] = v 2^(c j) G of W x 2^c points, then every tau^i G is a sum of W
+table entries, one complete add (K6) per window over the whole batch.  The
+JAX package gathered the entries through a one-hot matmul to dodge a TPU
+fault; here a plain index gather does it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .benchpoints import normalize_points
+from .fr import canonical_device
+from .g1 import CurveOps
+from .limbs import NUM_LIMBS, ints_to_words
+from .msm import msm_context
+
+
+class DeviceSRS:
+    """Device-resident [G1, tau G1, ..., tau^d G1] (3, 8, d+1), Z = 1."""
+
+    def __init__(self, curve_type: str, points: torch.Tensor):
+        self.curve_type = curve_type
+        self.points = points
+        self.device = canonical_device(points.device)
+        self._curve = msm_context(curve_type, self.device).curve
+
+    def __len__(self) -> int:
+        return int(self.points.shape[-1])
+
+    def __getitem__(self, i: int):
+        """Host projective tuple view (x, y, 1), cached after the first
+        full transfer."""
+        if not hasattr(self, "_host_cache"):
+            from kzg_snark_tpu.ops.host.field import base_field
+            Fp = base_field(self.curve_type)
+            self._host_cache = [
+                (Fp(a[0]), Fp(a[1]), Fp(1)) if a is not None else
+                (Fp(1), Fp(1), Fp(0))
+                for a in self._curve.to_affine_ints(self.points)]
+        return self._host_cache[i]
+
+
+def _fixed_base_table(curve: CurveOps, base: torch.Tensor, window_bits: int,
+                      windows: int) -> torch.Tensor:
+    """T[:, :, j, v] = v 2^(c j) base for j < W, v < 2^c: (3, 8, W, 2^c).
+
+    Window bases by c doublings each (K7); the rows by doubling
+    concatenation, T[:, v + 2^k] = T[:, v] + T[:, 2^k] (K6)."""
+    bases = [base]
+    for _ in range(windows - 1):
+        b = bases[-1]
+        for _ in range(window_bits):
+            b = curve.double(b)
+        bases.append(b)
+    bases = torch.cat(bases, dim=-1)                        # (3, 8, W)
+    rows = torch.stack([curve.identity((windows,)), bases], dim=-1)
+    while rows.shape[-1] < (1 << window_bits):
+        count = rows.shape[-1]
+        step = curve.double(rows[..., count // 2:count // 2 + 1])  # count*b
+        rows = torch.cat([rows, curve.add(rows, step.expand(rows.shape))],
+                         dim=-1)
+    return rows
+
+
+def setup_g1_powers(kzg, tau: int, max_degree: int, window_bits: int = 8,
+                    device="cpu") -> DeviceSRS:
+    """The device SRS [tau^i G1] for i <= max_degree."""
+    ctx = msm_context(kzg.curve_type, device)
+    curve = ctx.curve
+    r = kzg.curve_order
+    if tau % r == 0:
+        raise ValueError("tau must be nonzero mod the curve order")
+    n = max_degree + 1
+    powers = [1] * n
+    acc = 1
+    for i in range(1, n):
+        acc = (acc * tau) % r
+        powers[i] = acc
+
+    c = window_bits
+    windows = -(-r.bit_length() // c)
+    words = ints_to_words(powers).astype(np.uint64)        # (8, n)
+    dig = np.zeros((windows, n), dtype=np.int64)
+    for j in range(windows):
+        bit = c * j
+        li, sh = bit >> 5, bit & 31
+        v = words[li] >> np.uint64(sh)
+        if sh + c > 32 and li + 1 < NUM_LIMBS:
+            v = v | (words[li + 1] << np.uint64(32 - sh))
+        dig[j] = (v & np.uint64((1 << c) - 1)).astype(np.int64)
+
+    g1 = kzg.G1
+    base = curve.from_affine_ints([int(g1[0])], [int(g1[1])])
+    table = _fixed_base_table(curve, base, c, windows)     # (3, 8, W, 2^c)
+    digits = torch.from_numpy(dig).to(ctx.device)
+    acc_pts = curve.identity((n,)).contiguous()
+    for j in range(windows):
+        picked = table[:, :, j, :][:, :, digits[j]]        # (3, 8, n)
+        acc_pts = curve.add(acc_pts, picked)
+    return DeviceSRS(kzg.curve_type, normalize_points(curve.f, acc_pts))

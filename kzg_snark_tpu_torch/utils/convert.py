@@ -1,0 +1,51 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+The JAX package holds field elements as (16, ...) uint32 arrays of 16-bit
+limbs; the port as (8, ...) int32 tensors of 32-bit limbs.  Both are the
+same Montgomery integers (R = 2^256), so conversion is a pairing of limbs,
+no arithmetic.  Nothing here imports JAX: callers pass ``np.asarray`` of
+JAX arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.limbs import to_tensor, to_words
+
+
+def limbs16_to_tensor(arr, device="cpu") -> torch.Tensor:
+    """(16, ...) uint32 16-bit limbs -> (8, ...) int32 32-bit limbs."""
+    a = np.asarray(arr, dtype=np.uint32)
+    if a.shape[0] != 16 or (a >> 16).any():
+        raise ValueError("expected (16, ...) 16-bit limbs")
+    words = a[0::2] | (a[1::2] << np.uint32(16))
+    return to_tensor(words, device)
+
+
+def tensor_to_limbs16(t: torch.Tensor) -> np.ndarray:
+    """(8, ...) int32 32-bit limbs -> (16, ...) uint32 16-bit limbs."""
+    w = to_words(t)
+    out = np.empty((16,) + w.shape[1:], dtype=np.uint32)
+    out[0::2] = w & np.uint32(0xFFFF)
+    out[1::2] = w >> np.uint32(16)
+    return out
+
+
+def points16_to_tensor(pts, device="cpu") -> torch.Tensor:
+    """(3, 16, ...) JAX Jacobian points -> (3, 8, ...) port points."""
+    a = np.asarray(pts, dtype=np.uint32)
+    return torch.stack([limbs16_to_tensor(a[i], device) for i in range(3)])
+
+
+def device_srs_from_jax(curve_type: str, points, device="cpu"):
+    """A JAX ``DeviceSRS.points`` (3, 16, d+1) array -> port DeviceSRS."""
+    from ..ops.srs import DeviceSRS
+    return DeviceSRS(curve_type, points16_to_tensor(points, device))
+
+
+def device_cache_from_jax(cache: dict, device="cpu") -> dict:
+    """A JAX ``ipk["_device_cache"]`` dict of (16, n) arrays -> the port's
+    dict of (8, n) tensors, under the same keys."""
+    return {k: limbs16_to_tensor(v, device) for k, v in cache.items()}

@@ -1,0 +1,114 @@
+"""Kernel wrappers: dispatch rules on any machine, kernels on the card.
+
+Without a card: CPU tensors take the plain versions, and a tensor on any
+other device never does (it goes to the kernel path, which checks its
+operands and raises).  With a card (tests marked ``cuda``, skipped where
+``torch.cuda.is_available()`` is false): every kernel entry point equals
+its plain version on small numpy-seeded inputs and counts its launch.
+The full-size comparison is ``python3 chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kzg_snark_tpu_torch.ops import cuda_fr
+from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+from kzg_snark_tpu_torch.ops.msm_kernel import msm_bucket, msm_bucket_plain
+from kzg_snark_tpu_torch.ops.ntt_stage import ntt_stage
+from kzg_snark_tpu_torch.utils.build import LAUNCHES
+
+
+def words(n, seed, device="cpu"):
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(8, n),
+                                             dtype=np.uint64)
+    w[7] &= (1 << 29) - 1
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("fn", [cuda_fr.fr_mul, cuda_fr.fr_add,
+                                cuda_fr.fr_sub])
+def test_field_wrapper_never_sends_other_devices_to_plain(fn):
+    fc = fr_backend("bn254").consts
+    a = torch.empty((8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(fc, a, a)
+
+
+def test_curve_and_stage_wrappers_reject_other_devices():
+    fc = fq_backend("bn254").consts
+    p = torch.empty((3, 8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fr.g1_add(fc, p, p)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fr.g1_double(fc, p)
+    x = torch.empty((8, 8), dtype=torch.int32, device="meta")
+    tw = torch.empty((8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ntt_stage(fc, x, tw, 1, 2)
+    d = torch.empty((37, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_bucket(fc, x, x, d, 1, False)
+
+
+def test_cpu_path_counts_no_launch():
+    LAUNCHES.clear()
+    fc = fr_backend("bn254").consts
+    a = words(16, 1)
+    assert torch.equal(cuda_fr.fr_mul(fc, a, a), cuda_fr.mul_plain(fc, a, a))
+    assert sum(LAUNCHES.values()) == 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_field_kernels_match_plain(cuda):
+    fc = fr_backend("bn254", cuda).consts
+    a, b = words(1000, 1, cuda), words(1000, 2, cuda)
+    for k, p in [(cuda_fr.fr_mul, cuda_fr.mul_plain),
+                 (cuda_fr.fr_add, cuda_fr.add_plain),
+                 (cuda_fr.fr_sub, cuda_fr.sub_plain)]:
+        before = sum(LAUNCHES.values())
+        assert torch.equal(k(fc, a, b), p(fc, a, b))
+        assert torch.equal(k(fc, a, b[:, :1].contiguous()),
+                           p(fc, a, b[:, :1]))
+        assert sum(LAUNCHES.values()) == before + 2
+    with pytest.raises(TypeError):
+        cuda_fr.fr_mul(fc, a.to(torch.int64), b.to(torch.int64))
+    with pytest.raises(ValueError):
+        cuda_fr.fr_mul(fc, a.t(), b.t())
+
+
+@pytest.mark.cuda
+def test_curve_stage_and_bucket_kernels_match_plain(cuda):
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.msm_kernel import signed_digits
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
+
+    fq = fq_backend("bn254", cuda).consts
+    pts, _ = random_point_basis("bn254", 256, seed=1, device=cuda)
+    q = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
+    assert torch.equal(cuda_fr.g1_add(fq, pts, q),
+                       cuda_fr.g1_add_plain(fq, pts, q))
+    assert torch.equal(cuda_fr.g1_double(fq, q),
+                       cuda_fr.g1_double_plain(fq, q))
+    ctx = ntt_context("bn254", 64, cuda)
+    fr = ctx.backend.consts
+    x = words(64, 3, cuda)
+    for span in (1, 2, 16):
+        assert torch.equal(ntt_stage(fr, x, ctx.tw_fwd, span, 4),
+                           radix4_plain(fr, x, ctx.tw_fwd, span))
+    for span in (1, 32):
+        assert torch.equal(ntt_stage(fr, x, ctx.tw_fwd, span, 2),
+                           radix2_plain(fr, x, ctx.tw_fwd, span))
+    dig = signed_digits(words(256, 4, cuda), 254)
+    px, py = pts[0].contiguous(), pts[1].contiguous()
+    for complete in (False, True):
+        assert torch.equal(msm_bucket(fq, px, py, dig, 16, complete),
+                           msm_bucket_plain(fq, px, py, dig, 16, complete))

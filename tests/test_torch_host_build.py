@@ -1,0 +1,130 @@
+"""The CUDA kernels' thread bodies, built for the CPU with g++, against the
+plain PyTorch versions.
+
+``csrc/host_check.cpp`` loops over the thread indices of each launch and
+calls the same ``__host__ __device__`` code the kernels run, so this checks
+the kernels' arithmetic and indexing on a machine without a card.  Exact
+equality: the arithmetic is integer.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from kzg_snark_tpu import constants as C
+from kzg_snark_tpu_torch.ops import cuda_fr
+from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+from kzg_snark_tpu_torch.ops.limbs import FieldConsts, to_tensor, to_words
+from kzg_snark_tpu_torch.ops.msm_kernel import msm_bucket_plain, signed_digits
+from kzg_snark_tpu_torch.ops.ntt import ntt_context
+from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
+from kzg_snark_tpu_torch.utils.build import host_lib
+
+# Tiny tensors: one intra-op thread is faster than many, and the test
+# workers share the CPU (threads that spin-wait stall them all).
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def lib():
+    return host_lib()
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def _words(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(to_words(t))
+
+
+def _random_field(p, n, seed):
+    rng = random.Random(seed)
+    return ([0, 1, p - 1] + [rng.randrange(p) for _ in range(n)])[:n]
+
+
+@pytest.mark.parametrize("modulus", [C.BN254_R, C.BN254_P],
+                         ids=["fr", "fq"])
+@pytest.mark.parametrize("op", [0, 1, 2], ids=["mul", "add", "sub"])
+def test_field_ewise(lib, modulus, op):
+    be = fr_backend("bn254") if modulus == C.BN254_R else fq_backend("bn254")
+    fc = FieldConsts(modulus)
+    a = be.from_ints(_random_field(modulus, 64, 1))
+    b = be.from_ints(_random_field(modulus, 64, 2)[::-1])
+    plain = [cuda_fr.mul_plain, cuda_fr.add_plain, cuda_fr.sub_plain][op]
+    for bb in (b, b[:, 3:4].contiguous()):              # dense, broadcast
+        aw, bw = _words(a), _words(bb)
+        out = np.empty_like(aw)
+        lib.host_fr_ewise(op, _ptr(aw), 64, 1, _ptr(bw), bb.shape[1],
+                          int(bb.shape[1] != 1), _ptr(out), 64, fc.ptr)
+        assert np.array_equal(out, _words(plain(fc, a, bb)))
+
+
+def _edge_points(curve, k=16):
+    """Random points, their doubles' inputs, negatives and the identity."""
+    pts, _ = random_point_basis("bn254", k, seed=11)
+    f = curve.f
+    neg = torch.stack([pts[0], f.neg(pts[1]), pts[2]])
+    ident = curve.identity((k,))
+    dbl = curve.double(pts)
+    p = torch.cat([pts, pts, pts, ident, dbl, ident], dim=-1)
+    q = torch.cat([pts.roll(1, -1), pts, neg, pts, pts, ident], dim=-1)
+    return p.contiguous(), q.contiguous()
+
+
+def test_g1_add_double(lib):
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    curve = curve_ops("bn254")
+    fc = curve.f.consts
+    p, q = _edge_points(curve)
+    m = p.shape[-1]
+    pw, qw = _words(p), _words(q)
+    out = np.empty_like(pw)
+    lib.host_g1_add(_ptr(pw), _ptr(qw), _ptr(out), m, fc.ptr)
+    assert np.array_equal(out, _words(cuda_fr.g1_add_plain(fc, p, q)))
+    lib.host_g1_double(_ptr(pw), _ptr(out), m, fc.ptr)
+    assert np.array_equal(out, _words(cuda_fr.g1_double_plain(fc, p)))
+
+
+@pytest.mark.parametrize("n", [2, 8, 32])
+def test_ntt_stages(lib, n):
+    ctx = ntt_context("bn254", n)
+    fc = ctx.backend.consts
+    x = ctx.backend.from_ints(_random_field(C.BN254_R, n, n))
+    xw, tw = _words(x), _words(ctx.tw_fwd)
+    out = np.empty_like(xw)
+    span = 1
+    while 2 * span <= n:
+        lib.host_ntt_radix2(_ptr(xw), _ptr(out), _ptr(tw), n, span, fc.ptr)
+        assert np.array_equal(out, _words(radix2_plain(fc, x, ctx.tw_fwd,
+                                                        span)))
+        if 4 * span <= n:
+            lib.host_ntt_radix4(_ptr(xw), _ptr(out), _ptr(tw), n, span,
+                                fc.ptr)
+            assert np.array_equal(out, _words(radix4_plain(
+                fc, x, ctx.tw_fwd, span)))
+        span *= 2
+
+
+@pytest.mark.parametrize("complete", [False, True])
+def test_msm_bucket_pass(lib, complete):
+    n, lanes = 64, 4
+    pts, _ = random_point_basis("bn254", n, seed=3)
+    fc = fq_backend("bn254").consts
+    rng = np.random.default_rng(4)
+    words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    words[7] &= (1 << 29) - 1
+    words[:, 0] = 0
+    scalars = to_tensor(words.astype(np.uint32), "cpu")
+    dig = signed_digits(scalars, 254)
+    px, py = pts[0].contiguous(), pts[1].contiguous()
+    table = msm_bucket_plain(fc, px, py, dig, lanes, complete)
+    W = dig.shape[0]
+    out = np.empty(table.shape, dtype=np.uint32)
+    pxw, pyw, dw = _words(px), _words(py), np.ascontiguousarray(dig.numpy())
+    lib.host_msm_bucket(_ptr(pxw), _ptr(pyw), n, _ptr(dw), _ptr(out), W,
+                        lanes, 64, int(complete), fc.ptr)
+    assert np.array_equal(out, _words(table))

@@ -1,0 +1,80 @@
+"""The port's NTT against the JAX package's and the host FFT.
+
+ntt and intt must equal the JAX ``NttContext`` limb for limb at n = 2^1 ..
+2^10, and coset_ntt / coset_intt at n = 2^2.  The JAX side is called
+eagerly; ntt and intt run its compile-light mode (``light=True``, one
+loop body per size: the unrolled mode compiles every stage's ops apart and
+costs minutes on the CPU), which gives the same integers.  The port's own
+radix-4 / radix-2 plan is checked against the host ``ops/host/fft.py`` at
+2^11 and 2^12, odd and even log n.  Inputs are numpy-seeded.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kzg_snark_tpu.ops.host.fft import fft_ff
+from kzg_snark_tpu.ops.host.field import scalar_field
+from kzg_snark_tpu.ops.ntt import ntt_context as jax_ntt_context
+from kzg_snark_tpu_torch.ops.ntt import bit_reverse_indices, ntt_context
+from kzg_snark_tpu_torch.utils.convert import tensor_to_limbs16
+
+# Tiny tensors: one intra-op thread is faster than many, and the test
+# workers share the CPU (threads that spin-wait stall them all).
+torch.set_num_threads(1)
+
+Fr = scalar_field("bn254")
+SHIFT = Fr.generator
+
+
+def values(n, seed):
+    rng = np.random.default_rng(seed)
+    out = [int.from_bytes(rng.bytes(32), "little") % Fr.modulus
+           for _ in range(n)]
+    out[0] = 0
+    if n > 1:
+        out[1] = Fr.modulus - 1
+    return out
+
+
+@pytest.mark.parametrize("log_n", range(1, 11))
+def test_matches_jax_ntt_context(log_n):
+    n = 1 << log_n
+    jctx = jax_ntt_context("bn254", n)
+    tctx = ntt_context("bn254", n)
+    assert tctx.root == jctx.root
+    xs = values(n, log_n)
+    ja, ta = jctx.backend.from_ints(xs), tctx.backend.from_ints(xs)
+    for j_out, t_out in [(jctx.ntt(ja, light=True), tctx.ntt(ta)),
+                         (jctx.intt(ja, light=True), tctx.intt(ta))]:
+        assert np.array_equal(np.asarray(j_out), tensor_to_limbs16(t_out))
+
+
+def test_coset_matches_jax_ntt_context():
+    n = 4
+    jctx = jax_ntt_context("bn254", n)
+    tctx = ntt_context("bn254", n)
+    xs = values(n, 99)
+    ja, ta = jctx.backend.from_ints(xs), tctx.backend.from_ints(xs)
+    for j_out, t_out in [
+            (jctx.coset_ntt(ja, SHIFT), tctx.coset_ntt(ta, SHIFT)),
+            (jctx.coset_intt(ja, SHIFT), tctx.coset_intt(ta, SHIFT))]:
+        assert np.array_equal(np.asarray(j_out), tensor_to_limbs16(t_out))
+
+
+@pytest.mark.parametrize("log_n", [11, 12])
+def test_staged_plan_matches_host_fft(log_n):
+    n = 1 << log_n
+    ctx = ntt_context("bn254", n)
+    be = ctx.backend
+    xs = values(n, 100 + log_n)
+    a = be.from_ints(xs)
+    out = be.to_ints(ctx.ntt(a))
+    assert out == [int(v) for v in fft_ff([Fr(x) for x in xs],
+                                          Fr(ctx.root))]
+    assert be.to_ints(ctx.intt(ctx.ntt(a))) == xs
+
+
+def test_bit_reverse_indices():
+    assert bit_reverse_indices(8).tolist() == [0, 4, 2, 6, 1, 5, 3, 7]
+    assert bit_reverse_indices(1).tolist() == [0]
