@@ -4,21 +4,33 @@
     python3 chip_smoke.py
 
 Phases, in order, one printed line or block each:
-  device   the card's name and power limit (nvidia-smi)
-  build    nvcc build of kzg_snark_tpu_torch/csrc/*.cu, timed
-  kernels  every kernel entry point against its plain PyTorch version on
-           the card at the main path's shapes: exact equality, both times
-  ntt      NTT at n = 2^18: forward + inverse round trip, host spot checks
-  msm      MSM at 2^16 points on a random-multiplier basis vs the host
-           oracle (sum s_i k_i) G
-  parity   PLONK at n = 2^6: the port's proof byte-identical to the host
-           prover's (normalized commitments)
-  main     PLONK at n = 2^16 (the BASELINE circuit): index, two proves,
-           host verification, tamper rejection, phase map, peak memory and
-           the kernel launch counts of that run
+  device         the card's name and power limit (nvidia-smi)
+  build          nvcc build of kzg_snark_tpu_torch/csrc/*.cu (one nvcc per
+                 source, side by side), timed
+  kernels        every kernel entry point against its plain PyTorch version
+                 on the card at the main paths' shapes: exact equality, both
+                 times, and the least time the card could take (bound)
+  ntt            NTT at n = 2^18: "scan" mode (K10) equal to "staged",
+                 forward and inverse; round trip, host spot checks
+  msm            MSM at 2^16 points on a random-multiplier basis (built with
+                 K9) vs the host oracle (sum s_i k_i) G
+  parity         PLONK at n = 2^6: the port's proof byte-identical to the
+                 port's host prover's (normalized commitments)
+  main           PLONK at n = 2^16: index, two proves, host verification,
+                 tamper rejection, phase map, peak memory, launch counts
+  marlin_parity  Marlin at |H| = 2^6: the device proof byte-identical to the
+                 port's host Marlin prover's; the scan MSM (K9) ran
+  marlin         Marlin at |H| = 2^14 (m = 2^15): index, two proves, host
+                 verification, tamper rejection, phase map, peak memory,
+                 launch counts
+  profile        one more steady Marlin |H| = 2^14 prove under torch.profiler:
+                 device busy time, idle share, device time by kernel
 
-The second-to-last lines are the kernels JSON and the nvidia-smi line; the
-last line is the result JSON.  Any failure raises (non-zero exit, no result
+Each path (ntt scan, msm, main, marlin_parity, marlin) runs with the launch
+counts set to 0 just before it and read just after; a kernel's "launches"
+in the kernels JSON line are those of the path it is listed under.  The
+second-to-last lines are the kernels JSON and the nvidia-smi line; the last
+line is the result JSON.  Any failure raises (non-zero exit, no result
 line).  Without a CUDA device the script exits non-zero at once.
 """
 
@@ -30,46 +42,72 @@ import subprocess
 import sys
 import time
 
-# Kernels the main path launches: source file and the TPU kernel each
-# replaces (fr_add / fr_sub are entry points of the K1 file; the radix-4
-# NTT stage also replaces ntt_stage.py:202).  The radix-2 stage (K3 / K5)
-# is compared below too, but n = 2^16 and 4n = 2^18 take radix-4 passes
-# only, so the main path never launches it.
+# name -> (source, TPU kernel it replaces, the path whose launches count).
 KERNELS = {
     "fr_mul": ("kzg_snark_tpu_torch/csrc/fr_kernels.cu",
-               "kzg_snark_tpu/ops/pallas_fr.py:114"),
+               "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
     "fr_add": ("kzg_snark_tpu_torch/csrc/fr_kernels.cu",
-               "kzg_snark_tpu/ops/pallas_fr.py:114"),
+               "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
     "fr_sub": ("kzg_snark_tpu_torch/csrc/fr_kernels.cu",
-               "kzg_snark_tpu/ops/pallas_fr.py:114"),
+               "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
     "ntt_radix4": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
-                   "kzg_snark_tpu/ops/ntt_stage.py:141"),
+                   "kzg_snark_tpu/ops/ntt_stage.py:141", "main"),
+    "ntt_radix2": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
+                   "kzg_snark_tpu/ops/ntt_stage.py:85", "marlin"),
     "g1_add": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
-               "kzg_snark_tpu/ops/pallas_fr.py:232"),
+               "kzg_snark_tpu/ops/pallas_fr.py:232", "main"),
     "g1_double": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
-                  "kzg_snark_tpu/ops/pallas_fr.py:289"),
+                  "kzg_snark_tpu/ops/pallas_fr.py:289", "main"),
     "msm_bucket": ("kzg_snark_tpu_torch/csrc/msm_kernels.cu",
-                   "kzg_snark_tpu/ops/msm_kernel.py:172"),
+                   "kzg_snark_tpu/ops/msm_kernel.py:172", "main"),
+    "g1_add_mixed": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
+                     "kzg_snark_tpu/ops/pallas_fr.py:259", "marlin_parity"),
+    "fr_butterfly": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
+                     "kzg_snark_tpu/ops/pallas_fr.py:158", "ntt_scan"),
 }
-FAMILIES = {"field": ["fr_mul", "fr_add", "fr_sub"],
-            "ntt": ["ntt_radix4", "ntt_radix2"],
-            "curve": ["g1_add", "g1_double"], "msm": ["msm_bucket"]}
 
 MAIN_LOG_N = 16
 PARITY_LOG_N = 6
+MARLIN_LOG_H = 14
+MARLIN_PARITY_LOG_H = 6
+MARLIN_PUBLIC = 5
 TAU = 0xABCDEF12345
+MARLIN_TAU = 0xFEED5EED
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+INT_MUL_PER_SM_CLK = 64         # 32-bit integer multiply(-add) results per
+                                # SM per clock, compute capability 9.0
+MONT_PRODUCTS = 2 * 8 * 8 + 8   # 32x32-bit products of one CIOS Montgomery
+                                # product over 8 limbs
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def smi_line() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def device_rates(torch) -> dict:
+    """The card's peak rates for the bounds: device memory bytes/s and
+    32-bit integer products/s (SMs x 64 a clock x the top SM clock)."""
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"bytes": HBM_BYTES_PER_S,
+            "products": sms * INT_MUL_PER_SM_CLK * clock_mhz * 1e6,
+            "sms": sms, "clock_mhz": clock_mhz}
+
+
+def bound(rates: dict, nbytes: float, products: float) -> dict:
+    t_bytes = nbytes / rates["bytes"] * 1e3
+    t_ops = products / rates["products"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def timed_ms(torch, fn, reps: int) -> tuple[float, float]:
@@ -111,10 +149,11 @@ def random_canonical(torch, n: int, seed: int, dev):
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
-def compare(torch, name, results, kernel_fn, plain_fn, reps=20,
+def compare(torch, name, results, kernel_fn, plain_fn, work, reps=20,
             plain_reps=3):
     """Run kernel and plain version on the same CUDA inputs; demand exact
-    equality; record both times."""
+    equality; record both times and the bound of ``work`` (a dict from
+    ``bound``)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -126,13 +165,45 @@ def compare(torch, name, results, kernel_fn, plain_fn, reps=20,
     # A call costs its device time unless the host cannot keep up; the
     # plain versions' thousands of small launches overflow the queue.
     results[name] = {"max_abs_err": err, "ms": min(dev_ms, wall),
-                     "plain_ms": min(plain_dev, plain_wall)}
+                     "plain_ms": min(plain_dev, plain_wall), **work,
+                     "library_ms": None}
     log(f"[kernels] {name}: exact, device ms: kernel {dev_ms:.4f}, plain "
         f"{plain_dev:.4f}; wall ms per call: kernel {wall:.4f}, plain "
-        f"{plain_wall:.4f}; shape {tuple(got.shape)}")
+        f"{plain_wall:.4f}; bound {work['bound_ms']:.4f} ms "
+        f"({work['bound_by']}); shape {tuple(got.shape)}")
 
 
-def phase_kernels(torch, dev, results):
+def _add_products(torch, fq, p, q) -> float:
+    """Montgomery products K6 does on these inputs: none with an identity
+    operand, 8 before the case split, 8 more in the general case or the 7
+    of a doubling where p == q."""
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    f = cuda_fr.PlainField(fq)
+    z1z1, z2z2 = f.square(p[2]), f.square(q[2])
+    h = f.sub(f.mul(q[0], z1z1), f.mul(p[0], z2z2))
+    r = f.sub(f.mul(f.mul(q[1], p[2]), z1z1), f.mul(f.mul(p[1], q[2]), z2z2))
+    finite = ~f.is_zero(p[2]) & ~f.is_zero(q[2])
+    h0, r0 = f.is_zero(h), f.is_zero(r)
+    per = (8 * finite + 8 * (finite & ~h0) + 7 * (finite & h0 & r0))
+    return float(per.sum()) * MONT_PRODUCTS
+
+
+def _madd_products(torch, fq, p, qx, qy) -> float:
+    """Montgomery products K9 does: none where p is the identity, 11 for
+    madd-2007-bl, 7 more where p == q (the doubling)."""
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    f = cuda_fr.PlainField(fq)
+    reps = p.shape[-1] // qx.shape[-1]
+    qx, qy = qx.repeat(1, reps), qy.repeat(1, reps)
+    z1z1 = f.square(p[2])
+    h = f.sub(f.mul(qx, z1z1), p[0])
+    r = f.sub(f.mul(f.mul(qy, p[2]), z1z1), p[1])
+    finite = ~f.is_zero(p[2])
+    per = 11 * finite + 7 * (finite & f.is_zero(h) & f.is_zero(r))
+    return float(per.sum()) * MONT_PRODUCTS
+
+
+def phase_kernels(torch, dev, results, rates):
     from kzg_snark_tpu_torch.ops import cuda_fr
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
     from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
@@ -140,22 +211,27 @@ def phase_kernels(torch, dev, results):
                                                     msm_bucket_plain,
                                                     signed_digits)
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
-    from kzg_snark_tpu_torch.ops.ntt_stage import (ntt_stage, radix2_plain,
-                                                   radix4_plain)
+    from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain,
+                                                   fr_butterfly, ntt_stage,
+                                                   radix2_plain, radix4_plain)
 
     fr = fr_backend("bn254", dev).consts
     fq = fq_backend("bn254", dev).consts
     n_field = 1 << (MAIN_LOG_N + 2)
     a = random_canonical(torch, n_field, 1, dev)
     b = random_canonical(torch, n_field, 2, dev)
-    for name, k, p in [("fr_mul", cuda_fr.fr_mul, cuda_fr.mul_plain),
-                       ("fr_add", cuda_fr.fr_add, cuda_fr.add_plain),
-                       ("fr_sub", cuda_fr.fr_sub, cuda_fr.sub_plain)]:
+    elem = 32 * n_field
+    for name, k, p, prods in [
+            ("fr_mul", cuda_fr.fr_mul, cuda_fr.mul_plain, MONT_PRODUCTS),
+            ("fr_add", cuda_fr.fr_add, cuda_fr.add_plain, 0),
+            ("fr_sub", cuda_fr.fr_sub, cuda_fr.sub_plain, 0)]:
         compare(torch, name, results, lambda: k(fr, a, b),
-                lambda: p(fr, a, b))
+                lambda: p(fr, a, b),
+                bound(rates, 3 * elem, prods * n_field))
     s = b[:, :1].contiguous()
     compare(torch, "fr_mul_scalar", {}, lambda: cuda_fr.fr_mul(fr, a, s),
-            lambda: cuda_fr.mul_plain(fr, a, s))
+            lambda: cuda_fr.mul_plain(fr, a, s),
+            bound(rates, 2 * elem + 32, MONT_PRODUCTS * n_field))
 
     npts = 1 << MAIN_LOG_N
     pts, _ = random_point_basis("bn254", npts, seed=5, device=dev)
@@ -166,42 +242,108 @@ def phase_kernels(torch, dev, results):
                                       pts[1, :, k:2 * k].contiguous())
     q[2, :, 2 * k:3 * k] = 0
     q = q.contiguous()
+    pt_bytes = 96 * npts
     compare(torch, "g1_add", results, lambda: cuda_fr.g1_add(fq, pts, q),
-            lambda: cuda_fr.g1_add_plain(fq, pts, q), plain_reps=1)
+            lambda: cuda_fr.g1_add_plain(fq, pts, q),
+            bound(rates, 3 * pt_bytes, _add_products(torch, fq, pts, q)),
+            plain_reps=1)
     compare(torch, "g1_double", results, lambda: cuda_fr.g1_double(fq, q),
-            lambda: cuda_fr.g1_double_plain(fq, q), plain_reps=1)
+            lambda: cuda_fr.g1_double_plain(fq, q),
+            bound(rates, 2 * pt_bytes, 7 * MONT_PRODUCTS * npts),
+            plain_reps=1)
+
+    # K9 at the basis build's shape: one affine q broadcast over 2^16
+    # accumulators; the first lanes are the identity, q and -q.
+    qx = pts[0, :, 7:8].contiguous()
+    qy = pts[1, :, 7:8].contiguous()
+    acc = q.clone()
+    acc[2, :, :k] = 0
+    acc[0, :, k:2 * k] = qx
+    acc[1, :, k:2 * k] = qy
+    acc[2, :, k:3 * k] = fq_backend("bn254", dev).one_mont
+    acc[0, :, 2 * k:3 * k] = qx
+    acc[1, :, 2 * k:3 * k] = cuda_fr.fr_sub(fq, torch.zeros_like(qy), qy)
+    acc = acc.contiguous()
+    compare(torch, "g1_add_mixed", results,
+            lambda: cuda_fr.g1_add_mixed(fq, acc, qx, qy),
+            lambda: cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy),
+            bound(rates, 2 * pt_bytes + 64,
+                  _madd_products(torch, fq, acc, qx, qy)),
+            plain_reps=1)
 
     ctx = ntt_context("bn254", n_field, dev)
     x = a
     compare(torch, "ntt_radix4", results,
             lambda: ntt_stage(fr, x, ctx.tw_fwd, 1024, 4),
-            lambda: radix4_plain(fr, x, ctx.tw_fwd, 1024))
+            lambda: radix4_plain(fr, x, ctx.tw_fwd, 1024),
+            bound(rates, 2 * elem + 32 * 2048, MONT_PRODUCTS * n_field))
+    # The radix-2 pass of the main paths: Marlin's K-domain NTT at 2^15,
+    # whose last stage has span 2^14.
+    n_k = 1 << (MARLIN_LOG_H + 1)
+    ctx_k = ntt_context("bn254", n_k, dev)
+    xk = a[:, :n_k].contiguous()
+    compare(torch, "ntt_radix2", results,
+            lambda: ntt_stage(fr, xk, ctx_k.tw_fwd, n_k // 2, 2),
+            lambda: radix2_plain(fr, xk, ctx_k.tw_fwd, n_k // 2),
+            bound(rates, 2 * 32 * n_k + 32 * n_k // 2,
+                  MONT_PRODUCTS * n_k // 2))
     for span in (1, n_field // 2):
-        compare(torch, f"ntt_stage_radix2_span{span}", results,
+        compare(torch, f"ntt_stage_radix2_span{span}", {},
                 lambda: ntt_stage(fr, x, ctx.tw_fwd, span, 2),
-                lambda: radix2_plain(fr, x, ctx.tw_fwd, span))
-    compare(torch, "ntt_stage_radix4_span1", results,
+                lambda: radix2_plain(fr, x, ctx.tw_fwd, span),
+                bound(rates, 2 * elem + 32 * span,
+                      MONT_PRODUCTS * n_field // 2))
+    compare(torch, "ntt_stage_radix4_span1", {},
             lambda: ntt_stage(fr, x, ctx.tw_fwd, 1, 4),
-            lambda: radix4_plain(fr, x, ctx.tw_fwd, 1))
+            lambda: radix4_plain(fr, x, ctx.tw_fwd, 1),
+            bound(rates, 2 * elem + 64, MONT_PRODUCTS * n_field))
+
+    import numpy as np
+    mask = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 2, n_field).astype(np.int32)).to(dev)
+    tw = random_canonical(torch, n_field, 6, dev)
+    compare(torch, "fr_butterfly", results,
+            lambda: fr_butterfly(fr, a, b, tw, mask),
+            lambda: butterfly_plain(fr, a, b, tw, mask),
+            bound(rates, 4 * elem + 4 * n_field, MONT_PRODUCTS * n_field))
 
     lanes = lanes_for(npts)
     dig = signed_digits(random_canonical(torch, npts, 3, dev), 254)
     px, py = pts[0].contiguous(), pts[1].contiguous()
+
+    def bucket_work(digits, cells):
+        nz = float(((digits & 0x7F) != 0).sum())
+        return bound(rates, 64 * digits.shape[1] + 4 * digits.numel()
+                     + 64 * 96 * cells, nz * 11 * MONT_PRODUCTS)
+
     compare(torch, "msm_bucket", results,
             lambda: msm_bucket(fq, px, py, dig, lanes, False),
             lambda: msm_bucket_plain(fq, px, py, dig, lanes, False),
-            reps=3, plain_reps=1)
+            bucket_work(dig, dig.shape[0] * lanes), reps=3, plain_reps=1)
     m = 4096
     pxs, pys, digs = px[:, :m].contiguous(), py[:, :m].contiguous(), \
         dig[:, :m].contiguous()
-    compare(torch, "msm_bucket_complete_4096", results,
+    compare(torch, "msm_bucket_complete_4096", {},
             lambda: msm_bucket(fq, pxs, pys, digs, lanes_for(m), True),
             lambda: msm_bucket_plain(fq, pxs, pys, digs, lanes_for(m), True),
+            bucket_work(digs, digs.shape[0] * lanes_for(m)),
             reps=3, plain_reps=1)
 
 
-def phase_ntt(torch, dev):
-    from kzg_snark_tpu.ops.host.field import scalar_field
+def run_path(torch, paths, name, fn):
+    """Drive one path with the launch counts set to 0 just before it and
+    read just after; returns what ``fn`` returns."""
+    from kzg_snark_tpu_torch.utils.build import launch_counts, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    paths[name] = launch_counts()
+    return out
+
+
+def phase_ntt(torch, dev, paths):
+    from kzg_snark_tpu_torch.ops.host.field import scalar_field
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
 
     n = 1 << (MAIN_LOG_N + 2)
@@ -214,36 +356,48 @@ def phase_ntt(torch, dev):
     back = ctx.intt(y)
     if not torch.equal(back, x):
         raise AssertionError("NTT 2^18 round trip differs")
+    y_scan, back_scan = run_path(
+        torch, paths, "ntt_scan",
+        lambda: (ctx.ntt(x, mode="scan"), ctx.intt(y, mode="scan")))
+    if not torch.equal(y_scan, y) or not torch.equal(back_scan, x):
+        raise AssertionError("NTT 2^18 scan mode differs from staged")
+    sfwd_ms, sfwd_wall = timed_ms(torch, lambda: ctx.ntt(x, mode="scan"), 5)
+    sinv_ms, sinv_wall = timed_ms(torch, lambda: ctx.intt(x, mode="scan"),
+                                  5)
     Fr = scalar_field("bn254")
     r = Fr.modulus
     coeffs = be.to_ints(x)
     evals = be.to_ints(y)
-    for j in (0, 1, 12345, n - 1):
+    for j in (0, 1, 12345 % n, n - 1):
         pt = pow(ctx.root, j, r)
         acc = 0
         for c in reversed(coeffs):
             acc = (acc * pt + c) % r
         if acc != evals[j]:
             raise AssertionError(f"NTT 2^18 output {j} != host Horner")
-    log(f"[ntt] n=2^18 round trip exact, 4 outputs == host Horner; device "
-        f"ms: ntt {fwd_ms:.3f}, intt {inv_ms:.3f}; wall ms: ntt "
-        f"{fwd_wall:.3f}, intt {inv_wall:.3f}")
+    log(f"[ntt] n=2^18 round trip exact, 4 outputs == host Horner, scan == "
+        f"staged (forward and inverse); device ms: staged ntt "
+        f"{fwd_ms:.3f}, intt {inv_ms:.3f}; scan ntt {sfwd_ms:.3f}, intt "
+        f"{sinv_ms:.3f}; wall ms: staged ntt {fwd_wall:.3f}, intt "
+        f"{inv_wall:.3f}; scan ntt {sfwd_wall:.3f}, intt {sinv_wall:.3f}")
+    log(f"[ntt] scan path launches: "
+        f"{json.dumps(paths['ntt_scan'], sort_keys=True)}")
 
 
-def phase_msm(torch, dev):
+def phase_msm(torch, dev, paths):
     import numpy as np
-    from kzg_snark_tpu import constants as C
-    from kzg_snark_tpu.ops.host import curve as hc
-    from kzg_snark_tpu.ops.host.field import base_field
+    from kzg_snark_tpu_torch import constants as C
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
     from kzg_snark_tpu_torch.ops.limbs import (ints_to_words, to_tensor,
                                                words_to_ints)
     from kzg_snark_tpu_torch.ops.msm import msm_context
 
     n = 1 << MAIN_LOG_N
     t0 = time.perf_counter()
-    pts, ks = random_point_basis("bn254", n, seed=20260820, device=dev)
-    torch.cuda.synchronize()
+    pts, ks = run_path(torch, paths, "msm_basis", lambda: random_point_basis(
+        "bn254", n, seed=20260820, device=dev))
     basis_s = time.perf_counter() - t0
     ctx = msm_context("bn254", dev)
     r = C.BN254_R
@@ -262,9 +416,12 @@ def phase_msm(torch, dev):
     exp = None if exp is None else (int(exp[0]), int(exp[1]))
     if got != exp:
         raise AssertionError("MSM 2^16 differs from the host oracle")
+    if paths["msm_basis"].get("g1_add_mixed", 0) == 0:
+        raise AssertionError("the basis build did not launch g1_add_mixed")
     log(f"[msm] 2^16 points == host oracle; device {ms:.3f} ms, wall "
         f"{wall:.3f} ms ({n / wall * 1e3:.0f} points/s), basis build "
-        f"{basis_s:.2f} s")
+        f"{basis_s:.2f} s, its launches "
+        f"{json.dumps(paths['msm_basis'], sort_keys=True)}")
 
 
 def _circuit(Fr, n):
@@ -277,11 +434,11 @@ def _circuit(Fr, n):
 
 
 def phase_parity(dev):
-    from kzg_snark_tpu.models.plonk.indexer import Indexer
-    from kzg_snark_tpu.models.plonk.prover import Prover
-    from kzg_snark_tpu.ops.host.field import scalar_field
-    from kzg_snark_tpu.rng import Rng
     from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+    from kzg_snark_tpu_torch.models.plonk.indexer import Indexer
+    from kzg_snark_tpu_torch.models.plonk.prover import Prover
+    from kzg_snark_tpu_torch.ops.host.field import scalar_field
+    from kzg_snark_tpu_torch.rng import Rng
 
     n = 1 << PARITY_LOG_N
     qM, qZ, qO, perm, w = _circuit(scalar_field("bn254"), n)
@@ -301,35 +458,39 @@ def phase_parity(dev):
     for part in ("commitments", "evaluations", "kzg_proofs"):
         if proof_d[part] != proof_h[part]:
             raise AssertionError(f"n=2^6 proof {part} differ from host")
-    log("[parity] n=2^6 index and proof byte-identical to the host prover")
+    log("[parity] PLONK n=2^6 index and proof byte-identical to the host "
+        "prover")
 
 
-def phase_main(torch, dev):
-    from kzg_snark_tpu.models.plonk.verifier import Verifier
-    from kzg_snark_tpu.ops.host.field import scalar_field
-    from kzg_snark_tpu.rng import Rng
+def phase_main(torch, dev, paths):
     from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
-    from kzg_snark_tpu_torch.utils.build import launch_counts, reset_launches
+    from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
+    from kzg_snark_tpu_torch.ops.host.field import scalar_field
+    from kzg_snark_tpu_torch.rng import Rng
 
     n = 1 << MAIN_LOG_N
     qM, qZ, qO, perm, w = _circuit(scalar_field("bn254"), n)
     prover = DeviceProver("bn254", rng=Rng(77), collect_timings=True,
                           device=dev)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    ipk, ivk = prover.preprocess(qM, qZ, qZ, qO, qZ, perm,
-                                 max_degree=n + 5, tau=TAU)
-    torch.cuda.synchronize()
-    index_s = time.perf_counter() - t0
-    prove_s = []
-    for _ in range(2):
+    times = {}
+
+    def run():
         t0 = time.perf_counter()
-        proof = prover.prove(ipk, [], w)
+        keys = prover.preprocess(qM, qZ, qZ, qO, qZ, perm,
+                                 max_degree=n + 5, tau=TAU)
         torch.cuda.synchronize()
-        prove_s.append(time.perf_counter() - t0)
-    counts = launch_counts()
+        times["index"] = time.perf_counter() - t0
+        times["prove"] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proof = prover.prove(keys[0], [], w)
+            torch.cuda.synchronize()
+            times["prove"].append(time.perf_counter() - t0)
+        return keys, proof
+
+    (ipk, ivk), proof = run_path(torch, paths, "main", run)
+    counts = paths["main"]
     peak = torch.cuda.max_memory_allocated()
     phases = {k: round(v * 1e3, 3) for k, v in prover.timings.items()}
 
@@ -341,21 +502,154 @@ def phase_main(torch, dev):
     proof["evaluations"]["a"] = proof["evaluations"]["a"] + 1
     if Verifier("bn254", rng=Rng(79)).verify(ivk, [], proof):
         raise AssertionError("host Verifier accepted a tampered proof")
-    log(f"[main] PLONK n=2^16: index {index_s:.3f} s, prove "
-        f"{prove_s[0]:.3f} s then {prove_s[1]:.3f} s, host verify "
-        f"{verify_s:.3f} s: accepted, tampered rejected")
+    log(f"[main] PLONK n=2^16: index {times['index']:.3f} s, prove "
+        f"{times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, host "
+        f"verify {verify_s:.3f} s: accepted, tampered rejected")
     log(f"[main] phases of the second prove (ms): {json.dumps(phases)}; "
         f"sum {sum(phases.values()):.3f} ms")
     log(f"[main] peak device memory {peak} bytes "
         f"({peak / 2 ** 30:.3f} GiB)")
     log(f"[main] launches: {json.dumps(counts, sort_keys=True)}")
-    for fam, names in FAMILIES.items():
-        if sum(counts.get(nm, 0) for nm in names) == 0:
-            raise AssertionError(f"kernel family {fam} never launched")
-    for name in KERNELS:
-        if counts.get(name, 0) == 0:
-            raise AssertionError(f"kernel {name} never launched")
-    return counts
+
+
+def phase_marlin_parity(torch, dev, paths):
+    from kzg_snark_tpu_torch.models.marlin.device import DeviceProver
+    from kzg_snark_tpu_torch.models.marlin.indexer import Indexer
+    from kzg_snark_tpu_torch.models.marlin.prover import Prover
+    from kzg_snark_tpu_torch.rng import Rng
+    from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
+
+    n = 1 << MARLIN_PARITY_LOG_H
+    A, B, C, z = synthetic_r1cs(n)
+    x, w = z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:]
+    max_degree = 6 * 2 * n
+
+    def run():
+        keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
+            A, B, C, max_degree, tau=MARLIN_TAU)
+        proof = DeviceProver("bn254", rng=Rng(901), device=dev).prove(
+            keys[0], x, w)
+        return keys, proof
+
+    (ipk_d, ivk_d), proof_d = run_path(torch, paths, "marlin_parity", run)
+    t0 = time.perf_counter()
+    idx = Indexer("bn254", backend="host", rng=Rng(900))
+    idx.kzg.normalize_commitments = True
+    ipk_h, ivk_h = idx.preprocess(A, B, C, max_degree, tau=MARLIN_TAU)
+    prover = Prover("bn254", backend="host", rng=Rng(901))
+    prover.kzg.normalize_commitments = True
+    proof_h = prover.prove(ipk_h, x, w)
+    host_s = time.perf_counter() - t0
+    if ivk_d["commitments"] != ivk_h["commitments"]:
+        raise AssertionError("Marlin |H|=2^6 index commitments differ")
+    for part in ("commitments", "evaluations", "kzg_proofs"):
+        if proof_d[part] != proof_h[part]:
+            raise AssertionError(f"Marlin |H|=2^6 proof {part} differ")
+    counts = paths["marlin_parity"]
+    if counts.get("g1_add_mixed", 0) == 0:
+        raise AssertionError("the Marlin parity run took no scan MSM (K9)")
+    log(f"[marlin_parity] |H|=2^6: index and proof byte-identical to the "
+        f"host Marlin prover (host side {host_s:.1f} s); launches "
+        f"{json.dumps(counts, sort_keys=True)}")
+
+
+def phase_marlin(torch, dev, paths):
+    from kzg_snark_tpu_torch.models.marlin.device import DeviceProver
+    from kzg_snark_tpu_torch.models.marlin.verifier import Verifier
+    from kzg_snark_tpu_torch.rng import Rng
+    from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
+
+    n = 1 << MARLIN_LOG_H
+    t0 = time.perf_counter()
+    A, B, C, z = synthetic_r1cs(n)
+    circuit_s = time.perf_counter() - t0
+    x, w = z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:]
+    m = len(A.nonzero_positions())
+    max_degree = 6 * m
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
+            A, B, C, max_degree, tau=MARLIN_TAU)
+        torch.cuda.synchronize()
+        times["index"] = time.perf_counter() - t0
+        prover = DeviceProver("bn254", rng=Rng(901), collect_timings=True,
+                              device=dev)
+        times["prover"] = prover
+        times["prove"] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proof = prover.prove(keys[0], x, w)
+            torch.cuda.synchronize()
+            times["prove"].append(time.perf_counter() - t0)
+        return keys, proof
+
+    (ipk, ivk), proof = run_path(torch, paths, "marlin", run)
+    counts = paths["marlin"]
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ok = Verifier("bn254", rng=Rng(902)).verify(ivk, x, proof)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("host Marlin Verifier rejected the proof")
+    tampered = dict(proof)
+    tampered["evaluations"] = dict(proof["evaluations"])
+    beta1 = list(proof["evaluations"]["beta1"])
+    beta1[0] = beta1[0] + 1
+    tampered["evaluations"]["beta1"] = beta1
+    if Verifier("bn254", rng=Rng(903)).verify(ivk, x, tampered):
+        raise AssertionError("host Marlin Verifier accepted a tampered proof")
+    if counts.get("ntt_radix2", 0) == 0:
+        raise AssertionError("the Marlin path launched no radix-2 stage")
+    log(f"[marlin] |H|=2^14, nnz(A)=m={m}, max_degree={max_degree}: circuit "
+        f"{circuit_s:.3f} s, index {times['index']:.3f} s, prove "
+        f"{times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, host "
+        f"verify {verify_s:.3f} s: accepted, tampered rejected")
+    phases = {k: round(v * 1e3, 3)
+              for k, v in times["prover"].timings.items()}
+    log(f"[marlin] phases of the second prove (ms): {json.dumps(phases)}; "
+        f"sum {sum(phases.values()):.3f} ms")
+    log(f"[marlin] peak device memory {peak} bytes "
+        f"({peak / 2 ** 30:.3f} GiB)")
+    log(f"[marlin] launches: {json.dumps(counts, sort_keys=True)}")
+    return lambda: times["prover"].prove(ipk, x, w)
+
+
+def profile_run(torch, label, fn):
+    """One call of ``fn`` under torch.profiler: wall time, device busy time
+    (the union of the card's activity intervals), idle share and the
+    largest device times by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    attr = ("self_device_time_total"
+            if hasattr(prof.key_averages()[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    top = sorted(((getattr(k, attr) / 1e3, k.count, k.key)
+                  for k in prof.key_averages() if getattr(k, attr) > 0),
+                 reverse=True)[:8]
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler on), device "
+        f"busy {busy_ms:.3f} ms over {len(spans)} device activities, idle "
+        f"share {1 - busy_ms / wall_ms:.4f}; device ms by kernel: "
+        + "; ".join(f"{name[:48]} {ms:.3f} ({n})" for ms, n, name in top))
 
 
 def main() -> int:
@@ -367,26 +661,40 @@ def main() -> int:
     from kzg_snark_tpu_torch.utils.build import build_cuda, cuda_lib
 
     dev = torch.device("cuda", 0)
-    smi = smi_line()
-    log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi_name = smi("name,power.limit")
+    rates = device_rates(torch)
+    log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi_name}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"{rates['sms']} SMs, max SM clock {rates['clock_mhz']:.0f} MHz: "
+        f"bounds at {rates['bytes'] / 1e12:.2f} TB/s and "
+        f"{rates['products'] / 1e12:.3f} T 32-bit products/s")
     t0 = time.perf_counter()
     lib_path = build_cuda()
     cuda_lib()
     log(f"[build] {lib_path} in {time.perf_counter() - t0:.2f} s")
 
     results: dict = {}
-    phase_kernels(torch, dev, results)
-    phase_ntt(torch, dev)
-    phase_msm(torch, dev)
+    paths: dict = {}
+    phase_kernels(torch, dev, results, rates)
+    phase_ntt(torch, dev, paths)
+    phase_msm(torch, dev, paths)
     phase_parity(dev)
-    counts = phase_main(torch, dev)
+    phase_main(torch, dev, paths)
+    phase_marlin_parity(torch, dev, paths)
+    marlin_prove = phase_marlin(torch, dev, paths)
+    profile_run(torch, "Marlin |H|=2^14 steady prove", marlin_prove)
 
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts[name], **results[name]}
-               for name, (src, rep) in KERNELS.items()]
+    kernels = []
+    for name, (src, rep, path) in KERNELS.items():
+        launches = paths[path].get(name, 0)
+        if launches == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{path} path")
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "path": path, "launches": launches,
+                        **results[name]})
     print(json.dumps({"kernels": kernels}))
-    print(smi)
+    print(smi_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

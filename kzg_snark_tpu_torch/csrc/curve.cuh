@@ -193,7 +193,7 @@ KZG_HD void g1_add_mixed(G1J& R, const G1J& P, const uint32_t qx[NL],
   R = S;
 }
 
-// Thread bodies of the K6 / K7 replacements: one point per thread.
+// Thread bodies of the K6 / K7 / K9 replacements: one point per thread.
 KZG_HD void g1_add_thread(int64_t i, const uint32_t* p, const uint32_t* q,
                           uint32_t* out, int64_t m, const FieldConsts& F) {
   G1J P, Q, R;
@@ -208,5 +208,23 @@ KZG_HD void g1_double_thread(int64_t i, const uint32_t* p, uint32_t* out,
   G1J P, R;
   g1_load(P, p, m, i);
   g1_double(R, P, F);
+  g1_store(out, m, i, R);
+}
+
+// K9: p (3, 8, m) + the affine point (qx, qy), complete.  qx and qy are
+// (8, qn) planes with qn dividing m; point i takes column i % qn, so one
+// point (qn = 1) or one point per lane (qn = lanes) broadcasts without
+// being materialized at full width.
+KZG_HD void g1_add_mixed_thread(int64_t i, const uint32_t* p,
+                                const uint32_t* qx, const uint32_t* qy,
+                                int64_t qn, uint32_t* out, int64_t m,
+                                const FieldConsts& F) {
+  G1J P, R;
+  uint32_t x[NL], y[NL];
+  g1_load(P, p, m, i);
+  int64_t j = i % qn;
+  fe_load(x, qx, qn, j);
+  fe_load(y, qy, qn, j);
+  g1_add_mixed(R, P, x, y, F);
   g1_store(out, m, i, R);
 }

@@ -1,15 +1,21 @@
-// K6 and K7 replacements: batched complete Jacobian add and doubling on G1.
+// K6, K7 and K9 replacements: batched complete Jacobian add, doubling and
+// complete mixed add (Jacobian + affine) on G1.
 //
-// Replaces kzg_snark_tpu/ops/pallas_fr.py:_add_call (fused_curve_add) and
-// :_double_call (fused_curve_double).  They build the SRS table and window
-// bases, fold the MSM bucket tables (lanes, bucket suffix ladder, windows)
-// and run the Horner fold.
+// Replaces kzg_snark_tpu/ops/pallas_fr.py:_add_call (fused_curve_add),
+// :_double_call (fused_curve_double) and :_add_mixed_call
+// (fused_curve_add_mixed).  K6 / K7 build the SRS table and window bases,
+// fold the MSM bucket tables (lanes, bucket suffix ladder, windows) and run
+// the Horner fold; K9 is the step of the scan MSM (256 < n < 2048) and of
+// the random-basis build.
 //
 // What bounds it on the H100: a complete add is about 16 Montgomery products
 // and 20 add/subs on 96-byte points (288 bytes moved): compute-bound at
 // large batches, launch-bound in the Horner fold, where the batch is the
-// number of scalars.  Design: one thread per point, the formulas of
-// curve.cuh in registers, limb-major (3, 8, m) words for coalesced loads.
+// number of scalars.  The mixed add is about 11 products and reads 96 bytes
+// of P (q broadcasts) and writes 96.  Design: one thread per point, the
+// formulas of curve.cuh in registers, limb-major (3, 8, m) words for
+// coalesced loads; K9's q has a column period (i % qn), so its callers'
+// broadcast point is read from a small table, never expanded.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -35,6 +41,16 @@ __global__ void k_g1_double(const uint32_t* __restrict__ p,
   g1_double_thread(i, p, out, m, F);
 }
 
+__global__ void k_g1_add_mixed(const uint32_t* __restrict__ p,
+                               const uint32_t* __restrict__ qx,
+                               const uint32_t* __restrict__ qy, int64_t qn,
+                               uint32_t* __restrict__ out, int64_t m,
+                               FieldConsts F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  g1_add_mixed_thread(i, p, qx, qy, qn, out, m, F);
+}
+
 }  // namespace
 
 extern "C" int kzg_g1_add(const void* p, const void* q, void* out, int64_t m,
@@ -56,5 +72,18 @@ extern "C" int kzg_g1_double(const void* p, void* out, int64_t m,
   int64_t blocks = (m + kThreads - 1) / kThreads;
   k_g1_double<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)p, (uint32_t*)out, m, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_g1_add_mixed(const void* p, const void* qx, const void* qy,
+                                int64_t qn, void* out, int64_t m,
+                                const void* consts, void* stream) {
+  if (m <= 0) return 0;
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  int64_t blocks = (m + kThreads - 1) / kThreads;
+  k_g1_add_mixed<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)p, (const uint32_t*)qx, (const uint32_t*)qy, qn,
+      (uint32_t*)out, m, F);
   return (int)cudaGetLastError();
 }

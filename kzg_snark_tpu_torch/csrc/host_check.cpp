@@ -52,6 +52,27 @@ extern "C" int host_g1_double(const void* p, void* out, int64_t m,
   return 0;
 }
 
+extern "C" int host_g1_add_mixed(const void* p, const void* qx, const void* qy,
+                                 int64_t qn, void* out, int64_t m,
+                                 const void* consts) {
+  FieldConsts F = consts_of(consts);
+  for (int64_t i = 0; i < m; i++)
+    g1_add_mixed_thread(i, (const uint32_t*)p, (const uint32_t*)qx,
+                        (const uint32_t*)qy, qn, (uint32_t*)out, m, F);
+  return 0;
+}
+
+extern "C" int host_fr_butterfly(const void* xl, const void* xu, const void* tw,
+                                 const void* mask, void* out, int64_t n,
+                                 const void* consts) {
+  FieldConsts F = consts_of(consts);
+  for (int64_t i = 0; i < n; i++)
+    fr_butterfly_thread(i, (const uint32_t*)xl, (const uint32_t*)xu,
+                        (const uint32_t*)tw, (const int32_t*)mask,
+                        (uint32_t*)out, n, F);
+  return 0;
+}
+
 extern "C" int host_ntt_radix2(const void* x, void* y, const void* tw,
                                int64_t n, int64_t span, const void* consts) {
   FieldConsts F = consts_of(consts);

@@ -59,3 +59,22 @@ KZG_HD void ntt_radix4_thread(int64_t t, const uint32_t* x, uint32_t* y,
   fe_store(y, n, base + 2 * s, x2);
   fe_store(y, n, base + 3 * s, x3);
 }
+
+// K10: one stage combine on pre-aligned rows (the scan-mode NTT):
+// out[i] = mask[i] ? xl[i] - tw[i] xu[i] : xl[i] + tw[i] xu[i] over (8, n).
+KZG_HD void fr_butterfly_thread(int64_t i, const uint32_t* xl,
+                                const uint32_t* xu, const uint32_t* tw,
+                                const int32_t* mask, uint32_t* out, int64_t n,
+                                const FieldConsts& F) {
+  uint32_t a[NL], b[NL], w[NL], prod[NL];
+  fe_load(a, xl, n, i);
+  fe_load(b, xu, n, i);
+  fe_load(w, tw, n, i);
+  fe_mul(prod, b, w, F);
+  if (mask[i]) {
+    fe_sub(a, a, prod, F);
+  } else {
+    fe_add(a, a, prod, F);
+  }
+  fe_store(out, n, i, a);
+}

@@ -1,7 +1,7 @@
 """PLONK prover on the device (PyTorch + the port's CUDA kernels).
 
 Counterpart of ``kzg_snark_tpu/models/plonk/device.py``: the protocol of the
-host prover (``kzg_snark_tpu/models/plonk/prover.py``) with the same
+host prover (the port's copy, ``models/plonk/prover.py``) with the same
 transcript schedule, RNG draw order and proof dict, and every O(n)
 computation on the device:
 
@@ -9,7 +9,7 @@ computation on the device:
   * grand product -> blocked prefix scan of K1 products
   * quotient -> pointwise on the 4n coset, times a precomputed 1/v_H table
   * z(omega X) -> roll by 4 on the 4n coset
-  * commitments -> bucket MSM over the DeviceSRS (ops/msm, K6-K8)
+  * commitments -> MSM over the DeviceSRS (ops/msm: K6-K9)
   * openings -> the suffix-scan identity
     w_j = zeta^-(j+1) sum_{i>j} c_i zeta^i
 
@@ -24,14 +24,13 @@ import time
 
 import torch
 
-from kzg_snark_tpu.ops.host.field import scalar_field
-from kzg_snark_tpu.rng import Rng
-from kzg_snark_tpu.transcript import Transcript
-
 from ...ops.fr import canonical_device, fr_backend
-from ...ops.msm import affine_to_host, msm_context
+from ...ops.host.field import scalar_field
+from ...ops.msm import FUSED_THRESHOLD, affine_to_host, msm_context
 from ...ops.ntt import ntt_context
 from ...ops.srs import DeviceSRS
+from ...rng import Rng
+from ...transcript import Transcript
 from ..kzg import KZG
 
 
@@ -210,7 +209,8 @@ class DeviceProver:
     def __init__(self, curve_type: str = "bn254", rng: Rng | None = None,
                  collect_timings: bool = False, device="cuda"):
         self.device = canonical_device(device)
-        self.kzg = KZG(curve_type=curve_type, rng=rng, device=self.device)
+        self.kzg = KZG(curve_type=curve_type, backend="cuda", rng=rng,
+                       device=self.device)
         self.rng = self.kzg.rng
         self.collect_timings = collect_timings
         self.timings: dict[str, float] = {}
@@ -235,15 +235,20 @@ class DeviceProver:
         m = max(c.shape[1] for c in coeff_list)
         if m > len(ck):
             raise ValueError(f"{m} coefficients exceed the SRS ({len(ck)})")
+        # The JAX prover's slice: exact from the bucket threshold up, else
+        # the next power of two (so the MSM route matches).
+        pts = ck.points[..., :m] if m >= FUSED_THRESHOLD else \
+            ck.slice_pow2(m)
+        width = pts.shape[-1]
         rows = []
         for c in coeff_list:
             canon = be.from_mont(c)
-            if c.shape[1] < m:
+            if c.shape[1] < width:
                 canon = torch.cat([canon, torch.zeros(
-                    (be.num_limbs, m - c.shape[1]), dtype=torch.int32,
+                    (be.num_limbs, width - c.shape[1]), dtype=torch.int32,
                     device=self.device)], dim=1)
             rows.append(canon)
-        result = ctx.msm(ck.points[..., :m], torch.stack(rows))
+        result = ctx.msm(pts, torch.stack(rows))
         return [affine_to_host(self.kzg, a)
                 for a in ctx.curve.to_affine_ints(result)]
 
@@ -445,8 +450,8 @@ class DeviceProver:
         """Device-encoded indexing: the (ipk, ivk) contract and RNG draw
         order of ``models/plonk/indexer.Indexer.preprocess``, with the eight
         interpolations as iNTTs and the commitments as one batched MSM."""
-        from kzg_snark_tpu.models.plonk.indexer import POLY_ORDER
-        from kzg_snark_tpu.ops.host.poly import Poly
+        from .indexer import POLY_ORDER
+        from ...ops.host.poly import Poly
         kzg = self.kzg
         Fq = kzg.Fq
         ck, rk = kzg.setup(max_degree, tau=tau)

@@ -4,8 +4,8 @@ Counterpart of ``kzg_snark_tpu/ops/benchpoints.py``: P_i = k_i G with k_i
 odd 128-bit multipliers from ``random.Random(seed)``, so the incomplete
 bucket add is sound on the basis and any MSM has a one-multiplication host
 oracle: sum_i s_i P_i = (sum_i s_i k_i mod r) G.  The basis is built on the
-device (128 complete adds of 2^j G, K6) and normalized to Z = 1; the JAX
-package's disk cache is not kept.
+device (128 complete mixed adds of 2^j G, K9, as the JAX build does) and
+normalized to Z = 1; the JAX package's disk cache is not kept.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from .fr import FieldBackend
 from .g1 import curve_ops
-from .limbs import NUM_LIMBS, ints_to_words, to_tensor
+from .limbs import ints_to_words, to_tensor
 
 K_BITS = 128
 
@@ -59,9 +59,9 @@ def normalize_points(f: FieldBackend, pts: torch.Tensor) -> torch.Tensor:
 def random_point_basis(curve_type: str, size: int, seed: int,
                        device="cpu") -> tuple[torch.Tensor, list[int]]:
     """(points (3, 8, size) with Z = 1 on ``device``, multipliers k_i)."""
-    from kzg_snark_tpu import constants as C
-    from kzg_snark_tpu.ops.host import curve as hc
-    from kzg_snark_tpu.ops.host.field import base_field
+    from .. import constants as C
+    from .host import curve as hc
+    from .host.field import base_field
 
     rng = random.Random(seed)
     ks = [(rng.getrandbits(K_BITS) | (1 << (K_BITS - 1)) | 1)
@@ -82,7 +82,7 @@ def random_point_basis(curve_type: str, size: int, seed: int,
     acc = curve.identity((size,)).contiguous()
     for j in range(K_BITS):
         word = (kw[j // 32].to(torch.int64) >> (j % 32)) & 1
-        taken = curve.add(acc, bases[:, :, j:j + 1].expand(3, NUM_LIMBS,
-                                                           size))
+        taken = curve.add_mixed(acc, bases[0, :, j:j + 1],
+                                bases[1, :, j:j + 1])
         acc = torch.where((word == 1)[None, None], taken, acc)
     return normalize_points(f, acc), ks

@@ -4,7 +4,8 @@ Counterpart of ``kzg_snark_tpu/ops/pallas_fr.py``:
 
 * K1 ``fr_mul`` (and ``fr_add`` / ``fr_sub`` from the same source file),
   ``csrc/fr_kernels.cu``;
-* K6 ``g1_add`` and K7 ``g1_double``, ``csrc/curve_kernels.cu``.
+* K6 ``g1_add``, K7 ``g1_double`` and K9 ``g1_add_mixed``,
+  ``csrc/curve_kernels.cu``.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.  Plain versions also take CUDA
@@ -136,9 +137,28 @@ def _mul_flat(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
     return _narrow(out)
 
 
+def addsub_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor,
+                 n_add: int) -> torch.Tensor:
+    """(8, N) columns [0, n_add) get a + b mod p, the rest a - b mod p: the
+    add_plain and sub_plain values, in one pass."""
+    p = fc.tensors(a.device)["p32"]
+    n = a.shape[1]
+    add = torch.arange(n, device=a.device) < n_add
+    sign = torch.where(add, 1, -1)
+    d = _wide(a) + _wide(b) * sign
+    words, carry = _ripple32(torch.stack([d, d - p * sign]))
+    second = torch.where(add, carry[1] >= 0, carry[0] < 0)
+    return _narrow(torch.where(second, words[1], words[0]))
+
+
 class PlainField:
     """Field ops over plain PyTorch, in the interface the curve formulas
-    use (also by the field backend on CPU tensors)."""
+    use (also by the field backend on CPU tensors).
+
+    ``muls`` and ``addsubs`` evaluate several independent ops of one level
+    of a formula in one call on their operands laid side by side; the
+    values are those of one call each, and at small batches, where the
+    cost is the number of torch ops, a formula takes about half the ops."""
 
     def __init__(self, fc: FieldConsts):
         self.fc = fc
@@ -169,26 +189,66 @@ class PlainField:
         return one.reshape((NUM_LIMBS,) + (1,) * (a.dim() - 1)).expand(
             a.shape)
 
+    @staticmethod
+    def _side_by_side(pairs):
+        shapes = [torch.broadcast_shapes(a.shape, b.shape) for a, b in pairs]
+        flat = lambda i: torch.cat(  # noqa: E731
+            [ab[i].expand(s).reshape(NUM_LIMBS, -1)
+             for ab, s in zip(pairs, shapes)], dim=1)
+        return flat(0), flat(1), shapes
+
+    @staticmethod
+    def _split(out, shapes):
+        sizes = [int(torch.Size(s[1:]).numel()) for s in shapes]
+        return [o.reshape(s) for o, s in
+                zip(torch.split(out, sizes, dim=1), shapes)]
+
+    def muls(self, *pairs):
+        """[a b R^-1 mod p for (a, b) in pairs]."""
+        if len(pairs) == 1:
+            return [self.mul(*pairs[0])]
+        a, b, shapes = self._side_by_side(pairs)
+        return self._split(mul_plain(self.fc, a, b), shapes)
+
+    def addsubs(self, adds=(), subs=()):
+        """[a + b for (a, b) in adds] + [a - b for (a, b) in subs]."""
+        pairs = list(adds) + list(subs)
+        if len(pairs) == 1:
+            return [self.add(*pairs[0]) if adds else self.sub(*pairs[0])]
+        a, b, shapes = self._side_by_side(pairs)
+        if not subs:
+            out = add_plain(self.fc, a, b)
+        elif not adds:
+            out = sub_plain(self.fc, a, b)
+        else:
+            n_add = sum(int(torch.Size(s[1:]).numel())
+                        for s in shapes[:len(adds)])
+            out = addsub_plain(self.fc, a, b, n_add)
+        return self._split(out, shapes)
+
 
 # ---------------------------------------------------------------------------
 # Plain curve formulas (ops/regcurve.py order).  Points are (3, 8, ...)
-# int32; the identity is Z = 0.
+# int32; the identity is Z = 0.  Each step lists the independent ops of one
+# level of the formula.
 # ---------------------------------------------------------------------------
 
 
 def double_formula(f, P):
+    """dbl-2009-l; the identity maps to Z3 = 0."""
     X, Y, Z = P[0], P[1], P[2]
-    A = f.square(X)
-    B = f.square(Y)
-    C = f.square(B)
-    t = f.square(f.add(X, B))
-    D = f.double(f.sub(f.sub(t, A), C))
-    E = f.add(f.double(A), A)
-    F = f.square(E)
-    X3 = f.sub(F, f.double(D))
-    eight_c = f.double(f.double(f.double(C)))
-    Y3 = f.sub(f.mul(E, f.sub(D, X3)), eight_c)
-    Z3 = f.double(f.mul(Y, Z))
+    A, B, YZ = f.muls((X, X), (Y, Y), (Y, Z))
+    XB, A2, Z3 = f.addsubs(adds=[(X, B), (A, A), (YZ, YZ)])
+    C, t = f.muls((B, B), (XB, XB))
+    E, C2, tA = f.addsubs(adds=[(A2, A), (C, C)], subs=[(t, A)])
+    (F,) = f.muls((E, E))
+    C4, u = f.addsubs(adds=[(C2, C2)], subs=[(tA, C)])
+    D, C8 = f.addsubs(adds=[(u, u), (C4, C4)])
+    (D2,) = f.addsubs(adds=[(D, D)])
+    (X3,) = f.addsubs(subs=[(F, D2)])
+    (dx,) = f.addsubs(subs=[(D, X3)])
+    (EY,) = f.muls((E, dx))
+    (Y3,) = f.addsubs(subs=[(EY, C8)])
     return torch.stack([X3, Y3, Z3])
 
 
@@ -196,25 +256,21 @@ def add_formula(f, P, Q):
     """Complete Jacobian + Jacobian (RegCurve.add / CurveOps.add_xla)."""
     X1, Y1, Z1 = P[0], P[1], P[2]
     X2, Y2, Z2 = Q[0], Q[1], Q[2]
-    Z1Z1 = f.square(Z1)
-    Z2Z2 = f.square(Z2)
-    U1 = f.mul(X1, Z2Z2)
-    U2 = f.mul(X2, Z1Z1)
-    S1 = f.mul(f.mul(Y1, Z2), Z2Z2)
-    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
-    H = f.sub(U2, U1)
-    Rr = f.sub(S2, S1)
-    HH = f.square(H)
-    I = f.double(f.double(HH))
-    J = f.mul(H, I)
-    r2 = f.double(Rr)
-    V = f.mul(U1, I)
-    X3 = f.sub(f.sub(f.square(r2), J), f.double(V))
-    Y3 = f.sub(f.mul(r2, f.sub(V, X3)), f.double(f.mul(S1, J)))
-    zs = f.square(f.add(Z1, Z2))
-    Z3 = f.mul(f.sub(f.sub(zs, Z1Z1), Z2Z2), H)
+    Z1Z1, Z2Z2, Y1Z2, Y2Z1 = f.muls((Z1, Z1), (Z2, Z2), (Y1, Z2), (Y2, Z1))
+    U1, U2, S1, S2 = f.muls((X1, Z2Z2), (X2, Z1Z1), (Y1Z2, Z2Z2),
+                            (Y2Z1, Z1Z1))
+    zs0, H, Rr = f.addsubs(adds=[(Z1, Z2)], subs=[(U2, U1), (S2, S1)])
+    HH, zs = f.muls((H, H), (zs0, zs0))
+    HH2, r2, zs1 = f.addsubs(adds=[(HH, HH), (Rr, Rr)], subs=[(zs, Z1Z1)])
+    I, zs2 = f.addsubs(adds=[(HH2, HH2)], subs=[(zs1, Z2Z2)])
+    J, V, r2sq, Z3 = f.muls((H, I), (U1, I), (r2, r2), (zs2, H))
+    V2, x0 = f.addsubs(adds=[(V, V)], subs=[(r2sq, J)])
+    (X3,) = f.addsubs(subs=[(x0, V2)])
+    (vx,) = f.addsubs(subs=[(V, X3)])
+    RV, S1J = f.muls((r2, vx), (S1, J))
+    (S1J2,) = f.addsubs(adds=[(S1J, S1J)])
+    (Y3,) = f.addsubs(subs=[(RV, S1J2)])
     out = torch.stack([X3, Y3, Z3])
-    dbl = double_formula(f, P)
     p_inf = f.is_zero(Z1)
     q_inf = f.is_zero(Z2)
     h_zero = f.is_zero(H)
@@ -222,7 +278,9 @@ def add_formula(f, P, Q):
     finite = ~p_inf & ~q_inf
     one = f.one_like(X3)
     ident = torch.stack([one, one, torch.zeros_like(Z3)])
-    out = torch.where((h_zero & r_zero & finite)[None, None], dbl, out)
+    same = h_zero & r_zero & finite
+    if bool(same.any()):        # the doubling only where a lane needs it
+        out = torch.where(same[None, None], double_formula(f, P), out)
     out = torch.where((h_zero & ~r_zero & finite)[None, None], ident, out)
     out = torch.where(q_inf[None, None], P, out)
     out = torch.where(p_inf[None, None], Q, out)
@@ -230,20 +288,22 @@ def add_formula(f, P, Q):
 
 
 def _madd_general(f, P, qx, qy):
+    """madd-2007-bl: P + (qx, qy, 1); also returns H and Rr."""
     X1, Y1, Z1 = P[0], P[1], P[2]
-    Z1Z1 = f.square(Z1)
-    U2 = f.mul(qx, Z1Z1)
-    S2 = f.mul(f.mul(qy, Z1), Z1Z1)
-    H = f.sub(U2, X1)
-    Rr = f.sub(S2, Y1)
-    HH = f.square(H)
-    I = f.double(f.double(HH))
-    J = f.mul(H, I)
-    r2 = f.double(Rr)
-    V = f.mul(X1, I)
-    X3 = f.sub(f.sub(f.square(r2), J), f.double(V))
-    Y3 = f.sub(f.mul(r2, f.sub(V, X3)), f.double(f.mul(Y1, J)))
-    Z3 = f.sub(f.sub(f.square(f.add(Z1, H)), Z1Z1), HH)
+    Z1Z1, qyZ1 = f.muls((Z1, Z1), (qy, Z1))
+    U2, S2 = f.muls((qx, Z1Z1), (qyZ1, Z1Z1))
+    H, Rr = f.addsubs(subs=[(U2, X1), (S2, Y1)])
+    (HH,) = f.muls((H, H))
+    HH2, r2, ZH = f.addsubs(adds=[(HH, HH), (Rr, Rr), (Z1, H)])
+    r2sq, zh2 = f.muls((r2, r2), (ZH, ZH))
+    I, zt = f.addsubs(adds=[(HH2, HH2)], subs=[(zh2, Z1Z1)])
+    J, V = f.muls((H, I), (X1, I))
+    V2, x0, Z3 = f.addsubs(adds=[(V, V)], subs=[(r2sq, J), (zt, HH)])
+    (X3,) = f.addsubs(subs=[(x0, V2)])
+    (vx,) = f.addsubs(subs=[(V, X3)])
+    RV, Y1J = f.muls((r2, vx), (Y1, J))
+    (Y1J2,) = f.addsubs(adds=[(Y1J, Y1J)])
+    (Y3,) = f.addsubs(subs=[(RV, Y1J2)])
     return torch.stack([X3, Y3, Z3]), H, Rr
 
 
@@ -260,13 +320,14 @@ def add_mixed_fast_formula(f, P, qx, qy):
 def add_mixed_formula(f, P, qx, qy):
     """Complete mixed add (RegCurve.add_mixed); q finite."""
     out, H, Rr = _madd_general(f, P, qx, qy)
-    dbl = double_formula(f, P)
     p_inf = f.is_zero(P[2])
     h_zero = f.is_zero(H)
     r_zero = f.is_zero(Rr)
     one = f.one_like(out[0])
     ident = torch.stack([one, one, torch.zeros_like(out[2])])
-    out = torch.where((h_zero & r_zero & ~p_inf)[None, None], dbl, out)
+    same = h_zero & r_zero & ~p_inf
+    if bool(same.any()):
+        out = torch.where(same[None, None], double_formula(f, P), out)
     out = torch.where((h_zero & ~r_zero & ~p_inf)[None, None], ident, out)
     qx, qy = torch.broadcast_to(qx, out[0].shape), torch.broadcast_to(
         qy, out[0].shape)
@@ -283,6 +344,15 @@ def g1_add_plain(fc: FieldConsts, p: torch.Tensor, q: torch.Tensor
 def g1_double_plain(fc: FieldConsts, p: torch.Tensor) -> torch.Tensor:
     """K7 plain version: Jacobian doubling of a (3, 8, ...) batch."""
     return double_formula(PlainField(fc), p)
+
+
+def g1_add_mixed_plain(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
+                       qy: torch.Tensor) -> torch.Tensor:
+    """K9 plain version: complete p + (qx, qy, 1) on a (3, 8, m) batch;
+    qx, qy (8, qn) with qn dividing m, point i taking column i % qn."""
+    reps = p.shape[2] // qx.shape[1]
+    return add_mixed_formula(PlainField(fc), p, qx.repeat(1, reps),
+                             qy.repeat(1, reps))
 
 
 # ---------------------------------------------------------------------------
@@ -381,4 +451,25 @@ def g1_double(fc: FieldConsts, p: torch.Tensor) -> torch.Tensor:
     count_launch("g1_double")
     check(cuda_lib().kzg_g1_double(p.data_ptr(), out.data_ptr(), m, fc.ptr,
                                    _stream(p)), "g1_double")
+    return out
+
+
+def g1_add_mixed(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
+                 qy: torch.Tensor) -> torch.Tensor:
+    """K9: complete p + (qx, qy, 1) of a (3, 8, m) batch and (8, qn)
+    affine planes, qn dividing m; point i takes column i % qn."""
+    if _on_cpu(p, qx, qy):
+        return g1_add_mixed_plain(fc, p, qx, qy)
+    m = _points_check("g1_add_mixed", p)
+    _require_cuda("g1_add_mixed", p, qx, qy)
+    qn = qx.shape[-1]
+    if qx.shape != (NUM_LIMBS, qn) or qy.shape != qx.shape or qn < 1 \
+            or m % qn:
+        raise ValueError(f"g1_add_mixed: q planes {tuple(qx.shape)} / "
+                         f"{tuple(qy.shape)} do not tile {m} points")
+    out = torch.empty_like(p)
+    count_launch("g1_add_mixed")
+    check(cuda_lib().kzg_g1_add_mixed(p.data_ptr(), qx.data_ptr(),
+                                      qy.data_ptr(), qn, out.data_ptr(), m,
+                                      fc.ptr, _stream(p)), "g1_add_mixed")
     return out

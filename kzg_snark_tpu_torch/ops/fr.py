@@ -259,14 +259,14 @@ class FieldBackend:
 
 
 def fr_backend(curve_type: str = "bn254", device="cpu") -> FieldBackend:
-    from kzg_snark_tpu import constants as C
+    from .. import constants as C
     if curve_type != "bn254":
         raise ValueError("the port supports bn254 only so far")
     return FieldBackend(C.BN254_R, device)
 
 
 def fq_backend(curve_type: str = "bn254", device="cpu") -> FieldBackend:
-    from kzg_snark_tpu import constants as C
+    from .. import constants as C
     if curve_type != "bn254":
         raise ValueError("the port supports bn254 only so far")
     return FieldBackend(C.BN254_P, device)

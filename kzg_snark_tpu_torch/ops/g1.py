@@ -7,9 +7,9 @@ dispatch as ``g1.py:77-94`` does: to the K6 / K7 kernels for CUDA tensors
 and to their plain versions for CPU tensors.  The formulas are those of
 ``ops/regcurve.py``, so every representative equals the JAX package's.
 
-``add_mixed`` (p + an affine q) is the complete add with q lifted to Z = 1:
-the same point as the JAX ``add_mixed_xla``, but the representative of the
-add-2007-bl formula (the madd-2007-bl kernel K9 is not ported yet).
+``add_mixed`` (p + an affine q, complete madd-2007-bl) goes to the K9
+kernel for CUDA tensors and its plain version for CPU tensors, and returns
+the representative of the JAX ``add_mixed``.
 """
 
 from __future__ import annotations
@@ -71,19 +71,33 @@ class CurveOps:
 
     def add_mixed(self, p: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
                   ) -> torch.Tensor:
-        """Complete p + (qx, qy, 1) through the complete add."""
+        """Complete p + (qx, qy, 1) (K9); q finite, broadcast against p's
+        batch.  A q that varies only along p's trailing batch dims (one
+        point, or one per lane) is passed as a small table with a column
+        period, never expanded."""
         batch = p.shape[2:]
-        qx = qx.expand((NUM_LIMBS,) + batch)
-        qy = qy.expand((NUM_LIMBS,) + batch)
-        return self.add(p, torch.stack([qx, qy, self._ones(batch)]))
+        qb = list(qx.shape[1:])
+        while qb and qb[0] == 1:
+            qb.pop(0)
+        if tuple(qb) == tuple(batch[len(batch) - len(qb):]):
+            qx = qx.reshape(NUM_LIMBS, -1)
+            qy = qy.reshape(NUM_LIMBS, -1)
+        else:
+            qx = qx.expand((NUM_LIMBS,) + batch).reshape(NUM_LIMBS, -1)
+            qy = qy.expand((NUM_LIMBS,) + batch).reshape(NUM_LIMBS, -1)
+        out = cuda_fr.g1_add_mixed(self.f.consts, self._flat(p),
+                                   qx.contiguous(), qy.contiguous())
+        return out.reshape(p.shape)
 
     # -- reductions -----------------------------------------------------
     def tree_sum(self, pts: torch.Tensor) -> torch.Tensor:
-        """Sum a (3, 8, N) batch along the last axis -> (3, 8, 1)."""
+        """Sum a (3, 8, ..., N) batch along the last axis -> (3, 8, ..., 1)
+        by a padded halving tree."""
         n = pts.shape[-1]
         while n > 1:
             if n % 2:
-                pts = torch.cat([pts, self.identity()], dim=-1)
+                pad = self.identity(tuple(pts.shape[2:-1]) + (1,))
+                pts = torch.cat([pts, pad], dim=-1)
                 n += 1
             half = n // 2
             pts = self.add(pts[..., :half], pts[..., half:])

@@ -1,9 +1,19 @@
 """Multi-scalar multiplication and KZG commit on PyTorch tensors.
 
-Counterpart of ``kzg_snark_tpu/ops/msm.py``.  The JAX ``MsmContext`` picked
-a bit-serial path (n <= 256), a scan path (n < 2048, kernel K9) or the
-fused bucket kernel; the port sends every size to the bucket kernel
-(``ops/msm_kernel.py``).
+Counterpart of ``kzg_snark_tpu/ops/msm.py``.  ``MsmContext.msm`` routes on
+the number of points n as the JAX ``MsmContext`` does:
+
+* n >= 2048: the bucket-pass kernel (K8, ``ops/msm_kernel.py``);
+* n <= 256: bit-serial double-and-add (``_small_msm``, the JAX
+  ``_small_msm_core``) on K6 / K7;
+* otherwise: the scan Pippenger (``_scan_msm``, the JAX ``_msm_core``):
+  8-bit windows, one complete mixed add (K9) of width W * lanes per step
+  between a gather and a scatter of the (W, 256, lanes) bucket table, then
+  the lane merge, the suffix ladder and the Horner fold on K6 / K7.
+
+``commit`` pads the SRS slice to a power of two (``DeviceSRS.slice_pow2``)
+as the JAX ``commit`` does, so a commit takes the same route on the same
+length in both packages.
 """
 
 from __future__ import annotations
@@ -12,9 +22,90 @@ import functools
 
 import torch
 
+from .. import constants as C
+from . import cuda_fr
 from .fr import canonical_device, fr_backend
-from .limbs import ints_to_words, to_tensor
-from .msm_kernel import fused_msm
+from .g1 import CurveOps
+from .limbs import NUM_LIMBS, ints_to_words, to_tensor
+from .msm_kernel import fused_msm, halve_sum_last, suffix_ladder
+
+SMALL_THRESHOLD = 256
+FUSED_THRESHOLD = 2048
+SCAN_WINDOW_BITS = 8
+SCALAR_BITS = 32 * NUM_LIMBS          # bit rows of the bit-serial route
+
+
+def _small_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor
+               ) -> torch.Tensor:
+    """Bit-serial double-and-add: points (3, 8, n), scalars (k, 8, n)
+    canonical -> (3, 8, k).  Each bit row is one add of width k n (K6) and
+    one doubling of the n bases (K7); then a halving tree per set."""
+    k, _, n = scalars.shape
+    words = cuda_fr._wide(scalars)                         # (k, 8, n)
+    acc = curve.identity((k, n)).contiguous()
+    base = points[:, :, None, :]
+    for b in range(SCALAR_BITS):
+        bit = (words[:, b // 32] >> (b % 32)) & 1         # (k, n)
+        taken = curve.add(acc, base)
+        acc = torch.where((bit == 1)[None, None], taken, acc)
+        base = curve.double(base)
+    return curve.tree_sum(acc)[..., 0]
+
+
+def _choose_lanes(n: int) -> int:
+    """The JAX ``MsmContext._choose_lanes``."""
+    if n >= 32768:
+        return 128
+    if n >= 4096:
+        return 64
+    return 32
+
+
+def _scan_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor,
+              gen: torch.Tensor) -> torch.Tensor:
+    """Scan Pippenger of one scalar set: points (3, 8, n) with Z = 1,
+    scalars (8, n) canonical -> (3, 8, 1)."""
+    c = SCAN_WINDOW_BITS
+    n = points.shape[-1]
+    lanes = _choose_lanes(n)
+    steps = -(-n // lanes)
+    pad = steps * lanes - n
+    if pad:       # the generator with digit 0: lands in the dropped bucket
+        points = torch.cat([points, gen.expand(3, NUM_LIMBS, pad)], dim=-1)
+    pts = points.reshape(3, NUM_LIMBS, steps, lanes)
+    words = cuda_fr._wide(scalars)
+    if pad:
+        words = torch.cat([words, torch.zeros_like(words[:, :pad])], dim=1)
+    per_word = 32 // c
+    dig = torch.stack([(words[w // per_word] >> (c * (w % per_word)))
+                       & ((1 << c) - 1)
+                       for w in range(NUM_LIMBS * per_word)])   # (W, n)
+    W, B = dig.shape[0], 1 << c
+    dig = dig.reshape(W, steps, lanes)
+
+    buckets = curve.identity((W * B * lanes,)).contiguous()
+    w_base = (torch.arange(W, device=dig.device) * B)[:, None]
+    lane = torch.arange(lanes, device=dig.device)[None, :]
+    for s in range(steps):
+        flat = ((w_base + dig[:, s, :]) * lanes + lane).reshape(-1)
+        cur = buckets[:, :, flat].reshape(3, NUM_LIMBS, W, lanes)
+        new = curve.add_mixed(cur, pts[0, :, s][:, None, :],
+                              pts[1, :, s][:, None, :])
+        buckets[:, :, flat] = new.reshape(3, NUM_LIMBS, W * lanes)
+    buckets = buckets.reshape(3, NUM_LIMBS, W, B, lanes)
+    buckets[2, :, :, 0, :] = 0                   # drop bucket 0
+
+    merged = halve_sum_last(curve, buckets)               # (3, 8, W, B)
+    suffix = suffix_ladder(curve, merged)
+    suffix[2, :, :, 0] = 0                       # exclude the j = 0 term
+    window_sums = halve_sum_last(curve, suffix)           # (3, 8, W)
+
+    acc = curve.identity((1,)).contiguous()
+    for w in range(W - 1, -1, -1):
+        for _ in range(c):
+            acc = curve.double(acc)
+        acc = curve.add(acc, window_sums[..., w:w + 1].contiguous())
+    return acc
 
 
 class MsmContext:
@@ -26,6 +117,17 @@ class MsmContext:
         self.fused = fused_msm(curve_type, self.device)
         self.curve = self.fused.curve
         self.scalar_backend = fr_backend(curve_type, self.device)
+        self._gen = self.curve.from_affine_ints([C.BN254_G1[0]],
+                                                [C.BN254_G1[1]])
+
+    @staticmethod
+    def route(n: int) -> str:
+        """"bucket", "small" or "scan": the JAX package's choice at n."""
+        if n >= FUSED_THRESHOLD:
+            return "bucket"
+        if n <= SMALL_THRESHOLD:
+            return "small"
+        return "scan"
 
     def msm(self, points: torch.Tensor, scalars: torch.Tensor,
             complete: bool = False) -> torch.Tensor:
@@ -34,11 +136,19 @@ class MsmContext:
         points: (3, 8, N) with Z = 1 (affine, never the identity).
         scalars: (8, N) canonical (non-Montgomery) limbs, or (k, 8, N)
             for k MSMs over the same points -> (3, 8, k).
-        complete: the default incomplete bucket add is sound only for a
-            duplicate-free, unstructured basis (SRS powers of a random tau,
-            ``random_point_basis``); pass True for structured bases.
+        complete: the bucket route's default incomplete add is sound only
+            for a duplicate-free, unstructured basis (SRS powers of a
+            random tau, ``random_point_basis``); pass True for structured
+            bases.  The other routes always use complete adds.
         """
-        return self.fused.msm(points, scalars, complete)
+        route = self.route(points.shape[-1])
+        if route == "bucket":
+            return self.fused.msm(points, scalars, complete)
+        sets = scalars if scalars.dim() == 3 else scalars[None]
+        if route == "small":
+            return _small_msm(self.curve, points, sets)
+        return torch.cat([_scan_msm(self.curve, points, s, self._gen)
+                          for s in sets], dim=-1)
 
     def scalars_to_limbs(self, scalar_ints) -> torch.Tensor:
         """Canonical ints -> (8, N) int32 limbs on the device."""
@@ -67,7 +177,8 @@ def affine_to_host(kzg, affine):
 
 def commit(kzg, ck, poly) -> tuple:
     """KZG commitment on the card: MSM of the polynomial's coefficients
-    against the device SRS, returned as the canonical host tuple."""
+    against the device SRS sliced to the next power of two, returned as the
+    canonical host tuple."""
     from .srs import DeviceSRS
 
     if not isinstance(ck, DeviceSRS):
@@ -76,6 +187,7 @@ def commit(kzg, ck, poly) -> tuple:
     if not coeffs:
         return kzg.Z1
     ctx = msm_context(kzg.curve_type, ck.device)
-    pts = ck.points[..., :len(coeffs)]
-    result = ctx.msm(pts, ctx.scalars_to_limbs([int(c) for c in coeffs]))
+    pts = ck.slice_pow2(len(coeffs))
+    ints = [int(c) for c in coeffs] + [0] * (pts.shape[-1] - len(coeffs))
+    result = ctx.msm(pts, ctx.scalars_to_limbs(ints))
     return affine_to_host(kzg, ctx.curve.to_affine_ints(result)[0])

@@ -144,35 +144,40 @@ def msm_bucket(fc: FieldConsts, px: torch.Tensor, py: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def halve_sum_last(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
+    """Tree sum along the last (power-of-two) axis: (3, 8, ..., n) ->
+    (3, 8, ...)."""
+    n = pts.shape[-1]
+    while n > 1:
+        half = n // 2
+        pts = curve.add(pts[..., :half], pts[..., half:])
+        n = half
+    return pts[..., 0]
+
+
+def suffix_ladder(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix sums along the last (power-of-two) axis by a
+    Hillis-Steele ladder with identity (all-zero) fill."""
+    n = pts.shape[-1]
+    shift = 1
+    while shift < n:
+        fill = torch.zeros_like(pts[..., :shift])
+        pts = curve.add(pts, torch.cat([pts[..., shift:], fill], dim=-1))
+        shift *= 2
+    return pts
+
+
 def _window_sums(curve: CurveOps, table: torch.Tensor, windows: int,
                  lanes: int) -> torch.Tensor:
     """table (nb, 3, 8, W * lanes) -> per-window sums (3, 8, W).
 
     Fold the lanes by a halving tree, then sum_b (b + 1) B_b as the sum of
-    the inclusive suffix sums S_j = sum_{b >= j} B_b (Hillis-Steele ladder
-    with identity fill, then a halving tree over j)."""
+    the inclusive suffix sums S_j = sum_{b >= j} B_b (a ladder, then a
+    halving tree over j)."""
     nb = table.shape[0]
-    t = table.reshape(nb, 3, NUM_LIMBS, windows, lanes).permute(1, 2, 0, 3, 4)
-    n = lanes
-    while n > 1:
-        half = n // 2
-        t = curve.add(t[..., :half], t[..., half:n])
-        n = half
-    s = t[..., 0]                                        # (3, 8, nb, W)
-    shift = 1
-    while shift < nb:
-        fill = torch.zeros_like(s[:, :, :shift])
-        s = curve.add(s, torch.cat([s[:, :, shift:], fill], dim=2))
-        shift *= 2
-    n = nb
-    while n > 1:
-        if n % 2:
-            s = torch.cat([s, torch.zeros_like(s[:, :, :1])], dim=2)
-            n += 1
-        half = n // 2
-        s = curve.add(s[:, :, :half], s[:, :, half:n])
-        n = half
-    return s[:, :, 0]
+    t = table.reshape(nb, 3, NUM_LIMBS, windows, lanes).permute(1, 2, 3, 0, 4)
+    s = halve_sum_last(curve, t)                         # (3, 8, W, nb)
+    return halve_sum_last(curve, suffix_ladder(curve, s))
 
 
 def _horner_windows(curve: CurveOps, wins: torch.Tensor, k: int, W: int,
@@ -192,7 +197,7 @@ class FusedMsm:
     """MSM over one curve's G1 through the bucket-pass kernel."""
 
     def __init__(self, curve_type: str = "bn254", device="cpu"):
-        from kzg_snark_tpu import constants as C
+        from .. import constants as C
         device = canonical_device(device)
         self.curve_type = curve_type
         self.device = device

@@ -2,10 +2,18 @@
 
 Counterpart of ``kzg_snark_tpu/ops/ntt.py`` ``NttContext``: natural-order
 input and output over (8, n) Montgomery limb tensors, the deterministic
-domain root of ``ops/host/field`` ``nth_root_of_unity``.  One plan serves
-every size (``ops/ntt_stage.staged_transform`` on the K2-K5 kernels); the
-bit reversal is a torch index gather, the n^-1 scale and coset shifts are
-K1 products.
+domain root of ``ops/host/field`` ``nth_root_of_unity``.  Two modes, chosen
+by the caller:
+
+* ``"staged"`` (the default): ``ops/ntt_stage.staged_transform`` on the
+  K2-K5 kernels, the bit reversal a torch index gather;
+* ``"scan"``: the JAX ``_transform_scan`` (``KZG_TPU_NTT_MODE=scan``): the
+  bit reversal by two half-width gathers and a transpose, then per stage
+  two rolls align the pairs and the K10 kernel combines them against a
+  full-width twiddle row (the (stages, 8, n) rows are built on first use).
+
+The n^-1 scale and coset shifts are K1 products.  Values are exact, so
+both modes give equal output.
 """
 
 from __future__ import annotations
@@ -15,7 +23,9 @@ import functools
 import torch
 
 from .fr import FieldBackend, canonical_device, fr_backend
-from .ntt_stage import staged_transform
+from .ntt_stage import fr_butterfly, staged_transform
+
+MODES = ("staged", "scan")
 
 
 def bit_reverse_indices(n: int) -> torch.Tensor:
@@ -58,21 +68,71 @@ class NttContext:
                                         half)
         self.n_inv = backend.scalar(pow(n, -1, p))
 
-    def _transform(self, values: torch.Tensor, table: torch.Tensor
+    def _transform(self, values: torch.Tensor, forward: bool, mode: str
                    ) -> torch.Tensor:
+        if mode not in MODES:
+            raise ValueError(f"NTT mode must be one of {MODES}, got {mode!r}")
         if self.n == 1:
             return values
+        if mode == "scan":
+            return self._transform_scan(values, forward)
+        table = self.tw_fwd if forward else self.tw_inv
         return staged_transform(self.backend.consts,
                                 values[:, self.bitrev], table)
 
-    def ntt(self, coeffs: torch.Tensor) -> torch.Tensor:
+    def ntt(self, coeffs: torch.Tensor, mode: str = "staged") -> torch.Tensor:
         """Evaluate: out[:, i] = p(w^i).  coeffs (8, n) Montgomery form."""
-        return self._transform(coeffs, self.tw_fwd)
+        return self._transform(coeffs, True, mode)
 
-    def intt(self, evals: torch.Tensor) -> torch.Tensor:
+    def intt(self, evals: torch.Tensor, mode: str = "staged") -> torch.Tensor:
         """Interpolate: inverse transform scaled by n^-1."""
-        return self.backend.mul(self._transform(evals, self.tw_inv),
+        return self.backend.mul(self._transform(evals, False, mode),
                                 self.n_inv)
+
+    # -- scan mode (K10) -------------------------------------------------
+    def _bitrev_2d(self, values: torch.Tensor) -> torch.Tensor:
+        """Bit reversal by two half-width gathers and a transpose: for
+        i = a 2^h2 + b, rev(i) = rev_h1(a) 2^h2 + rev_h2(b)."""
+        bits = self.n.bit_length() - 1
+        h1 = bits // 2
+        h2 = bits - h1
+        A, B = 1 << h1, 1 << h2
+        dev = values.device
+        rev_a = bit_reverse_indices(A).to(dev)
+        rev_b = bit_reverse_indices(B).to(dev)
+        x2d = values.reshape(values.shape[0], A, B)[:, rev_a][:, :, rev_b]
+        return x2d.transpose(1, 2).reshape(values.shape[0], self.n)
+
+    def _stage_twiddles(self, forward: bool) -> torch.Tensor:
+        """(stages, 8, n) rows: row t, column i holds
+        w^((i mod 2^t) n / 2^(t+1)).  Built on the first scan-mode call."""
+        attr = "_stage_tw_fwd" if forward else "_stage_tw_inv"
+        if attr not in self.__dict__:
+            table = self.tw_fwd if forward else self.tw_inv
+            n = self.n
+            rows = []
+            for t in range(n.bit_length() - 1):
+                span = 1 << t
+                stride = n // (2 * span)
+                rows.append(table[:, 0:span * stride:stride].repeat(
+                    1, n // span))
+            setattr(self, attr, torch.stack(rows))
+        return self.__dict__[attr]
+
+    def _transform_scan(self, values: torch.Tensor, forward: bool
+                        ) -> torch.Tensor:
+        fc = self.backend.consts
+        tws = self._stage_twiddles(forward)
+        x = self._bitrev_2d(values)
+        idx = torch.arange(self.n, dtype=torch.int32, device=x.device)
+        for t in range(tws.shape[0]):
+            span = 1 << t
+            upper = (idx & span) != 0
+            xl = torch.where(upper[None], torch.roll(x, span, dims=1), x)
+            xu = torch.where(upper[None], x, torch.roll(x, -span, dims=1))
+            x = fr_butterfly(fc, xl.contiguous(), xu.contiguous(),
+                             tws[t], upper.to(torch.int32))
+        return x
 
     def powers(self, c: int) -> torch.Tensor:
         """[1, c, ..., c^(n-1)] (8, n) Montgomery."""
@@ -96,7 +156,7 @@ class NttContext:
 
 @functools.lru_cache(maxsize=None)
 def _root(curve_type: str, n: int) -> int:
-    from kzg_snark_tpu.ops.host.field import scalar_field
+    from .host.field import scalar_field
     return int(scalar_field(curve_type).nth_root_of_unity(n)) if n > 1 else 1
 
 

@@ -11,6 +11,11 @@ span:
 ``staged_transform`` plans as ``StagedNtt.transform`` does: pair stages
 whenever 4 * span <= n, else one radix-2 stage.  Input is bit-reversed,
 output in natural order; values are exact, so any plan gives equal output.
+
+``fr_butterfly`` (K10, replaces ``pallas_fr.py`` ``_butterfly_call``) is
+the stage combine of the scan-mode transform (``ops/ntt.py``): pairs
+aligned by the caller, ``mask ? xl - tw xu : xl + tw xu`` elementwise.
+
 Each wrapper runs its plain version for CPU tensors.
 """
 
@@ -65,6 +70,36 @@ def ntt_stage(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
     check(cuda_lib().kzg_ntt_stage(x.data_ptr(), out.data_ptr(),
                                    tw.data_ptr(), n, span, radix, fc.ptr,
                                    cuda_fr._stream(x)), "ntt_stage")
+    return out
+
+
+def butterfly_plain(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
+                    tw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K10 plain version over (8, n); mask (n,) int32, nonzero = upper."""
+    f = cuda_fr.PlainField(fc)
+    prod = f.mul(xu, tw)
+    return torch.where((mask != 0)[None], f.sub(xl, prod), f.add(xl, prod))
+
+
+def fr_butterfly(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
+                 tw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K10: mask ? xl - tw xu : xl + tw xu over (8, n), mask (n,) int32."""
+    if cuda_fr._on_cpu(xl, xu, tw, mask):
+        return butterfly_plain(fc, xl, xu, tw, mask)
+    cuda_fr._require_cuda("fr_butterfly", xl, xu, tw, mask)
+    n = xl.shape[-1]
+    if xl.shape != (NUM_LIMBS, n) or xu.shape != xl.shape \
+            or tw.shape != xl.shape or mask.shape != (n,):
+        raise ValueError(f"fr_butterfly: expected (8, n) operands and an "
+                         f"(n,) mask, got {tuple(xl.shape)}, "
+                         f"{tuple(xu.shape)}, {tuple(tw.shape)}, "
+                         f"{tuple(mask.shape)}")
+    out = torch.empty_like(xl)
+    count_launch("fr_butterfly")
+    check(cuda_lib().kzg_fr_butterfly(xl.data_ptr(), xu.data_ptr(),
+                                      tw.data_ptr(), mask.data_ptr(),
+                                      out.data_ptr(), n, fc.ptr,
+                                      cuda_fr._stream(xl)), "fr_butterfly")
     return out
 
 

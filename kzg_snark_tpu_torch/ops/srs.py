@@ -33,11 +33,20 @@ class DeviceSRS:
     def __len__(self) -> int:
         return int(self.points.shape[-1])
 
+    def slice_pow2(self, count: int) -> torch.Tensor:
+        """The first ``count`` points, extended to the next power of two
+        when the SRS holds that many (the JAX ``DeviceSRS.slice_pow2``)."""
+        n = 1
+        while n < count:
+            n *= 2
+        n = min(n, len(self))
+        return self.points[..., :max(n, count)]
+
     def __getitem__(self, i: int):
         """Host projective tuple view (x, y, 1), cached after the first
         full transfer."""
         if not hasattr(self, "_host_cache"):
-            from kzg_snark_tpu.ops.host.field import base_field
+            from .host.field import base_field
             Fp = base_field(self.curve_type)
             self._host_cache = [
                 (Fp(a[0]), Fp(a[1]), Fp(1)) if a is not None else

@@ -1,11 +1,12 @@
 """Builds and loads the port's hand-written kernels.
 
-``cuda_lib()`` compiles every ``kzg_snark_tpu_torch/csrc/*.cu`` in one
-``nvcc`` call into ``.build/torch_kernels/<hash>/libkzg_torch.so`` (plain C
-entry points, loaded with ctypes) the first time a kernel is launched.  The
-hash covers the sources and the flags, so an edited source builds anew.  An
-``fcntl`` lock lets several processes (pytest workers) share one build.
-There is no fallback: without ``nvcc`` or with a failing build it raises.
+``cuda_lib()`` compiles every ``kzg_snark_tpu_torch/csrc/*.cu`` into
+``.build/torch_kernels/<hash>/libkzg_torch.so`` (plain C entry points,
+loaded with ctypes) the first time a kernel is launched: one ``nvcc -c``
+per source, all started together, then one link.  The hash covers the
+sources and the flags, so an edited source builds anew.  An ``fcntl`` lock
+lets several processes (pytest workers) share one build.  There is no
+fallback: without ``nvcc`` or with a failing build it raises.
 
 ``host_lib()`` compiles ``csrc/host_check.cpp`` with g++: the kernels'
 thread bodies on the CPU, which the tests compare with the plain versions.
@@ -30,8 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), ".build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
@@ -46,7 +47,9 @@ CUDA_ENTRIES = {
     "kzg_fr_sub": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _P],
     "kzg_g1_add": [_P, _P, _P, _I64, _P, _P],
     "kzg_g1_double": [_P, _P, _I64, _P, _P],
+    "kzg_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P, _P],
     "kzg_ntt_stage": [_P, _P, _P, _I64, _I64, _INT, _P, _P],
+    "kzg_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
     "kzg_msm_bucket": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
 }
 
@@ -54,6 +57,8 @@ HOST_ENTRIES = {
     "host_fr_ewise": [_INT, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
     "host_g1_add": [_P, _P, _P, _I64, _P],
     "host_g1_double": [_P, _P, _I64, _P],
+    "host_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P],
+    "host_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P],
     "host_ntt_radix2": [_P, _P, _P, _I64, _I64, _P],
     "host_ntt_radix4": [_P, _P, _P, _I64, _I64, _P],
     "host_msm_bucket": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _INT, _P],
@@ -94,10 +99,26 @@ def _digest(files: list[str], flags: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(kind: str, lib_name: str, compiler: list[str], sources: list[str],
-           flags: list[str]) -> str:
-    """Compile ``sources`` into .build/<kind>/<hash>/<lib_name> under a file
-    lock; returns the library path."""
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    compiler output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"kernel build failed ({' '.join(cmd)}):\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
+def _build(kind: str, lib_name: str, sources: list[str], flags: list[str],
+           steps) -> str:
+    """Build ``sources`` into .build/<kind>/<hash>/<lib_name> under a file
+    lock; ``steps(out_dir, tmp_lib)`` gives the command batches, run in
+    order, the commands of a batch side by side.  Returns the library."""
     rel = [os.path.relpath(s, _CSRC) for s in sources]
     out_dir = os.path.join(_BUILD, kind, _digest(rel, flags))
     lib = os.path.join(out_dir, lib_name)
@@ -109,11 +130,8 @@ def _build(kind: str, lib_name: str, compiler: list[str], sources: list[str],
         if os.path.exists(lib):
             return lib
         tmp = lib + f".tmp{os.getpid()}"
-        cmd = compiler + flags + ["-I", _CSRC, "-o", tmp] + sources
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}")
+        for batch in steps(out_dir, tmp):
+            _run(batch)
         os.replace(tmp, lib)
     return lib
 
@@ -141,9 +159,22 @@ def _load(kind: str, build_fn, entries: dict) -> ctypes.CDLL:
 
 
 def build_cuda() -> str:
+    """Compile each .cu apart, all at once, then link the library."""
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-    return _build("torch_kernels", "libkzg_torch.so", [_nvcc()], sources,
-                  NVCC_FLAGS)
+    nvcc = _nvcc()
+
+    def steps(out_dir, tmp):
+        tag = f".{os.getpid()}.o"
+        objs = [os.path.join(out_dir, os.path.basename(src) + tag)
+                for src in sources]
+        compile_cmds = [[nvcc] + NVCC_FLAGS + ["-I", _CSRC, "-c", "-o", obj,
+                                               src]
+                        for src, obj in zip(sources, objs)]
+        return [compile_cmds, [[nvcc] + NVCC_ARCH + ["-shared", "-o", tmp]
+                               + objs]]
+
+    return _build("torch_kernels", "libkzg_torch.so", sources, NVCC_FLAGS,
+                  steps)
 
 
 def cuda_lib() -> ctypes.CDLL:
@@ -153,7 +184,10 @@ def cuda_lib() -> ctypes.CDLL:
 
 def host_lib() -> ctypes.CDLL:
     """The kernels' thread bodies built for the CPU (tests)."""
+    src = os.path.join(_CSRC, "host_check.cpp")
+
     def build():
-        return _build("torch_host", "libkzg_host.so", ["g++"],
-                      [os.path.join(_CSRC, "host_check.cpp")], GXX_FLAGS)
+        return _build("torch_host", "libkzg_host.so", [src], GXX_FLAGS,
+                      lambda out_dir, tmp: [[["g++"] + GXX_FLAGS + [
+                          "-I", _CSRC, "-o", tmp, src]]])
     return _load("torch_host", build, HOST_ENTRIES)

@@ -1,10 +1,14 @@
-"""State carried across from the JAX package, as numpy arrays.
+"""State carried across from the JAX package, as numpy arrays and ints.
 
 The JAX package holds field elements as (16, ...) uint32 arrays of 16-bit
 limbs; the port as (8, ...) int32 tensors of 32-bit limbs.  Both are the
 same Montgomery integers (R = 2^256), so conversion is a pairing of limbs,
 no arithmetic.  Nothing here imports JAX: callers pass ``np.asarray`` of
 JAX arrays.
+
+The two packages' host field classes are distinct (the port keeps its own
+copy of the host layer), so their elements never compare equal to each
+other; ``to_plain`` maps proofs, keys and points of either to ints.
 """
 
 from __future__ import annotations
@@ -49,3 +53,18 @@ def device_cache_from_jax(cache: dict, device="cpu") -> dict:
     """A JAX ``ipk["_device_cache"]`` dict of (16, n) arrays -> the port's
     dict of (8, n) tensors, under the same keys."""
     return {k: limbs16_to_tensor(v, device) for k, v in cache.items()}
+
+
+def to_plain(obj):
+    """Host field elements (prime field: ``.n``; tower: ``.c0``, ``.c1``
+    ...) -> ints and tuples of ints, through tuples, lists and dicts."""
+    if isinstance(obj, dict):
+        return {k: to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return tuple(to_plain(v) for v in obj)
+    if hasattr(obj, "n") and isinstance(obj.n, int):
+        return obj.n
+    slots = [a for a in ("c0", "c1", "c2") if hasattr(obj, a)]
+    if slots:
+        return tuple(to_plain(getattr(obj, a)) for a in slots)
+    return obj

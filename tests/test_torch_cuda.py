@@ -4,7 +4,8 @@ Without a card: CPU tensors take the plain versions, and a tensor on any
 other device never does (it goes to the kernel path, which checks its
 operands and raises).  With a card (tests marked ``cuda``, skipped where
 ``torch.cuda.is_available()`` is false): every kernel entry point equals
-its plain version on small numpy-seeded inputs and counts its launch.
+its plain version on small numpy-seeded inputs and counts its launch
+(K1-K10).
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -15,7 +16,8 @@ import torch
 from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops.msm_kernel import msm_bucket, msm_bucket_plain
-from kzg_snark_tpu_torch.ops.ntt_stage import ntt_stage
+from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain, fr_butterfly,
+                                               ntt_stage)
 from kzg_snark_tpu_torch.utils.build import LAUNCHES
 
 
@@ -49,6 +51,11 @@ def test_curve_and_stage_wrappers_reject_other_devices():
     d = torch.empty((37, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         msm_bucket(fc, x, x, d, 1, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fr.g1_add_mixed(fc, p, x[:, :1], x[:, :1])
+    m = torch.empty((8,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fr_butterfly(fc, x, x, x, m)
 
 
 def test_cpu_path_counts_no_launch():
@@ -112,3 +119,39 @@ def test_curve_stage_and_bucket_kernels_match_plain(cuda):
     for complete in (False, True):
         assert torch.equal(msm_bucket(fq, px, py, dig, 16, complete),
                            msm_bucket_plain(fq, px, py, dig, 16, complete))
+
+
+@pytest.mark.cuda
+def test_mixed_add_and_butterfly_kernels_match_plain(cuda):
+    """K9 with a per-point, a per-lane and a broadcast q (identity, P = q
+    and P = -q lanes included), and K10 with a random mask; each launch is
+    counted once."""
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+
+    fb = fq_backend("bn254", cuda)
+    fq = fb.consts
+    pts, _ = random_point_basis("bn254", 256, seed=2, device=cuda)
+    acc = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
+    acc[2, :, :4] = 0
+    acc[:, :, 4:8] = pts[:, :, 4:8]
+    acc[0, :, 8:12] = pts[0, :, 8:12]
+    acc[1, :, 8:12] = fb.neg(pts[1, :, 8:12].contiguous())
+    acc[2, :, 8:12] = pts[2, :, 8:12]
+    acc = acc.contiguous()
+    for qn in (256, 32, 1):
+        qx, qy = pts[0, :, :qn].contiguous(), pts[1, :, :qn].contiguous()
+        before = LAUNCHES["g1_add_mixed"]
+        assert torch.equal(cuda_fr.g1_add_mixed(fq, acc, qx, qy),
+                           cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy))
+        assert LAUNCHES["g1_add_mixed"] == before + 1
+    with pytest.raises(ValueError):
+        cuda_fr.g1_add_mixed(fq, acc, pts[0, :, :3].contiguous(),
+                             pts[1, :, :3].contiguous())
+    fr = fr_backend("bn254", cuda).consts
+    xl, xu, tw = (words(1000, s, cuda) for s in (5, 6, 7))
+    mask = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 2, 1000).astype(np.int32)).to(cuda)
+    before = LAUNCHES["fr_butterfly"]
+    assert torch.equal(fr_butterfly(fr, xl, xu, tw, mask),
+                       butterfly_plain(fr, xl, xu, tw, mask))
+    assert LAUNCHES["fr_butterfly"] == before + 1

@@ -4,10 +4,14 @@ representative.
 The port's curve formulas are the JAX package's (``ops/regcurve.py``), so
 add, double and the mixed adds must give equal Jacobian (X, Y, Z) integers
 on the same inputs, including the identity, P + P and P + (-P).  The JAX
-functions run eagerly (``add_xla`` etc.); the K7 plain version is also held
-to the JAX Pallas ``fused_curve_double`` in interpret mode.
+functions run eagerly (``add_xla`` etc.); the K7 and K9 plain versions are
+also held to the JAX Pallas wrappers with interpret mode set, as
+``tests/test_pallas.py`` runs them (at 128 points the wrappers serve the
+call from the XLA formulas), and K9's to ``RegCurve.add_mixed``, the body of
+``_add_mixed_call``.  The g++ build of K9's thread body must agree too.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -103,14 +107,104 @@ def test_mixed_adds(curves, points):
 
 
 def test_add_mixed_and_tree_sum_points(curves, points):
-    """The port's add_mixed (complete add with q lifted to Z = 1) and
-    tree_sum give the same affine points as the JAX package's."""
+    """The port's add_mixed (K9) gives the JAX package's representative,
+    and tree_sum the same affine points."""
     jc, tc = curves
     jp, tp, jd, td = points
-    want = jc.to_affine_ints(jc.add_mixed_xla(jd, jp[0], jp[1]))
-    assert tc.to_affine_ints(tc.add_mixed(td, tp[0], tp[1])) == want
+    assert same(jc.add_mixed_xla(jd, jp[0], jp[1]),
+                tc.add_mixed(td, tp[0], tp[1]))
     assert tc.to_affine_ints(tc.tree_sum(td)) == jc.to_affine_ints(
         jc.tree_sum(jd))
+
+
+@pytest.fixture(scope="module")
+def mixed_cases(curves, points):
+    """Accumulators (port and JAX) whose lane 0 is the identity, lane 1
+    equals q and lane 2 equals -q, and the affine q (per lane)."""
+    jc, tc = curves
+    jp, tp, jd, td = points
+    q = tp.roll(1, -1)
+    acc = td.clone()
+    acc[:, :, 0] = tc.identity()[:, :, 0]
+    acc[:, :, 1] = q[:, :, 1]
+    acc[:, :, 2] = torch.stack([q[0, :, 2], tc.f.neg(q[1, :, 2:3])[:, 0],
+                                q[2, :, 2]])
+    acc_j = jnp.asarray(np.stack([tensor_to_limbs16(acc[c])
+                                  for c in range(3)]))
+    q_j = jnp.asarray(np.stack([tensor_to_limbs16(q[c]) for c in range(3)]))
+    return acc, q, acc_j, q_j
+
+
+def test_k9_plain_matches_jax_add_mixed(curves, mixed_cases):
+    jc, tc = curves
+    acc, q, acc_j, q_j = mixed_cases
+    fc = tc.f.consts
+    want = jc.add_mixed_xla(acc_j, q_j[0], q_j[1])
+    assert same(want, cuda_fr.g1_add_mixed_plain(fc, acc, q[0], q[1]))
+    # one q broadcast over the batch (column period 1)
+    want = jc.add_mixed_xla(acc_j, q_j[0][:, 1:2], q_j[1][:, 1:2])
+    got = cuda_fr.g1_add_mixed_plain(fc, acc, q[0, :, 1:2].contiguous(),
+                                     q[1, :, 1:2].contiguous())
+    assert same(want, got)
+    # the equal lane doubles, the opposite lane is the identity
+    out = cuda_fr.g1_add_mixed_plain(fc, acc, q[0], q[1])
+    assert torch.equal(out[:, :, 1], tc.double(acc[:, :, 1:2])[:, :, 0])
+    assert bool((out[2, :, 2] == 0).all())
+
+
+def test_k9_plain_matches_regcurve_kernel_body(curves, mixed_cases):
+    """The body of ``_add_mixed_call`` is ``RegCurve.add_mixed`` over
+    register limbs; evaluated eagerly on the same points."""
+    from kzg_snark_tpu.ops.regcurve import RegCurve
+    from kzg_snark_tpu.ops.regfield import reg_field
+
+    jc, tc = curves
+    acc, q, acc_j, q_j = mixed_cases
+    rc = RegCurve(reg_field(jc.f.modulus))
+    regs = lambda a: [a[i][None] for i in range(a.shape[0])]  # noqa: E731
+    out = rc.add_mixed(tuple(regs(acc_j[c]) for c in range(3)),
+                       regs(q_j[0]), regs(q_j[1]))
+    want = np.stack([np.concatenate([np.asarray(r) for r in out[c]])
+                     for c in range(3)])
+    assert same(want, cuda_fr.g1_add_mixed_plain(tc.f.consts, acc, q[0],
+                                                  q[1]))
+
+
+def test_k9_plain_matches_pallas_fused_add_mixed(curves):
+    """As ``tests/test_pallas.py`` runs the Pallas wrappers: interpret mode
+    set, 128 points, one broadcast q."""
+    from kzg_snark_tpu.ops import pallas_fr
+    from kzg_snark_tpu.ops.msm import msm_context
+
+    ctx = msm_context("bn254")
+    P = ctx.curve.double_xla(ctx._generator_pad(128))
+    g = ctx._generator_pad(1)
+    old = pallas_fr._INTERPRET
+    pallas_fr._INTERPRET = True
+    try:
+        want = pallas_fr.fused_curve_add_mixed(ctx.curve, P, g[0], g[1])
+    finally:
+        pallas_fr._INTERPRET = old
+    _, tc = curves
+    gt = points16_to_tensor(g)
+    got = cuda_fr.g1_add_mixed_plain(tc.f.consts, points16_to_tensor(P),
+                                     gt[0].contiguous(), gt[1].contiguous())
+    assert same(want, got)
+
+
+@pytest.mark.parametrize("qn", [1, W])
+def test_k9_host_build_matches_plain(curves, mixed_cases, qn):
+    """The kernel's thread body, built with g++, on the same values."""
+    from kzg_snark_tpu_torch.utils.build import host_lib
+
+    _, tc = curves
+    acc, q, _, _ = mixed_cases
+    fc = tc.f.consts
+    qx, qy = q[0, :, :qn].contiguous(), q[1, :, :qn].contiguous()
+    out = torch.empty_like(acc)
+    host_lib().host_g1_add_mixed(acc.data_ptr(), qx.data_ptr(),
+                                 qy.data_ptr(), qn, out.data_ptr(), W, fc.ptr)
+    assert torch.equal(out, cuda_fr.g1_add_mixed_plain(fc, acc, qx, qy))
 
 
 def test_double_plain_matches_pallas_fused_double(curves):

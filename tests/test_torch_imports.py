@@ -1,9 +1,12 @@
-"""The port runs without JAX.
+"""The port runs without JAX and without the JAX package.
 
-A fresh interpreter in which ``import jax`` fails imports every module of
-``kzg_snark_tpu_torch`` and proves the n = 16 synthetic circuit on the CPU;
-the host verifier accepts the proof.  The card's machine has no JAX, so
-this is the check that the port needs none.
+A fresh interpreter in which ``import jax`` and ``import kzg_snark_tpu``
+both fail imports every module of ``kzg_snark_tpu_torch``, proves the
+n = 16 PLONK circuit and the |H| = 16 Marlin circuit on the CPU, and the
+port's own host verifiers accept both proofs.  The card's machine has no
+JAX, and the port keeps its own host layer, so this is the check that it
+needs neither.  A source scan forbids both imports in the port and in
+``chip_smoke.py``.
 """
 
 import os
@@ -15,16 +18,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROGRAM = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["jax"] = None              # any import of jax now raises
+sys.modules["kzg_snark_tpu"] = None    # and any import of the JAX package
+import torch
+torch.set_num_threads(1)
 import kzg_snark_tpu_torch
 for mod in pkgutil.walk_packages(kzg_snark_tpu_torch.__path__,
                                  "kzg_snark_tpu_torch."):
     importlib.import_module(mod.name)
 
-from kzg_snark_tpu.models.plonk.verifier import Verifier
-from kzg_snark_tpu.ops.host.field import scalar_field
-from kzg_snark_tpu.rng import Rng
-from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+from kzg_snark_tpu_torch.models.marlin.device import DeviceProver as Marlin
+from kzg_snark_tpu_torch.models.marlin.verifier import Verifier as MVerifier
+from kzg_snark_tpu_torch.models.plonk.device import DeviceProver as Plonk
+from kzg_snark_tpu_torch.models.plonk.verifier import Verifier as PVerifier
+from kzg_snark_tpu_torch.ops.host.field import scalar_field
+from kzg_snark_tpu_torch.rng import Rng
+from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
 
 Fr = scalar_field("bn254")
 n = 16
@@ -32,14 +41,22 @@ one, zero = Fr(1), Fr(0)
 a = [Fr(i + 2) for i in range(n)]
 b = [Fr(i + 3) for i in range(n)]
 w = a + b + [x * y for x, y in zip(a, b)]
-prover = DeviceProver("bn254", rng=Rng(77), device="cpu")
+prover = Plonk("bn254", rng=Rng(77), device="cpu")
 ipk, ivk = prover.preprocess([one] * n, [zero] * n, [zero] * n, [-one] * n,
                              [zero] * n, list(range(3 * n)),
                              max_degree=n + 5, tau=0xABCDEF12345)
 proof = prover.prove(ipk, [], w)
-assert Verifier("bn254", rng=Rng(78)).verify(ivk, [], proof)
-assert sys.modules["jax"] is None
-print("PROVED WITHOUT JAX")
+assert PVerifier("bn254", rng=Rng(78)).verify(ivk, [], proof)
+print("PLONK PROVED WITHOUT JAX")
+
+A, B, C, z = synthetic_r1cs(16)
+keys = Marlin("bn254", rng=Rng(900), device="cpu").preprocess(
+    A, B, C, 6 * 32, tau=0xFEED5EED)
+proof = Marlin("bn254", rng=Rng(901), device="cpu").prove(keys[0], z[:5],
+                                                           z[5:])
+assert MVerifier("bn254", rng=Rng(902)).verify(keys[1], z[:5], proof)
+assert sys.modules["jax"] is None and sys.modules["kzg_snark_tpu"] is None
+print("MARLIN PROVED WITHOUT JAX")
 """
 
 
@@ -49,11 +66,13 @@ def test_port_proves_without_jax():
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "PROVED WITHOUT JAX" in proc.stdout
+    assert "PLONK PROVED WITHOUT JAX" in proc.stdout
+    assert "MARLIN PROVED WITHOUT JAX" in proc.stdout
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import|from)\s+jax\b")
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax\b|kzg_snark_tpu(\.|\s|$))")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "kzg_snark_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]

@@ -2,11 +2,15 @@
 oracle.
 
 ``signed_digits`` must equal the JAX recoding.  The MSM (plain versions of
-the bucket pass and the K6/K7 reduction on the CPU) must equal the host
-sum over ``random_point_basis`` (P_i = k_i G, so the oracle is
-(sum s_i k_i) G), with scalars 0, 1, r - 1 and duplicates, at 64 and 1024
-points; a structured basis [(i+1) G] runs with ``complete=True``.
+the kernels on the CPU) must equal the host sum over ``random_point_basis``
+(P_i = k_i G, so the oracle is (sum s_i k_i) G), with scalars 0, 1, r - 1
+and duplicates, on each route the JAX ``MsmContext`` would take: bit-serial
+(n <= 256: 64, 200), scan Pippenger on K9 (300, 1024) and the bucket pass
+(2048); all-zero scalars give the identity on every route.  A structured
+basis [(i+1) G] runs with ``complete=True``.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,7 +23,7 @@ from kzg_snark_tpu.ops.host.field import base_field
 from kzg_snark_tpu.ops.msm_kernel import signed_digits as jax_signed_digits
 from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
 from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
-from kzg_snark_tpu_torch.ops.msm import msm_context
+from kzg_snark_tpu_torch.ops.msm import MsmContext, msm_context
 from kzg_snark_tpu_torch.ops.msm_kernel import lanes_for, signed_digits
 
 # Tiny tensors: one intra-op thread is faster than many, and the test
@@ -61,13 +65,31 @@ def test_lanes_for():
     assert lanes_for(1 << 16) == 256
 
 
+@functools.lru_cache(maxsize=None)
+def basis(n):
+    return random_point_basis("bn254", n, seed=n)
+
+
 @pytest.mark.parametrize("n", [64, 1024])
 def test_msm_matches_host_oracle(n):
-    pts, ks = random_point_basis("bn254", n, seed=n)
+    pts, ks = basis(n)
     ctx = msm_context("bn254")
     s = scalars(n, n + 1)
     got = ctx.curve.to_affine_ints(ctx.msm(pts, ctx.scalars_to_limbs(s)))
     assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
+
+
+@pytest.mark.parametrize("n, route", [(200, "small"), (300, "scan"),
+                                      (2048, "bucket")])
+def test_msm_routes_match_host_oracle(n, route):
+    assert MsmContext.route(n) == route
+    pts, ks = basis(n)
+    ctx = msm_context("bn254")
+    s = scalars(n, n + 2)
+    got = ctx.curve.to_affine_ints(ctx.msm(pts, ctx.scalars_to_limbs(s)))
+    assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
+    zero = ctx.msm(pts, ctx.scalars_to_limbs([0] * n))
+    assert ctx.curve.to_affine_ints(zero) == [None]
 
 
 def test_msm_many_matches_single():

@@ -6,7 +6,10 @@ eagerly; ntt and intt run its compile-light mode (``light=True``, one
 loop body per size: the unrolled mode compiles every stage's ops apart and
 costs minutes on the CPU), which gives the same integers.  The port's own
 radix-4 / radix-2 plan is checked against the host ``ops/host/fft.py`` at
-2^11 and 2^12, odd and even log n.  Inputs are numpy-seeded.
+2^11 and 2^12, odd and even log n, and the "scan" mode (K10) against the
+staged plan up to 2^11.  K10's plain version is held to the JAX
+``fused_butterfly`` and to its own g++-built thread body.  Inputs are
+numpy-seeded.
 """
 
 import numpy as np
@@ -78,3 +81,68 @@ def test_staged_plan_matches_host_fft(log_n):
 def test_bit_reverse_indices():
     assert bit_reverse_indices(8).tolist() == [0, 4, 2, 6, 1, 5, 3, 7]
     assert bit_reverse_indices(1).tolist() == [0]
+
+
+def test_butterfly_plain_matches_pallas_fused_butterfly():
+    """K10's plain version against the JAX Pallas ``fused_butterfly`` with
+    interpret mode set, as ``tests/test_pallas.py`` runs it (256 elements:
+    at that size the wrapper serves the call from the XLA combine; running
+    the kernel body in interpret mode costs about a minute on the CPU)."""
+    import jax.numpy as jnp
+
+    from kzg_snark_tpu.ops import pallas_fr
+    from kzg_snark_tpu.ops.fr import fr_backend as jax_fr_backend
+    from kzg_snark_tpu_torch.ops.fr import fr_backend
+    from kzg_snark_tpu_torch.ops.ntt_stage import butterfly_plain
+
+    n = 256
+    xl, xu, tw = values(n, 31), values(n, 32), values(n, 33)
+    mask = np.random.default_rng(34).integers(0, 2, n)
+    jb, tb = jax_fr_backend("bn254"), fr_backend("bn254")
+    old = pallas_fr._INTERPRET
+    pallas_fr._INTERPRET = True
+    try:
+        want = pallas_fr.fused_butterfly(
+            jb, jb.from_ints(xl), jb.from_ints(xu), jb.from_ints(tw),
+            jnp.asarray(mask, dtype=jnp.uint32)[None])
+    finally:
+        pallas_fr._INTERPRET = old
+    got = butterfly_plain(tb.consts, tb.from_ints(xl), tb.from_ints(xu),
+                          tb.from_ints(tw),
+                          torch.from_numpy(mask.astype(np.int32)))
+    assert np.array_equal(np.asarray(want), tensor_to_limbs16(got))
+    r = Fr.modulus
+    expect = [(a - t * u) % r if m else (a + t * u) % r
+              for a, u, t, m in zip(xl, xu, tw, mask)]
+    assert tb.to_ints(got) == expect
+
+
+def test_butterfly_host_build_matches_plain():
+    """K10's thread body, built with g++, on the same values."""
+    from kzg_snark_tpu_torch.ops.fr import fr_backend
+    from kzg_snark_tpu_torch.ops.ntt_stage import butterfly_plain
+    from kzg_snark_tpu_torch.utils.build import host_lib
+
+    n = 256
+    tb = fr_backend("bn254")
+    xl, xu, tw = (tb.from_ints(values(n, s)) for s in (41, 42, 43))
+    mask = torch.from_numpy(
+        np.random.default_rng(44).integers(0, 2, n).astype(np.int32))
+    out = torch.empty_like(xl)
+    host_lib().host_fr_butterfly(xl.data_ptr(), xu.data_ptr(), tw.data_ptr(),
+                                 mask.data_ptr(), out.data_ptr(), n,
+                                 tb.consts.ptr)
+    assert torch.equal(out, butterfly_plain(tb.consts, xl, xu, tw, mask))
+
+
+@pytest.mark.parametrize("log_n", [1, 4, 11])
+def test_scan_mode_matches_staged(log_n):
+    """The scan-mode transform (two rolls and K10 per stage) equals the
+    staged plan, forward and inverse."""
+    n = 1 << log_n
+    ctx = ntt_context("bn254", n)
+    a = ctx.backend.from_ints(values(n, 200 + log_n))
+    assert torch.equal(ctx.ntt(a, mode="scan"), ctx.ntt(a))
+    assert torch.equal(ctx.intt(a, mode="scan"), ctx.intt(a))
+    with pytest.raises(ValueError):
+        ctx.ntt(a, mode="gather")

@@ -4,8 +4,9 @@ On the n = 16 synthetic mul-gate circuit, the port's ``DeviceProver``
 (plain PyTorch versions of every kernel on the CPU) must index and prove
 byte-identically to the JAX package's host ``Indexer`` and ``Prover`` with
 ``normalize_commitments=True`` under the same Rng seeds and tau, the gate
-the JAX ``DeviceProver`` passes.  The host ``Verifier`` accepts the proof
-and rejects a tampered copy.  An SRS in the JAX layout, built with JAX
+the JAX ``DeviceProver`` passes (values compared as ints: the packages'
+field classes are distinct).  The port's host ``Verifier`` accepts the
+proof and rejects a tampered copy.  An SRS in the JAX layout, built with JAX
 ``CurveOps``, converts through ``utils/convert.py`` and commits identically.
 """
 
@@ -15,12 +16,13 @@ import torch
 
 from kzg_snark_tpu.models.plonk.indexer import Indexer
 from kzg_snark_tpu.models.plonk.prover import Prover
-from kzg_snark_tpu.models.plonk.verifier import Verifier
 from kzg_snark_tpu.ops.host.field import scalar_field
 from kzg_snark_tpu.rng import Rng
 from kzg_snark_tpu_torch.models.kzg import KZG as PortKZG
 from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
-from kzg_snark_tpu_torch.utils.convert import device_srs_from_jax
+from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
+from kzg_snark_tpu_torch.rng import Rng as PortRng
+from kzg_snark_tpu_torch.utils.convert import device_srs_from_jax, to_plain
 
 # Tiny tensors: one intra-op thread is faster than many, and the test
 # workers share the CPU (threads that spin-wait stall them all).
@@ -48,8 +50,9 @@ def _index(indexer, s):
 
 @pytest.fixture(scope="module")
 def port_run(circuit):
-    keys = _index(DeviceProver("bn254", rng=Rng(600), device="cpu"), circuit)
-    proof = DeviceProver("bn254", rng=Rng(601), device="cpu").prove(
+    keys = _index(DeviceProver("bn254", rng=PortRng(600), device="cpu"),
+                  circuit)
+    proof = DeviceProver("bn254", rng=PortRng(601), device="cpu").prove(
         keys[0], [], circuit["w"])
     return keys, proof
 
@@ -67,27 +70,27 @@ def host_run(circuit):
 def test_index_matches_host(port_run, host_run):
     (ipk_p, ivk_p), _ = port_run
     (ipk_h, ivk_h), _ = host_run
-    assert ipk_p["subgroups"]["k1"] == ipk_h["subgroups"]["k1"]
-    assert ipk_p["subgroups"]["k2"] == ipk_h["subgroups"]["k2"]
-    assert ivk_p["commitments"] == ivk_h["commitments"]
+    assert int(ipk_p["subgroups"]["k1"]) == int(ipk_h["subgroups"]["k1"])
+    assert int(ipk_p["subgroups"]["k2"]) == int(ipk_h["subgroups"]["k2"])
+    assert to_plain(ivk_p["commitments"]) == to_plain(ivk_h["commitments"])
     for name, poly in ipk_h["polynomials"].items():
-        assert ipk_p["polynomials"][name].padded(N) == poly.padded(N), name
+        assert to_plain(ipk_p["polynomials"][name].padded(N)) == \
+            to_plain(poly.padded(N)), name
 
 
 def test_proof_matches_host_bytes(port_run, host_run):
     _, proof_p = port_run
     _, proof_h = host_run
-    assert proof_p["commitments"] == proof_h["commitments"]
-    assert proof_p["evaluations"] == proof_h["evaluations"]
-    assert proof_p["kzg_proofs"] == proof_h["kzg_proofs"]
+    for part in ("commitments", "evaluations", "kzg_proofs"):
+        assert to_plain(proof_p[part]) == to_plain(proof_h[part]), part
 
 
 def test_proof_verifies_and_tamper_rejected(port_run):
     (_, ivk), proof = port_run
-    assert Verifier("bn254", rng=Rng(78)).verify(ivk, [], proof)
+    assert Verifier("bn254", rng=PortRng(78)).verify(ivk, [], proof)
     tampered = {k: dict(v) for k, v in proof.items()}
     tampered["evaluations"]["a"] = proof["evaluations"]["a"] + 1
-    assert not Verifier("bn254", rng=Rng(79)).verify(ivk, [], tampered)
+    assert not Verifier("bn254", rng=PortRng(79)).verify(ivk, [], tampered)
 
 
 def test_jax_layout_device_cache_converts(port_run):
@@ -113,13 +116,13 @@ def test_jax_layout_device_cache_converts(port_run):
 
 
 def test_srs_matches_host_setup():
-    port = PortKZG("bn254", device="cpu")
+    port = PortKZG("bn254", backend="cuda", device="cpu")
     host = Indexer("bn254", backend="host").kzg
     ck_p, rk_p = port.setup(7, tau=TAU)
     ck_h, rk_h = host.setup(7, tau=TAU)
-    assert rk_p == rk_h
+    assert to_plain(rk_p) == to_plain(rk_h)
     for i in range(8):
-        assert ck_p[i] == host._normalize_point(ck_h[i]), i
+        assert to_plain(ck_p[i]) == to_plain(host._normalize_point(ck_h[i])), i
 
 
 def test_jax_layout_srs_commits_identically():
@@ -134,9 +137,10 @@ def test_jax_layout_srs_commits_identically():
         [int(a[0]) for a in aff], [int(a[1]) for a in aff])
     ck_j = device_srs_from_jax("bn254", np.asarray(jax_points))
 
-    port = PortKZG("bn254", device="cpu")
+    port = PortKZG("bn254", backend="cuda", device="cpu")
     ck_p, _ = port.setup(7, tau=TAU)
     assert np.array_equal(ck_j.points.numpy(), ck_p.points.numpy())
     rng = np.random.default_rng(5)
     coeffs = [int(v) for v in rng.integers(0, 1 << 62, size=8)]
-    assert port.commit(ck_j, [coeffs]) == host.commit(ck_h, [coeffs])
+    assert to_plain(port.commit(ck_j, [coeffs])) == \
+        to_plain(host.commit(ck_h, [coeffs]))
