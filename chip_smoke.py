@@ -12,8 +12,11 @@ Phases, in order, one printed line or block each:
                  times, and the least time the card could take (bound)
   ntt            NTT at n = 2^18: "scan" mode (K10) equal to "staged",
                  forward and inverse; round trip, host spot checks
-  msm            MSM at 2^16 points on a random-multiplier basis (built with
-                 K9) vs the host oracle (sum s_i k_i) G
+  msm            bucket-route MSM at 2^16 points on a random-multiplier basis
+                 (built with K9) vs the host oracle (sum s_i k_i) G: random,
+                 all-equal, one-nonzero scalars and k = 9 sets; the times of
+                 its stages, the launches of one MSM, its operation bounds,
+                 and MSM time by window width c at 2^11..2^18 points
   parity         PLONK at n = 2^6: the port's proof byte-identical to the
                  port's host prover's (normalized commitments)
   main           PLONK at n = 2^16: index, two proves, host verification,
@@ -26,7 +29,7 @@ Phases, in order, one printed line or block each:
   profile        one more steady Marlin |H| = 2^14 prove under torch.profiler:
                  device busy time, idle share, device time by kernel
 
-Each path (ntt scan, msm, main, marlin_parity, marlin) runs with the launch
+Each path (ntt scan, msm_one, main, marlin_parity, marlin) runs with the launch
 counts set to 0 just before it and read just after; a kernel's "launches"
 in the kernels JSON line are those of the path it is listed under.  The
 second-to-last lines are the kernels JSON and the nvidia-smi line; the last
@@ -58,8 +61,10 @@ KERNELS = {
                "kzg_snark_tpu/ops/pallas_fr.py:232", "main"),
     "g1_double": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
                   "kzg_snark_tpu/ops/pallas_fr.py:289", "main"),
-    "msm_bucket": ("kzg_snark_tpu_torch/csrc/msm_kernels.cu",
-                   "kzg_snark_tpu/ops/msm_kernel.py:172", "main"),
+    "msm_accumulate": ("kzg_snark_tpu_torch/csrc/msm_kernels.cu",
+                       "kzg_snark_tpu/ops/msm_kernel.py:172", "main"),
+    "msm_reduce": ("kzg_snark_tpu_torch/csrc/msm_kernels.cu",
+                   "kzg_snark_tpu/ops/msm_kernel.py:360", "main"),
     "g1_add_mixed": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
                      "kzg_snark_tpu/ops/pallas_fr.py:259", "marlin_parity"),
     "fr_butterfly": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
@@ -71,6 +76,7 @@ PARITY_LOG_N = 6
 MARLIN_LOG_H = 14
 MARLIN_PARITY_LOG_H = 6
 MARLIN_PUBLIC = 5
+MSM_TABLE_LOG_N = (11, 12, 13, 14, 15, 16, 18)
 TAU = 0xABCDEF12345
 MARLIN_TAU = 0xFEED5EED
 
@@ -207,9 +213,7 @@ def phase_kernels(torch, dev, results, rates):
     from kzg_snark_tpu_torch.ops import cuda_fr
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
     from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
-    from kzg_snark_tpu_torch.ops.msm_kernel import (lanes_for, msm_bucket,
-                                                    msm_bucket_plain,
-                                                    signed_digits)
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
     from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain,
                                                    fr_butterfly, ntt_stage,
@@ -307,27 +311,80 @@ def phase_kernels(torch, dev, results, rates):
             lambda: butterfly_plain(fr, a, b, tw, mask),
             bound(rates, 4 * elem + 4 * n_field, MONT_PRODUCTS * n_field))
 
-    lanes = lanes_for(npts)
-    dig = signed_digits(random_canonical(torch, npts, 3, dev), 254)
-    px, py = pts[0].contiguous(), pts[1].contiguous()
-
-    def bucket_work(digits, cells):
-        nz = float(((digits & 0x7F) != 0).sum())
-        return bound(rates, 64 * digits.shape[1] + 4 * digits.numel()
-                     + 64 * 96 * cells, nz * 11 * MONT_PRODUCTS)
-
-    compare(torch, "msm_bucket", results,
-            lambda: msm_bucket(fq, px, py, dig, lanes, False),
-            lambda: msm_bucket_plain(fq, px, py, dig, lanes, False),
-            bucket_work(dig, dig.shape[0] * lanes), reps=3, plain_reps=1)
+    # The bucket route at the main paths' shape: 2^16 points, one set of
+    # random scalars (c from window_bits), then the complete add and a
+    # skewed batch.
+    xy = mk.point_table(pts)
+    sched, W, c = bucket_schedule(torch, random_canonical(torch, npts, 3, dev)
+                                  [None])
+    compare(torch, "msm_accumulate", results,
+            lambda: mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off,
+                                      False),
+            lambda: mk.msm_accumulate_plain(fq, xy, sched.entries,
+                                            sched.chunk_off, False),
+            bound(rates, *accumulate_work(npts, sched)), reps=10,
+            plain_reps=1)
+    part = mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off, False)
+    compare(torch, "msm_reduce", results,
+            lambda: mk.msm_reduce(fq, part, sched.bucket_chunks, 1, W, c,
+                                  sched.window_threads),
+            lambda: mk.msm_reduce_plain(fq, part, sched.bucket_chunks, 1, W,
+                                        c, sched.window_threads),
+            bound(rates, *reduce_work(sched, 1, W, c)), reps=10,
+            plain_reps=1)
     m = 4096
-    pxs, pys, digs = px[:, :m].contiguous(), py[:, :m].contiguous(), \
-        dig[:, :m].contiguous()
-    compare(torch, "msm_bucket_complete_4096", {},
-            lambda: msm_bucket(fq, pxs, pys, digs, lanes_for(m), True),
-            lambda: msm_bucket_plain(fq, pxs, pys, digs, lanes_for(m), True),
-            bucket_work(digs, digs.shape[0] * lanes_for(m)),
-            reps=3, plain_reps=1)
+    skew = random_canonical(torch, m, 8, dev)
+    skew = torch.stack([skew, skew[:, :1].expand(8, m).contiguous()])
+    s4, W4, c4 = bucket_schedule(torch, skew)
+    xy4 = xy[:m].contiguous()
+    compare(torch, "msm_accumulate_complete_4096", {},
+            lambda: mk.msm_accumulate(fq, xy4, s4.entries, s4.chunk_off, True),
+            lambda: mk.msm_accumulate_plain(fq, xy4, s4.entries, s4.chunk_off,
+                                            True),
+            bound(rates, *accumulate_work(m, s4)), reps=3, plain_reps=1)
+    part4 = mk.msm_accumulate(fq, xy4, s4.entries, s4.chunk_off, True)
+    compare(torch, "msm_reduce_skewed_k2_4096", {},
+            lambda: mk.msm_reduce(fq, part4, s4.bucket_chunks, 2, W4, c4,
+                                  s4.window_threads),
+            lambda: mk.msm_reduce_plain(fq, part4, s4.bucket_chunks, 2, W4,
+                                        c4, s4.window_threads),
+            bound(rates, *reduce_work(s4, 2, W4, c4)), reps=3, plain_reps=1)
+
+
+def bucket_schedule(torch, sets, c=None, chunk=None, events=None):
+    """Scalar sets (k, 8, n) -> (schedule, W, c) of the bucket route."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    c = c or mk.window_bits(sets.shape[-1])
+    dig = mk.signed_digits(sets, 254, c)
+    sched = mk.bucket_schedule(dig, c, chunk or mk.CHUNK,
+                               events or mk.EVENTS_PER_THREAD)
+    return sched, dig.shape[1], c
+
+
+def accumulate_work(n, sched):
+    """(bytes, 32-bit products) of the accumulate: the points read once,
+    the entries and offsets, the partials written; 11 Montgomery products
+    a mixed add, one add per entry after a chunk's first."""
+    E = sched.entries.numel()
+    C = sched.chunk_off.numel() - 1
+    return (64 * n + 4 * E + 4 * (C + 1) + 96 * C,
+            (E - C) * 11 * MONT_PRODUCTS)
+
+
+def reduce_work(sched, sets, W, c):
+    """(bytes, products) of the reduction this data needs: one complete add
+    (16 products) a chunk partial (bucket sums and running sums) and a
+    step (Wt += R) for each magnitude up to a window's top nonempty
+    bucket; the Horner fold's c (W - 1) doublings (7) and W adds."""
+    import torch
+    C = sched.chunk_off.numel() - 1
+    half = 1 << (c - 1)
+    per = sched.bucket_chunks.diff().reshape(sets * W, half)
+    mags = torch.arange(1, half + 1, device=per.device)
+    top = float(((per > 0) * mags).max(dim=1).values.sum())
+    horner = sets * (7 * c * (W - 1) + 16 * W)
+    return (96 * C + 4 * (per.numel() + 1) + 96 * sets,
+            (16 * (C + top) + horner) * MONT_PRODUCTS)
 
 
 def run_path(torch, paths, name, fn):
@@ -384,9 +441,14 @@ def phase_ntt(torch, dev, paths):
         f"{json.dumps(paths['ntt_scan'], sort_keys=True)}")
 
 
-def phase_msm(torch, dev, paths):
+def phase_msm(torch, dev, paths, rates):
+    """The bucket-route MSM at 2^16 points against the host oracle (random
+    scalars with 0, 1, r - 1, r - 2; all equal; one nonzero; k = 9 sets),
+    its stages' times, the launches of one MSM, its operation bounds, and
+    the table of MSM time by window width c and n (2^11..2^18)."""
     import numpy as np
     from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
     from kzg_snark_tpu_torch.ops.host import curve as hc
     from kzg_snark_tpu_torch.ops.host.field import base_field
@@ -396,32 +458,196 @@ def phase_msm(torch, dev, paths):
 
     n = 1 << MAIN_LOG_N
     t0 = time.perf_counter()
-    pts, ks = run_path(torch, paths, "msm_basis", lambda: random_point_basis(
-        "bn254", n, seed=20260820, device=dev))
+    big, ks_big = run_path(
+        torch, paths, "msm_basis", lambda: random_point_basis(
+            "bn254", 1 << MSM_TABLE_LOG_N[-1], seed=20260820, device=dev))
     basis_s = time.perf_counter() - t0
+    pts, ks = big[..., :n].contiguous(), ks_big[:n]
     ctx = msm_context("bn254", dev)
     r = C.BN254_R
-    w = np.random.default_rng(9000).integers(0, 1 << 32, size=(8, n),
-                                              dtype=np.uint64)
-    w[7] &= (1 << 29) - 1
-    words = w.astype(np.uint32)
-    special = [0, 1, r - 1, 2, r - 2]
-    words[:, :len(special)] = ints_to_words(special)
-    scalars = to_tensor(words, dev)
-    ms, wall = timed_ms(torch, lambda: ctx.msm(pts, scalars), 3)
-    got = ctx.curve.to_affine_ints(ctx.msm(pts, scalars))[0]
-    total = sum(s * k for s, k in zip(words_to_ints(words), ks)) % r
     Fp = base_field("bn254")
-    exp = hc.normalize(hc.multiply((Fp(1), Fp(2), Fp(1)), total))
-    exp = None if exp is None else (int(exp[0]), int(exp[1]))
-    if got != exp:
-        raise AssertionError("MSM 2^16 differs from the host oracle")
+
+    def oracle(ints):
+        total = sum(s * k for s, k in zip(ints, ks)) % r
+        exp = hc.normalize(hc.multiply((Fp(1), Fp(2), Fp(1)), total))
+        return None if exp is None else (int(exp[0]), int(exp[1]))
+
+    def random_words(seed):
+        w = np.random.default_rng(seed).integers(0, 1 << 32, size=(8, n),
+                                                 dtype=np.uint64)
+        w[7] &= (1 << 29) - 1
+        words = w.astype(np.uint32)
+        special = [0, 1, r - 1, 2, r - 2]
+        words[:, :len(special)] = ints_to_words(special)
+        return words
+
+    words = random_words(9000)
+    scalars = to_tensor(words, dev)
+    ms, wall = timed_ms(torch, lambda: ctx.msm(pts, scalars), 5)
+    got = ctx.curve.to_affine_ints(ctx.msm(pts, scalars))[0]
+    if got != oracle(words_to_ints(words)):
+        raise AssertionError(f"MSM 2^{MAIN_LOG_N} differs from the host "
+                             "oracle")
     if paths["msm_basis"].get("g1_add_mixed", 0) == 0:
         raise AssertionError("the basis build did not launch g1_add_mixed")
-    log(f"[msm] 2^16 points == host oracle; device {ms:.3f} ms, wall "
-        f"{wall:.3f} ms ({n / wall * 1e3:.0f} points/s), basis build "
-        f"{basis_s:.2f} s, its launches "
+    third = n // 3
+    skewed = {"all-equal": [r - 3] * n,
+              "one-nonzero": [0] * third + [r - 1] + [0] * (n - third - 1)}
+    for name, ints in skewed.items():
+        res = ctx.curve.to_affine_ints(ctx.msm(pts, ctx.scalars_to_limbs(
+            ints)))[0]
+        if res != oracle(ints):
+            raise AssertionError(f"MSM 2^{MAIN_LOG_N} ({name}) differs from "
+                                 "the oracle")
+    sets9 = [random_words(9100 + j) for j in range(9)]
+    res = ctx.curve.to_affine_ints(ctx.msm(pts, to_tensor(np.stack(sets9),
+                                                            dev)))
+    if res != [oracle(words_to_ints(w)) for w in sets9]:
+        raise AssertionError(f"MSM 2^{MAIN_LOG_N} with k = 9 sets differs "
+                             "from the oracle")
+    log(f"[msm] 2^{MAIN_LOG_N} points == host oracle (random, all-equal, "
+        f"one-nonzero, k = 9 sets); device {ms:.3f} ms, wall {wall:.3f} ms "
+        f"({n / wall * 1e3:.0f} points/s), basis build of 2^"
+        f"{MSM_TABLE_LOG_N[-1]} points {basis_s:.2f} s, its launches "
         f"{json.dumps(paths['msm_basis'], sort_keys=True)}")
+
+    # Stages of one MSM at the main size (random scalars), device and wall ms.
+    fm = ctx.fused
+    fq = fm.curve.f.consts
+    k, c, W, sched = fm.schedule(scalars, n)
+    xy = mk.point_table(pts)
+    part = mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off, False)
+    wparts = mk.reduce_window_sums(fq, part, sched.bucket_chunks, W, c,
+                                   sched.window_threads)
+    stages = {
+        "digits + sort": lambda: fm.schedule(scalars, n),
+        "point table": lambda: mk.point_table(pts),
+        "accumulate": lambda: mk.msm_accumulate(
+            fq, xy, sched.entries, sched.chunk_off, False),
+        "bucket and window sums": lambda: mk.reduce_window_sums(
+            fq, part, sched.bucket_chunks, W, c, sched.window_threads),
+        "horner": lambda: mk.reduce_horner(fq, wparts, 1, W, c)}
+    times = {name: timed_ms(torch, fn, 5) for name, fn in stages.items()}
+    log(f"[msm] 2^{MAIN_LOG_N} stages, (device ms, wall ms): "
+        + "; ".join(f"{name} ({d:.4f}, {w:.4f})"
+                    for name, (d, w) in times.items())
+        + f"; c = {c}, W = {W}, T = {mk.CHUNK}, entries "
+        f"{sched.entries.numel()}, chunks {sched.chunk_off.numel() - 1}, "
+        f"reduce threads a window {sched.window_threads}")
+    run_path(torch, paths, "msm_one", lambda: ctx.msm(pts, scalars))
+    acts, busy = device_activities(torch, lambda: ctx.msm(pts, scalars))
+    log(f"[msm] one 2^{MAIN_LOG_N} MSM: kernel launches "
+        f"{json.dumps(paths['msm_one'], sort_keys=True)}; {acts} device "
+        f"activities (all kernels and copies, torch.profiler), device busy "
+        f"{busy:.3f} ms")
+    nbytes_a, prod_a = accumulate_work(n, sched)
+    nbytes_r, prod_r = reduce_work(sched, 1, W, c)
+    d7 = mk.signed_digits(scalars, 254, 7)
+    prod7 = float(((d7 & mk.MAG_MASK) != 0).sum()) * 11 * MONT_PRODUCTS
+    log(f"[msm] operations bound at 2^{MAIN_LOG_N}: this design (c = {c}) "
+        f"{(prod_a + prod_r) / rates['products'] * 1e3:.4f} ms (accumulate "
+        f"{prod_a:.4g} + reduce {prod_r:.4g} 32-bit products); the c = 7 "
+        f"pass of the table design {prod7 / rates['products'] * 1e3:.4f} ms "
+        f"({prod7:.4g} products, its reduction not counted)")
+
+    # MSM time by c and n: the kernels alone (accumulate and reduce on a
+    # ready schedule, device ms) and the whole route (wall ms); the
+    # schedule's time and memory at 2^18 points (Marlin's largest commit
+    # slice).
+    for lg in MSM_TABLE_LOG_N:
+        m = 1 << lg
+        xy_m = mk.point_table(big[..., :m])
+        sets = to_tensor(random_words(9200 + lg)[:, :m].copy()
+                         if m <= n else np.concatenate(
+                             [random_words(9200 + lg + j)
+                              for j in range(m // n)], axis=1), dev)[None]
+        c0 = mk.window_bits(m)
+        row, want = [], None
+        for cc in range(max(c0 - 3, 8), min(c0 + 2, 16) + 1):
+            s_, W_, _ = bucket_schedule(torch, sets, cc)
+
+            def kernels(s_=s_, W_=W_, cc=cc):
+                p_ = mk.msm_accumulate(fq, xy_m, s_.entries, s_.chunk_off,
+                                       False)
+                return mk.msm_reduce(fq, p_, s_.bucket_chunks, 1, W_, cc,
+                                     s_.window_threads)
+
+            def route(cc=cc):
+                s2, W2, _ = bucket_schedule(torch, sets, cc)
+                p_ = mk.msm_accumulate(fq, xy_m, s2.entries, s2.chunk_off,
+                                       False)
+                return mk.msm_reduce(fq, p_, s2.bucket_chunks, 1, W2, cc,
+                                     s2.window_threads)
+            aff = ctx.curve.to_affine_ints(kernels())
+            if want is not None and aff != want:
+                raise AssertionError(f"MSM 2^{lg}: c = {cc} differs")
+            want = aff
+            dk, _ = timed_ms(torch, kernels, 5)
+            _, w = timed_ms(torch, route, 3)
+            row.append(f"c={cc}{'*' if cc == c0 else ''} {dk:.3f}/{w:.3f}")
+        log(f"[msm] table 2^{lg} (kernels device ms / whole route wall ms, "
+            f"* = chosen): " + ", ".join(row))
+        if lg == MSM_TABLE_LOG_N[-1]:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            s_, _, _ = bucket_schedule(torch, sets)
+            peak = torch.cuda.max_memory_allocated() - base
+            d, w = timed_ms(torch, lambda: bucket_schedule(torch, sets), 3)
+            log(f"[msm] 2^{lg} schedule (digits, sort of "
+                f"{s_.entries.numel()} keys, chunks): device {d:.3f} ms, "
+                f"wall {w:.3f} ms, peak memory above the inputs {peak} "
+                f"bytes")
+    for T in (8, 16, 32):
+        row = []
+        for ev in (4, 8, 16):
+            s_, W_, c_ = bucket_schedule(torch, scalars[None], None, T, ev)
+
+            def kernels(s_=s_, W_=W_, c_=c_):
+                p_ = mk.msm_accumulate(fq, xy, s_.entries, s_.chunk_off,
+                                       False)
+                return mk.msm_reduce(fq, p_, s_.bucket_chunks, 1, W_, c_,
+                                     s_.window_threads)
+            d, _ = timed_ms(torch, kernels, 5)
+            row.append(f"events {ev}: {d:.3f}")
+        log(f"[msm] 2^{MAIN_LOG_N}, T = {T} (kernels device ms): "
+            + ", ".join(row))
+
+
+def device_activities(torch, fn):
+    """(number of device activities, device busy ms) of one call of ``fn``
+    under torch.profiler."""
+    _, spans, _ = trace(torch, fn)
+    return len(spans), busy_ms(spans)
+
+
+def trace(torch, fn):
+    """One call of ``fn`` under torch.profiler -> (wall ms, sorted device
+    activity spans in us, the profile)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    return wall_ms, spans, prof
+
+
+def busy_ms(spans) -> float:
+    """The union of the device activity intervals, in ms."""
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def _circuit(Fr, n):
@@ -510,6 +736,12 @@ def phase_main(torch, dev, paths):
     log(f"[main] peak device memory {peak} bytes "
         f"({peak / 2 ** 30:.3f} GiB)")
     log(f"[main] launches: {json.dumps(counts, sort_keys=True)}")
+    if counts.get("g1_double", 0) > 300 or counts.get("g1_add", 0) > 80 \
+            or counts.get("msm_reduce", 0) > 2 * counts.get("msm_accumulate",
+                                                            0):
+        raise AssertionError("the PLONK path launched more g1_double (300), "
+                             "g1_add (80) or msm_reduce (2 an MSM) than the "
+                             "bucket route allows")
 
 
 def phase_marlin_parity(torch, dev, paths):
@@ -621,25 +853,8 @@ def profile_run(torch, label, fn):
     """One call of ``fn`` under torch.profiler: wall time, device busy time
     (the union of the card's activity intervals), idle share and the
     largest device times by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / 1e3
+    wall_ms, spans, prof = trace(torch, fn)
+    busy = busy_ms(spans)
     attr = ("self_device_time_total"
             if hasattr(prof.key_averages()[0], "self_device_time_total")
             else "self_cuda_time_total")
@@ -647,8 +862,8 @@ def profile_run(torch, label, fn):
                   for k in prof.key_averages() if getattr(k, attr) > 0),
                  reverse=True)[:8]
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler on), device "
-        f"busy {busy_ms:.3f} ms over {len(spans)} device activities, idle "
-        f"share {1 - busy_ms / wall_ms:.4f}; device ms by kernel: "
+        f"busy {busy:.3f} ms over {len(spans)} device activities, idle "
+        f"share {1 - busy / wall_ms:.4f}; device ms by kernel: "
         + "; ".join(f"{name[:48]} {ms:.3f} ({n})" for ms, n, name in top))
 
 
@@ -677,7 +892,7 @@ def main() -> int:
     paths: dict = {}
     phase_kernels(torch, dev, results, rates)
     phase_ntt(torch, dev, paths)
-    phase_msm(torch, dev, paths)
+    phase_msm(torch, dev, paths, rates)
     phase_parity(dev)
     phase_main(torch, dev, paths)
     phase_marlin_parity(torch, dev, paths)

@@ -27,30 +27,47 @@ KZG_HD void g1_store(uint32_t* base, int64_t m, int64_t i, const G1J& P) {
   fe_store(base + 2 * NL * m, m, i, P.Z);
 }
 
+// LAT = true: the product with the small loop body (fe_mul_compact).
+template <bool LAT>
+KZG_HD void fmul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
+                 const FieldConsts& F) {
+  if (LAT) {
+    fe_mul_compact(r, a, b, F);
+  } else {
+    fe_mul(r, a, b, F);
+  }
+}
+
+template <bool LAT>
+KZG_HD void fsqr(uint32_t r[NL], const uint32_t a[NL], const FieldConsts& F) {
+  fmul<LAT>(r, a, a, F);
+}
+
 // dbl-2009-l; the identity maps to Z3 = 0.
+template <bool LAT = false>
 KZG_HD void g1_double(G1J& R, const G1J& P, const FieldConsts& F) {
   uint32_t A[NL], B[NL], C[NL], t[NL], D[NL], E[NL], FF[NL], X3[NL], Y3[NL],
       Z3[NL], u[NL];
-  fe_square(A, P.X, F);
-  fe_square(B, P.Y, F);
-  fe_square(C, B, F);
+  fsqr<LAT>(A, P.X, F);
+  fsqr<LAT>(B, P.Y, F);
+  fsqr<LAT>(C, B, F);
   fe_add(t, P.X, B, F);
-  fe_square(t, t, F);
+  fsqr<LAT>(t, t, F);
   fe_sub(D, t, A, F);
   fe_sub(D, D, C, F);
   fe_double(D, D, F);
   fe_double(E, A, F);
   fe_add(E, E, A, F);
-  fe_square(FF, E, F);
+  fsqr<LAT>(FF, E, F);
   fe_double(u, D, F);
   fe_sub(X3, FF, u, F);
   fe_double(u, C, F);
   fe_double(u, u, F);
   fe_double(u, u, F);  // 8C
   fe_sub(t, D, X3, F);
-  fe_mul(Y3, E, t, F);
+  fmul<LAT>(Y3, E, t, F);
   fe_sub(Y3, Y3, u, F);
-  fe_mul(Z3, P.Y, P.Z, F);
+  fmul<LAT>(Z3, P.Y, P.Z, F);
   fe_double(Z3, Z3, F);
   fe_copy(R.X, X3);
   fe_copy(R.Y, Y3);
@@ -59,6 +76,7 @@ KZG_HD void g1_double(G1J& R, const G1J& P, const FieldConsts& F) {
 
 // Complete Jacobian + Jacobian (add-2007-bl with the case analysis of
 // RegCurve.add).  R may alias P or Q.
+template <bool LAT = false>
 KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
   bool p_inf = fe_is_zero(P.Z);
   bool q_inf = fe_is_zero(Q.Z);
@@ -71,19 +89,19 @@ KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
     return;
   }
   uint32_t Z1Z1[NL], Z2Z2[NL], U1[NL], U2[NL], S1[NL], S2[NL], H[NL], Rr[NL];
-  fe_square(Z1Z1, P.Z, F);
-  fe_square(Z2Z2, Q.Z, F);
-  fe_mul(U1, P.X, Z2Z2, F);
-  fe_mul(U2, Q.X, Z1Z1, F);
-  fe_mul(S1, P.Y, Q.Z, F);
-  fe_mul(S1, S1, Z2Z2, F);
-  fe_mul(S2, Q.Y, P.Z, F);
-  fe_mul(S2, S2, Z1Z1, F);
+  fsqr<LAT>(Z1Z1, P.Z, F);
+  fsqr<LAT>(Z2Z2, Q.Z, F);
+  fmul<LAT>(U1, P.X, Z2Z2, F);
+  fmul<LAT>(U2, Q.X, Z1Z1, F);
+  fmul<LAT>(S1, P.Y, Q.Z, F);
+  fmul<LAT>(S1, S1, Z2Z2, F);
+  fmul<LAT>(S2, Q.Y, P.Z, F);
+  fmul<LAT>(S2, S2, Z1Z1, F);
   fe_sub(H, U2, U1, F);
   fe_sub(Rr, S2, S1, F);
   if (fe_is_zero(H)) {
     if (fe_is_zero(Rr)) {
-      g1_double(R, P, F);
+      g1_double<LAT>(R, P, F);
     } else {
       fe_copy(R.X, F.one);
       fe_copy(R.Y, F.one);
@@ -92,26 +110,26 @@ KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
     return;
   }
   uint32_t HH[NL], I[NL], J[NL], r2[NL], V[NL], X3[NL], Y3[NL], Z3[NL], t[NL];
-  fe_square(HH, H, F);
+  fsqr<LAT>(HH, H, F);
   fe_double(I, HH, F);
   fe_double(I, I, F);
-  fe_mul(J, H, I, F);
+  fmul<LAT>(J, H, I, F);
   fe_double(r2, Rr, F);
-  fe_mul(V, U1, I, F);
-  fe_square(X3, r2, F);
+  fmul<LAT>(V, U1, I, F);
+  fsqr<LAT>(X3, r2, F);
   fe_sub(X3, X3, J, F);
   fe_double(t, V, F);
   fe_sub(X3, X3, t, F);
   fe_sub(t, V, X3, F);
-  fe_mul(Y3, r2, t, F);
-  fe_mul(t, S1, J, F);
+  fmul<LAT>(Y3, r2, t, F);
+  fmul<LAT>(t, S1, J, F);
   fe_double(t, t, F);
   fe_sub(Y3, Y3, t, F);
   fe_add(t, P.Z, Q.Z, F);
-  fe_square(t, t, F);
+  fsqr<LAT>(t, t, F);
   fe_sub(t, t, Z1Z1, F);
   fe_sub(t, t, Z2Z2, F);
-  fe_mul(Z3, t, H, F);
+  fmul<LAT>(Z3, t, H, F);
   fe_copy(R.X, X3);
   fe_copy(R.Y, Y3);
   fe_copy(R.Z, Z3);

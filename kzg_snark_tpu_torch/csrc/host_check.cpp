@@ -91,15 +91,67 @@ extern "C" int host_ntt_radix4(const void* x, void* y, const void* tw,
   return 0;
 }
 
-extern "C" int host_msm_bucket(const void* px, const void* py, int64_t npts,
-                               const void* digits, void* table,
-                               int64_t windows, int64_t lanes, int nb,
-                               int complete, const void* consts) {
+extern "C" int host_msm_accumulate(const void* xy, const void* entries,
+                                   const void* chunk_off, int64_t chunks,
+                                   void* partials, int complete,
+                                   const void* consts) {
   FieldConsts F = consts_of(consts);
-  int64_t cells = windows * lanes;
-  for (int64_t c = 0; c < cells; c++)
-    msm_bucket_thread(c, (const uint32_t*)px, (const uint32_t*)py, npts,
-                      (const int32_t*)digits, (uint32_t*)table, cells, lanes,
-                      nb, complete, F);
+  for (int64_t c = 0; c < chunks; c++) {
+    if (complete) {
+      msm_accumulate_thread<true>(c, (const uint32_t*)xy,
+                                  (const int32_t*)entries,
+                                  (const int32_t*)chunk_off,
+                                  (uint32_t*)partials, chunks, F);
+    } else {
+      msm_accumulate_thread<false>(c, (const uint32_t*)xy,
+                                   (const int32_t*)entries,
+                                   (const int32_t*)chunk_off,
+                                   (uint32_t*)partials, chunks, F);
+    }
+  }
+  return 0;
+}
+
+// The window-sum launch: every block's threads, then its shared-memory tree
+// in the kernel's order (thread t < s takes t + s, s halving).
+extern "C" int host_msm_window_sums(const void* partials, int64_t chunks,
+                                    const void* bco, int64_t windows,
+                                    int64_t half, int c, int64_t tpw,
+                                    void* wparts, const void* consts) {
+  FieldConsts F = consts_of(consts);
+  int64_t threads = tpw < 128 ? tpw : 128;
+  int64_t pieces = tpw / threads;
+  int64_t blocks = windows * pieces;
+  G1J* sh = new G1J[threads];
+  for (int64_t blk = 0; blk < blocks; blk++) {
+    int64_t wi = blk / pieces;
+    for (int64_t t = 0; t < threads; t++)
+      msm_window_piece(sh[t], wi, (blk % pieces) * threads + t, tpw,
+                       (const uint32_t*)partials, chunks,
+                       (const int32_t*)bco, half, c, F);
+    for (int64_t s = threads / 2; s > 0; s >>= 1)
+      for (int64_t t = 0; t < s; t++)
+        g1_add<true>(sh[t], sh[t], sh[t + s], F);
+    g1_store((uint32_t*)wparts, blocks, blk, sh[0]);
+  }
+  delete[] sh;
+  return 0;
+}
+
+extern "C" int host_msm_horner(const void* wparts, int64_t sets, int windows,
+                               int pieces, int c, void* out,
+                               const void* consts) {
+  FieldConsts F = consts_of(consts);
+  G1J* S = new G1J[windows];
+  int64_t m = sets * windows * pieces;
+  for (int64_t s = 0; s < sets; s++) {
+    for (int w = 0; w < windows; w++)
+      msm_window_total(S[w], (const uint32_t*)wparts, m, s * windows + w,
+                       pieces, F);
+    G1J acc;
+    msm_horner(acc, S, windows, c, F);
+    g1_store((uint32_t*)out, sets, s, acc);
+  }
+  delete[] S;
   return 0;
 }

@@ -1,53 +1,173 @@
-// Thread body of the Pippenger bucket pass (the K8 replacement).
+// Thread bodies of the bucket-route MSM: the sorted-bucket accumulate (the K8
+// replacement) and the reduction of its partials (in place of the K6 / K7
+// chains of the lane fold, suffix ladder and Horner fold).
 //
-// One thread owns one (window, lane) cell and a private table of NB buckets
-// (magnitudes 1..NB) in device memory; it walks the points i = lane,
-// lane + lanes, ... and mixed-adds (-1)^sign P_i into bucket |digit|.  No two
-// threads share a bucket, so there are no collisions and no atomics.  A
-// zero digit touches nothing (the TPU kernel sent it to a trash bucket).
+// The schedule comes from the wrapper (ops/msm_kernel.py): every nonzero
+// signed digit of every (set, window) is an entry, the entries are sorted by
+// bucket key (set * W + window) * half + |digit| - 1 (stable, so a bucket's
+// points keep index order), and each bucket's run is cut into chunks of at
+// most T entries.
 //
-// px, py: (8, npts) Fq Montgomery affine coordinates (npts a multiple of
-//         lanes; padding points are finite and carry digit 0).
-// digits: (windows, npts) int32, encoded mag | sign << 7.
-// table:  (NB, 3, 8, cells) uint32, cells = windows * lanes, cell index
-//         window * lanes + lane, so neighbouring threads touch
-//         neighbouring words.
+// xy:        (n, 16) uint32, point-major affine Montgomery (x limbs, y limbs).
+// entries:   (E,) int32, point index << 1 | sign, in bucket order.
+// chunk_off: (C + 1,) int32, chunk c covers entries [chunk_off[c],
+//            chunk_off[c + 1]); chunks are in bucket order.
+// bco:       (nb + 1,) int32, bucket b owns chunks [bco[b], bco[b + 1]).
+// partials:  (3, 8, C) uint32 Jacobian, one per chunk.
 #pragma once
 
 #include "curve.cuh"
 
-KZG_HD void msm_bucket_thread(int64_t cell, const uint32_t* px,
-                              const uint32_t* py, int64_t npts,
-                              const int32_t* digits, uint32_t* table,
-                              int64_t cells, int64_t lanes, int nb,
-                              int complete, const FieldConsts& F) {
-  int64_t w = cell / lanes;
-  int64_t lane = cell - w * lanes;
-  for (int b = 0; b < nb; b++) {
-    uint32_t* bk = table + (int64_t)b * 3 * NL * cells;
-    for (int k = 0; k < NL; k++) {
-      bk[k * cells + cell] = F.one[k];
-      bk[(NL + k) * cells + cell] = F.one[k];
-      bk[(2 * NL + k) * cells + cell] = 0;
+KZG_HD void g1_set_identity(G1J& P, const FieldConsts& F) {
+  fe_copy(P.X, F.one);
+  fe_copy(P.Y, F.one);
+  for (int k = 0; k < NL; k++) P.Z[k] = 0;
+}
+
+KZG_HD void g1_select(G1J& R, bool c, const G1J& A, const G1J& B) {
+  fe_select(R.X, c, A.X, B.X);
+  fe_select(R.Y, c, A.Y, B.Y);
+  fe_select(R.Z, c, A.Z, B.Z);
+}
+
+// Entry -> the affine point (x, y), y negated for a negative digit.
+KZG_HD void msm_load_entry(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
+                           int32_t entry, const FieldConsts& F) {
+  const uint32_t* p = xy + (int64_t)((uint32_t)entry >> 1) * 2 * NL;
+#ifdef __CUDA_ARCH__
+  const uint4* v = reinterpret_cast<const uint4*>(p);
+  uint4 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2), d = __ldg(v + 3);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  y[0] = c.x; y[1] = c.y; y[2] = c.z; y[3] = c.w;
+  y[4] = d.x; y[5] = d.y; y[6] = d.z; y[7] = d.w;
+#else
+  for (int k = 0; k < NL; k++) {
+    x[k] = p[k];
+    y[k] = p[NL + k];
+  }
+#endif
+  if (entry & 1) fe_neg(y, y, F);
+}
+
+// Chunk c: its first point is loaded with Z = 1 (not added to the identity,
+// so the incomplete add never meets acc == q on a duplicate-free basis),
+// the rest are mixed-added in entry order.
+template <bool COMPLETE>
+KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
+                                  const int32_t* entries,
+                                  const int32_t* chunk_off, uint32_t* partials,
+                                  int64_t chunks, const FieldConsts& F) {
+  int32_t s = chunk_off[c], e = chunk_off[c + 1];
+  G1J acc;
+  msm_load_entry(acc.X, acc.Y, xy, entries[s], F);
+  fe_copy(acc.Z, F.one);
+  for (int32_t j = s + 1; j < e; j++) {
+    uint32_t x[NL], y[NL];
+    msm_load_entry(x, y, xy, entries[j], F);
+    if (COMPLETE) {
+      g1_add_mixed(acc, acc, x, y, F);
+    } else {
+      g1_add_mixed_fast(acc, acc, x, y, F);
     }
   }
-  const int32_t* dig = digits + w * npts;
-  for (int64_t i = lane; i < npts; i += lanes) {
-    uint32_t d = (uint32_t)dig[i];
-    int mag = (int)(d & 0x7F);
-    if (mag == 0) continue;
-    uint32_t qx[NL], qy[NL];
-    fe_load(qx, px, npts, i);
-    fe_load(qy, py, npts, i);
-    if (d >> 7) fe_neg(qy, qy, F);
-    uint32_t* bk = table + (int64_t)(mag - 1) * 3 * NL * cells;
-    G1J cur, nxt;
-    g1_load(cur, bk + cell, cells, 0);
-    if (complete) {
-      g1_add_mixed(nxt, cur, qx, qy, F);
-    } else {
-      g1_add_mixed_fast(nxt, cur, qx, qy, F);
+  g1_store(partials, chunks, c, acc);
+}
+
+// The reduction runs long chains of curve operations on few threads, so it
+// takes the product with the small loop body (LAT = true): same values.
+//
+// Doubling that leaves the identity alone (its X, Y stay as they are).
+KZG_HD void g1_double_finite(G1J& P, const FieldConsts& F) {
+  if (!fe_is_zero(P.Z)) g1_double<true>(P, P, F);
+}
+
+// One thread's share of a window sum sum_m m B_m (B_m: the sum of bucket m's
+// chunk partials; m = 1..half).
+//
+// The window's events, in descending m, are: the chunk partials of bucket m
+// (R += P), then one step (Wt += R), so at the step of m, R is the suffix
+// sum S_m and sum_m S_m = sum_m m B_m.  The E = chunks + half events are cut
+// into tpw contiguous pieces of near-equal length, so a heavy bucket's chunks
+// spread over many threads.  A piece with running sum R and weighted sum Wt
+// contributes Wt + off R, off = the steps after it (the bucket whose step is
+// pending when it ends), by a double-and-add over c bits.
+//
+// Positions are counted in ascending order A: step(m) at
+// bco[base + m - 1] - cb + m - 1, then bucket m's chunks, chunk ch at
+// ch - cb + m (cb = bco[base]).  Thread g walks A downward from
+// E - 1 - g E / tpw.  All adds are complete: suffix sums of structured
+// inputs can meet equal points.
+KZG_HD void msm_window_piece(G1J& V, int64_t wi, int64_t g, int64_t tpw,
+                             const uint32_t* partials, int64_t chunks,
+                             const int32_t* bco, int64_t half, int c,
+                             const FieldConsts& F) {
+  int64_t base = wi * half;
+  int64_t cb = bco[base];
+  int64_t E = (int64_t)bco[base + half] - cb + half;
+  int64_t a = g * E / tpw, b = (g + 1) * E / tpw;
+  G1J R, Wt;
+  g1_set_identity(R, F);
+  g1_set_identity(Wt, F);
+  int64_t m = 0;
+  if (b > a) {
+    int64_t hi = E - 1 - a;
+    int64_t lo_m = 1, hi_m = half;  // largest m with step(m) <= hi
+    while (lo_m < hi_m) {
+      int64_t mid = (lo_m + hi_m + 1) >> 1;
+      if ((int64_t)bco[base + mid - 1] - cb + mid - 1 <= hi) {
+        lo_m = mid;
+      } else {
+        hi_m = mid - 1;
+      }
     }
-    g1_store(bk + cell, cells, 0, nxt);
+    m = lo_m;
+    int64_t sp = (int64_t)bco[base + m - 1] - cb + m - 1;
+    for (int64_t p = hi; p >= E - b; p--) {
+      bool st = p == sp;
+      G1J X, Q;
+      if (st) {
+        Q = R;
+      } else {
+        g1_load(Q, partials, chunks, cb + p - m);
+      }
+      g1_select(X, st, Wt, R);
+      g1_add<true>(X, X, Q, F);
+      if (st) {
+        Wt = X;
+        m--;
+        if (m >= 1) sp = (int64_t)bco[base + m - 1] - cb + m - 1;
+      } else {
+        R = X;
+      }
+    }
+  }
+  G1J acc;
+  g1_set_identity(acc, F);
+  for (int bit = c - 1; bit >= 0; bit--) {
+    g1_double_finite(acc, F);
+    if ((m >> bit) & 1) g1_add<true>(acc, acc, R, F);
+  }
+  g1_add<true>(V, Wt, acc, F);
+}
+
+// Window wi's total: the sum of its P block partials in order.
+KZG_HD void msm_window_total(G1J& S, const uint32_t* wparts, int64_t m,
+                             int64_t wi, int pieces, const FieldConsts& F) {
+  g1_load(S, wparts, m, wi * pieces);
+  for (int j = 1; j < pieces; j++) {
+    G1J Q;
+    g1_load(Q, wparts, m, wi * pieces + j);
+    g1_add<true>(S, S, Q, F);
+  }
+}
+
+// acc = 2^c acc + S_w from the top window down.
+KZG_HD void msm_horner(G1J& acc, const G1J* S, int windows, int c,
+                       const FieldConsts& F) {
+  g1_set_identity(acc, F);
+  for (int w = windows - 1; w >= 0; w--) {
+    for (int i = 0; i < c; i++) g1_double_finite(acc, F);
+    g1_add<true>(acc, acc, S[w], F);
   }
 }

@@ -1,19 +1,33 @@
-// K8 replacement: the Pippenger bucket pass on G1.
+// The bucket-route MSM on G1: msm_accumulate (the K8 redesign) and
+// msm_reduce (two launches: window sums, then the Horner fold).
 //
-// Replaces kzg_snark_tpu/ops/msm_kernel.py:_pass_call.  The TPU kernel kept
-// one 65-bucket table per (window, lane) in VMEM and routed points to
-// buckets with select trees, 8 windows per pass, because Mosaic has no
-// scatter and VMEM holds 16 MB.  Neither limit exists here: every window
-// runs in one launch and a thread indexes its bucket directly.
+// msm_accumulate replaces kzg_snark_tpu/ops/msm_kernel.py:_pass_call.  The
+// TPU kernel kept one 65-bucket table per (window, lane) in VMEM and routed
+// points with select trees, because Mosaic has no scatter or sort; that
+// forced c = 7 (37 windows) and, ported as it was, left one thread per
+// (window, lane) cell (9472 threads at 2^16 points) walking a 58 MB bucket
+// table in device memory.  Here the wrapper sorts the nonzero digits by
+// bucket (plain torch, like the XLA ops around the JAX kernels), c grows
+// with n (10 at 2^16: 26 windows), and each thread accumulates one chunk of
+// at most T points of one bucket in registers: one thread per chunk (about
+// 1.1e5 at 2^16), one (3, 8) partial written per chunk, no table and no
+// atomics.  What bounds it: the mixed adds (11 Montgomery products each,
+// about 1.5e3 32-bit products) are integer-multiply bound; the gathers read
+// 64 bytes of a point-major table per entry.
 //
-// What bounds it on the H100: each point-window pair costs one mixed add
-// (7M + 4S, ~11 Montgomery products) plus a 96-byte read and write of the
-// bucket, so the pass is integer-multiply bound; with one thread per
-// (window, lane) cell, 37 windows x 256 lanes = 9472 threads (about 72 per
-// SM) leave latency poorly hidden.  Design: no atomics and no sorting; each
-// thread walks its lane's points in order, and its private buckets live in
-// a (64, 3, 8, cells) table laid out so that a warp's accesses coalesce.
-// Sorting points by bucket and wider windows are for later work.
+// msm_reduce replaces the K6 / K7 reduction of
+// kzg_snark_tpu/ops/msm_kernel.py:360-438 (lane fold, suffix ladder, Horner:
+// about 300 launches of a few points each).  Launch 1, one group of blocks
+// per (set, window): running sums over the window's chunk partials, cut into
+// equal pieces of events (msm.cuh), each piece's Wt + off R, then a tree in
+// shared memory in a fixed order.  Launch 2, one block per scalar set: the
+// window totals, then the Horner fold acc = 2^c acc + S_w on one thread.
+// No atomics on points, so the plain version gives the same
+// representatives.  What bounds it: not operations (a few hundred thousand
+// curve operations) but each thread's chain of dependent curve operations,
+// a few microseconds each on one thread; the Horner fold is one chain of
+// about 254 doublings.  Its curve formulas take fe_mul_compact, whose small
+// loop body the instruction cache holds.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -21,34 +35,118 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kAccThreads = 128;
+constexpr int kReduceThreads = 128;  // most threads of a window-sum block
+constexpr int kHornerThreads = 32;   // windows a set (c >= 8: at most 32)
 
-__global__ void k_msm_bucket(const uint32_t* __restrict__ px,
-                             const uint32_t* __restrict__ py, int64_t npts,
-                             const int32_t* __restrict__ digits,
-                             uint32_t* __restrict__ table, int64_t cells,
-                             int64_t lanes, int nb, int complete,
-                             FieldConsts F) {
-  int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= cells) return;
-  msm_bucket_thread(cell, px, py, npts, digits, table, cells, lanes, nb,
-                    complete, F);
+template <bool COMPLETE>
+__global__ void __launch_bounds__(kAccThreads)
+    k_msm_accumulate(const uint32_t* __restrict__ xy,
+                     const int32_t* __restrict__ entries,
+                     const int32_t* __restrict__ chunk_off,
+                     uint32_t* __restrict__ partials, int64_t chunks,
+                     FieldConsts F) {
+  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= chunks) return;
+  msm_accumulate_thread<COMPLETE>(c, xy, entries, chunk_off, partials, chunks,
+                                  F);
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+    k_msm_window_sums(const uint32_t* __restrict__ partials, int64_t chunks,
+                      const int32_t* __restrict__ bco, int64_t half, int c,
+                      int64_t tpw, int pieces, uint32_t* __restrict__ wparts,
+                      FieldConsts F) {
+  __shared__ G1J sh[kReduceThreads];
+  int t = threadIdx.x;
+  int64_t wi = blockIdx.x / pieces;
+  int64_t g = (int64_t)(blockIdx.x % pieces) * blockDim.x + t;
+  G1J V;
+  msm_window_piece(V, wi, g, tpw, partials, chunks, bco, half, c, F);
+  sh[t] = V;
+  __syncthreads();
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      G1J A = sh[t], B = sh[t + s];
+      g1_add<true>(A, A, B, F);
+      sh[t] = A;
+    }
+    __syncthreads();
+  }
+  if (t == 0) g1_store(wparts, gridDim.x, blockIdx.x, sh[0]);
+}
+
+__global__ void __launch_bounds__(kHornerThreads)
+    k_msm_horner(const uint32_t* __restrict__ wparts, int windows, int pieces,
+                 int c, uint32_t* __restrict__ out, int64_t sets,
+                 FieldConsts F) {
+  __shared__ G1J S[kHornerThreads];
+  int w = threadIdx.x;
+  int64_t m = sets * windows * pieces;
+  if (w < windows)
+    msm_window_total(S[w], wparts, m, blockIdx.x * windows + w, pieces, F);
+  __syncthreads();
+  if (w == 0) {
+    G1J acc;
+    msm_horner(acc, S, windows, c, F);
+    g1_store(out, sets, blockIdx.x, acc);
+  }
+}
+
+FieldConsts consts_of(const void* consts) {
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  return F;
 }
 
 }  // namespace
 
-extern "C" int kzg_msm_bucket(const void* px, const void* py, int64_t npts,
-                              const void* digits, void* table,
-                              int64_t windows, int64_t lanes, int nb,
-                              int complete, const void* consts, void* stream) {
-  int64_t cells = windows * lanes;
-  if (cells <= 0) return 0;
-  FieldConsts F;
-  memcpy(&F, consts, sizeof(F));
-  int64_t blocks = (cells + kThreads - 1) / kThreads;
-  k_msm_bucket<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)px, (const uint32_t*)py, npts,
-      (const int32_t*)digits, (uint32_t*)table, cells, lanes, nb, complete,
-      F);
+extern "C" int kzg_msm_accumulate(const void* xy, const void* entries,
+                                  const void* chunk_off, int64_t chunks,
+                                  void* partials, int complete,
+                                  const void* consts, void* stream) {
+  if (chunks <= 0) return 0;
+  FieldConsts F = consts_of(consts);
+  unsigned blocks = (unsigned)((chunks + kAccThreads - 1) / kAccThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (complete) {
+    k_msm_accumulate<true><<<blocks, kAccThreads, 0, s>>>(
+        (const uint32_t*)xy, (const int32_t*)entries,
+        (const int32_t*)chunk_off, (uint32_t*)partials, chunks, F);
+  } else {
+    k_msm_accumulate<false><<<blocks, kAccThreads, 0, s>>>(
+        (const uint32_t*)xy, (const int32_t*)entries,
+        (const int32_t*)chunk_off, (uint32_t*)partials, chunks, F);
+  }
+  return (int)cudaGetLastError();
+}
+
+// windows = sets * W; tpw a power of two; the block has min(tpw, 128)
+// threads and each window tpw / that many blocks.
+extern "C" int kzg_msm_window_sums(const void* partials, int64_t chunks,
+                                   const void* bco, int64_t windows,
+                                   int64_t half, int c, int64_t tpw,
+                                   void* wparts, const void* consts,
+                                   void* stream) {
+  if (windows <= 0) return 0;
+  int threads = (int)(tpw < kReduceThreads ? tpw : kReduceThreads);
+  if (threads < 1 || (threads & (threads - 1)) || tpw % threads) return -1;
+  int pieces = (int)(tpw / threads);
+  FieldConsts F = consts_of(consts);
+  k_msm_window_sums<<<(unsigned)(windows * pieces), threads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint32_t*)partials, chunks, (const int32_t*)bco, half, c, tpw,
+      pieces, (uint32_t*)wparts, F);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_msm_horner(const void* wparts, int64_t sets, int windows,
+                              int pieces, int c, void* out,
+                              const void* consts, void* stream) {
+  if (sets <= 0) return 0;
+  if (windows > kHornerThreads) return -1;
+  FieldConsts F = consts_of(consts);
+  k_msm_horner<<<(unsigned)sets, kHornerThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)wparts, windows, pieces, c, (uint32_t*)out, sets, F);
   return (int)cudaGetLastError();
 }

@@ -57,7 +57,7 @@ def normalize_points(f: FieldBackend, pts: torch.Tensor) -> torch.Tensor:
 
 
 def random_point_basis(curve_type: str, size: int, seed: int,
-                       device="cpu") -> tuple[torch.Tensor, list[int]]:
+                       device="cuda") -> tuple[torch.Tensor, list[int]]:
     """(points (3, 8, size) with Z = 1 on ``device``, multipliers k_i)."""
     from .. import constants as C
     from .host import curve as hc

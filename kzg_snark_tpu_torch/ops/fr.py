@@ -35,7 +35,7 @@ class FieldBackend:
 
     _CACHE: dict = {}
 
-    def __new__(cls, modulus: int, device="cpu"):
+    def __new__(cls, modulus: int, device="cuda"):
         device = canonical_device(device)
         key = (modulus, str(device))
         if key in cls._CACHE:
@@ -258,14 +258,14 @@ class FieldBackend:
         return table[:, :count].contiguous()
 
 
-def fr_backend(curve_type: str = "bn254", device="cpu") -> FieldBackend:
+def fr_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
     from .. import constants as C
     if curve_type != "bn254":
         raise ValueError("the port supports bn254 only so far")
     return FieldBackend(C.BN254_R, device)
 
 
-def fq_backend(curve_type: str = "bn254", device="cpu") -> FieldBackend:
+def fq_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
     from .. import constants as C
     if curve_type != "bn254":
         raise ValueError("the port supports bn254 only so far")

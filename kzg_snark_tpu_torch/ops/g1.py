@@ -105,5 +105,5 @@ class CurveOps:
         return pts
 
 
-def curve_ops(curve_type: str = "bn254", device="cpu") -> CurveOps:
+def curve_ops(curve_type: str = "bn254", device="cuda") -> CurveOps:
     return CurveOps(fq_backend(curve_type, device))

@@ -3,7 +3,8 @@
 Counterpart of ``kzg_snark_tpu/ops/msm.py``.  ``MsmContext.msm`` routes on
 the number of points n as the JAX ``MsmContext`` does:
 
-* n >= 2048: the bucket-pass kernel (K8, ``ops/msm_kernel.py``);
+* n >= 2048: the sorted-bucket kernels (``ops/msm_kernel.py``:
+  ``msm_accumulate``, K8, and ``msm_reduce``);
 * n <= 256: bit-serial double-and-add (``_small_msm``, the JAX
   ``_small_msm_core``) on K6 / K7;
 * otherwise: the scan Pippenger (``_scan_msm``, the JAX ``_msm_core``):
@@ -27,12 +28,35 @@ from . import cuda_fr
 from .fr import canonical_device, fr_backend
 from .g1 import CurveOps
 from .limbs import NUM_LIMBS, ints_to_words, to_tensor
-from .msm_kernel import fused_msm, halve_sum_last, suffix_ladder
+from .msm_kernel import fused_msm
 
 SMALL_THRESHOLD = 256
 FUSED_THRESHOLD = 2048
 SCAN_WINDOW_BITS = 8
 SCALAR_BITS = 32 * NUM_LIMBS          # bit rows of the bit-serial route
+
+
+def halve_sum_last(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
+    """Tree sum along the last (power-of-two) axis: (3, 8, ..., n) ->
+    (3, 8, ...)."""
+    n = pts.shape[-1]
+    while n > 1:
+        half = n // 2
+        pts = curve.add(pts[..., :half], pts[..., half:])
+        n = half
+    return pts[..., 0]
+
+
+def suffix_ladder(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix sums along the last (power-of-two) axis by a
+    Hillis-Steele ladder with identity (all-zero) fill."""
+    n = pts.shape[-1]
+    shift = 1
+    while shift < n:
+        fill = torch.zeros_like(pts[..., :shift])
+        pts = curve.add(pts, torch.cat([pts[..., shift:], fill], dim=-1))
+        shift *= 2
+    return pts
 
 
 def _small_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor
@@ -111,7 +135,7 @@ def _scan_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor,
 class MsmContext:
     """Pippenger MSM over one curve's G1 on one device."""
 
-    def __init__(self, curve_type: str = "bn254", device="cpu"):
+    def __init__(self, curve_type: str = "bn254", device="cuda"):
         self.curve_type = curve_type
         self.device = canonical_device(device)
         self.fused = fused_msm(curve_type, self.device)
@@ -162,7 +186,7 @@ def _context(curve_type: str, device: torch.device) -> MsmContext:
     return MsmContext(curve_type, device)
 
 
-def msm_context(curve_type: str = "bn254", device="cpu") -> MsmContext:
+def msm_context(curve_type: str = "bn254", device="cuda") -> MsmContext:
     return _context(curve_type, canonical_device(device))
 
 

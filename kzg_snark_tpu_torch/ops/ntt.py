@@ -160,7 +160,7 @@ def _root(curve_type: str, n: int) -> int:
     return int(scalar_field(curve_type).nth_root_of_unity(n)) if n > 1 else 1
 
 
-def ntt_context(curve_type: str, n: int, device="cpu") -> NttContext:
+def ntt_context(curve_type: str, n: int, device="cuda") -> NttContext:
     """Context over the curve's scalar field with the framework's
     deterministic domain generator."""
     be = fr_backend(curve_type, canonical_device(device))

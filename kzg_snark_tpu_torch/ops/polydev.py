@@ -32,7 +32,7 @@ class PolyDev:
 
     _CACHE: dict = {}
 
-    def __new__(cls, curve_type: str, device="cpu"):
+    def __new__(cls, curve_type: str, device="cuda"):
         device = canonical_device(device)
         key = (curve_type, str(device))
         if key in cls._CACHE:

@@ -78,7 +78,7 @@ def _fixed_base_table(curve: CurveOps, base: torch.Tensor, window_bits: int,
 
 
 def setup_g1_powers(kzg, tau: int, max_degree: int, window_bits: int = 8,
-                    device="cpu") -> DeviceSRS:
+                    device="cuda") -> DeviceSRS:
     """The device SRS [tau^i G1] for i <= max_degree."""
     ctx = msm_context(kzg.curve_type, device)
     curve = ctx.curve

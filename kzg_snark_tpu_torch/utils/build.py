@@ -50,7 +50,9 @@ CUDA_ENTRIES = {
     "kzg_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P, _P],
     "kzg_ntt_stage": [_P, _P, _P, _I64, _I64, _INT, _P, _P],
     "kzg_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
-    "kzg_msm_bucket": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    "kzg_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P, _P],
+    "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
+    "kzg_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P, _P],
 }
 
 HOST_ENTRIES = {
@@ -61,7 +63,9 @@ HOST_ENTRIES = {
     "host_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P],
     "host_ntt_radix2": [_P, _P, _P, _I64, _I64, _P],
     "host_ntt_radix4": [_P, _P, _P, _I64, _I64, _P],
-    "host_msm_bucket": [_P, _P, _I64, _P, _P, _I64, _I64, _INT, _INT, _P],
+    "host_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P],
+    "host_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P],
+    "host_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,7 @@ other device never does (it goes to the kernel path, which checks its
 operands and raises).  With a card (tests marked ``cuda``, skipped where
 ``torch.cuda.is_available()`` is false): every kernel entry point equals
 its plain version on small numpy-seeded inputs and counts its launch
-(K1-K10).
+(K1-K7, K9, K10, and the bucket route's msm_accumulate and msm_reduce).
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -15,7 +15,7 @@ import torch
 
 from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
-from kzg_snark_tpu_torch.ops.msm_kernel import msm_bucket, msm_bucket_plain
+from kzg_snark_tpu_torch.ops import msm_kernel as mk
 from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain, fr_butterfly,
                                                ntt_stage)
 from kzg_snark_tpu_torch.utils.build import LAUNCHES
@@ -31,14 +31,14 @@ def words(n, seed, device="cpu"):
 @pytest.mark.parametrize("fn", [cuda_fr.fr_mul, cuda_fr.fr_add,
                                 cuda_fr.fr_sub])
 def test_field_wrapper_never_sends_other_devices_to_plain(fn):
-    fc = fr_backend("bn254").consts
+    fc = fr_backend("bn254", "cpu").consts
     a = torch.empty((8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fn(fc, a, a)
 
 
 def test_curve_and_stage_wrappers_reject_other_devices():
-    fc = fq_backend("bn254").consts
+    fc = fq_backend("bn254", "cpu").consts
     p = torch.empty((3, 8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fr.g1_add(fc, p, p)
@@ -48,9 +48,15 @@ def test_curve_and_stage_wrappers_reject_other_devices():
     tw = torch.empty((8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ntt_stage(fc, x, tw, 1, 2)
-    d = torch.empty((37, 8), dtype=torch.int32, device="meta")
+    xy = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    e = torch.empty((8,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        msm_bucket(fc, x, x, d, 1, False)
+        mk.msm_accumulate(fc, xy, e, e, False)
+    bco = torch.empty((129,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.msm_reduce(fc, p, bco, 1, 1, 8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.reduce_horner(fc, p, 1, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fr.g1_add_mixed(fc, p, x[:, :1], x[:, :1])
     m = torch.empty((8,), dtype=torch.int32, device="meta")
@@ -60,7 +66,7 @@ def test_curve_and_stage_wrappers_reject_other_devices():
 
 def test_cpu_path_counts_no_launch():
     LAUNCHES.clear()
-    fc = fr_backend("bn254").consts
+    fc = fr_backend("bn254", "cpu").consts
     a = words(16, 1)
     assert torch.equal(cuda_fr.fr_mul(fc, a, a), cuda_fr.mul_plain(fc, a, a))
     assert sum(LAUNCHES.values()) == 0
@@ -92,9 +98,8 @@ def test_field_kernels_match_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_curve_stage_and_bucket_kernels_match_plain(cuda):
+def test_curve_and_stage_kernels_match_plain(cuda):
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
-    from kzg_snark_tpu_torch.ops.msm_kernel import signed_digits
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
     from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
 
@@ -114,11 +119,43 @@ def test_curve_stage_and_bucket_kernels_match_plain(cuda):
     for span in (1, 32):
         assert torch.equal(ntt_stage(fr, x, ctx.tw_fwd, span, 2),
                            radix2_plain(fr, x, ctx.tw_fwd, span))
-    dig = signed_digits(words(256, 4, cuda), 254)
-    px, py = pts[0].contiguous(), pts[1].contiguous()
+
+
+@pytest.mark.parametrize("skew", ["random", "all-equal", "one-nonzero",
+                                  "small"])
+@pytest.mark.cuda
+def test_bucket_kernels_match_plain(cuda, skew):
+    """msm_accumulate (both adds) and msm_reduce (both launches) against
+    their plain versions at 2^12 points with k = 2 sets: random scalars
+    beside a skewed set; each launch counted once."""
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+
+    n = 1 << 12
+    fq = fq_backend("bn254", cuda).consts
+    pts, _ = random_point_basis("bn254", n, seed=4, device=cuda)
+    other = {"random": words(n, 6), "all-equal": words(1, 6).expand(8, n),
+             "one-nonzero": torch.zeros((8, n), dtype=torch.int32),
+             "small": words(n, 6) & 0x3FF}[skew].clone()
+    if skew == "one-nonzero":
+        other[:, 99] = words(1, 6)[:, 0]
+    sets = torch.stack([words(n, 5), other]).to(cuda)
+    c = mk.window_bits(n)
+    dig = mk.signed_digits(sets, 254, c)
+    W = dig.shape[1]
+    s = mk.bucket_schedule(dig, c)
+    xy = mk.point_table(pts)
     for complete in (False, True):
-        assert torch.equal(msm_bucket(fq, px, py, dig, 16, complete),
-                           msm_bucket_plain(fq, px, py, dig, 16, complete))
+        before = LAUNCHES["msm_accumulate"]
+        part = mk.msm_accumulate(fq, xy, s.entries, s.chunk_off, complete)
+        assert LAUNCHES["msm_accumulate"] == before + 1
+        assert torch.equal(part, mk.msm_accumulate_plain(
+            fq, xy, s.entries, s.chunk_off, complete))
+    before = LAUNCHES["msm_reduce"]
+    got = mk.msm_reduce(fq, part, s.bucket_chunks, 2, W, c,
+                        s.window_threads)
+    assert LAUNCHES["msm_reduce"] == before + 2
+    assert torch.equal(got, mk.msm_reduce_plain(
+        fq, part, s.bucket_chunks, 2, W, c, s.window_threads))
 
 
 @pytest.mark.cuda

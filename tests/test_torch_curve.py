@@ -39,7 +39,7 @@ def same(jax_pts, port_pts):
 
 @pytest.fixture(scope="module")
 def curves():
-    return jax_curve_ops("bn254"), curve_ops("bn254")
+    return jax_curve_ops("bn254"), curve_ops("bn254", "cpu")
 
 
 @pytest.fixture(scope="module")

@@ -26,8 +26,8 @@ N = 32
 @pytest.fixture(params=["fr", "fq"], scope="module")
 def backends(request):
     if request.param == "fr":
-        return jfr.fr_backend("bn254"), tfr.fr_backend("bn254")
-    return jfr.fq_backend("bn254"), tfr.fq_backend("bn254")
+        return jfr.fr_backend("bn254"), tfr.fr_backend("bn254", "cpu")
+    return jfr.fq_backend("bn254"), tfr.fq_backend("bn254", "cpu")
 
 
 def sample(p, n, seed):
@@ -125,7 +125,7 @@ def test_mul_plain_matches_pallas_fused_mul():
     from kzg_snark_tpu.ops import pallas_fr
     from kzg_snark_tpu_torch.ops import cuda_fr
 
-    jb, tb = jfr.fr_backend("bn254"), tfr.fr_backend("bn254")
+    jb, tb = jfr.fr_backend("bn254"), tfr.fr_backend("bn254", "cpu")
     n = 2048
     xs, ys = sample(jb.modulus, n, 3), sample(jb.modulus, n, 4)
     old = pallas_fr._INTERPRET

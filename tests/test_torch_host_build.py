@@ -7,6 +7,7 @@ the kernels' arithmetic and indexing on a machine without a card.  Exact
 equality: the arithmetic is integer.
 """
 
+import functools
 import random
 
 import numpy as np
@@ -18,7 +19,11 @@ from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops.limbs import FieldConsts, to_tensor, to_words
-from kzg_snark_tpu_torch.ops.msm_kernel import msm_bucket_plain, signed_digits
+from kzg_snark_tpu_torch.ops.msm_kernel import (bucket_schedule, horner_plain,
+                                                msm_accumulate_plain,
+                                                point_table, signed_digits,
+                                                window_bits,
+                                                window_sums_plain)
 from kzg_snark_tpu_torch.ops.ntt import ntt_context
 from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
 from kzg_snark_tpu_torch.utils.build import host_lib
@@ -50,7 +55,8 @@ def _random_field(p, n, seed):
                          ids=["fr", "fq"])
 @pytest.mark.parametrize("op", [0, 1, 2], ids=["mul", "add", "sub"])
 def test_field_ewise(lib, modulus, op):
-    be = fr_backend("bn254") if modulus == C.BN254_R else fq_backend("bn254")
+    be = fr_backend("bn254", "cpu") if modulus == C.BN254_R \
+        else fq_backend("bn254", "cpu")
     fc = FieldConsts(modulus)
     a = be.from_ints(_random_field(modulus, 64, 1))
     b = be.from_ints(_random_field(modulus, 64, 2)[::-1])
@@ -65,7 +71,7 @@ def test_field_ewise(lib, modulus, op):
 
 def _edge_points(curve, k=16):
     """Random points, their doubles' inputs, negatives and the identity."""
-    pts, _ = random_point_basis("bn254", k, seed=11)
+    pts, _ = random_point_basis("bn254", k, seed=11, device="cpu")
     f = curve.f
     neg = torch.stack([pts[0], f.neg(pts[1]), pts[2]])
     ident = curve.identity((k,))
@@ -77,7 +83,7 @@ def _edge_points(curve, k=16):
 
 def test_g1_add_double(lib):
     from kzg_snark_tpu_torch.ops.g1 import curve_ops
-    curve = curve_ops("bn254")
+    curve = curve_ops("bn254", "cpu")
     fc = curve.f.consts
     p, q = _edge_points(curve)
     m = p.shape[-1]
@@ -91,7 +97,7 @@ def test_g1_add_double(lib):
 
 @pytest.mark.parametrize("n", [2, 8, 32])
 def test_ntt_stages(lib, n):
-    ctx = ntt_context("bn254", n)
+    ctx = ntt_context("bn254", n, "cpu")
     fc = ctx.backend.consts
     x = ctx.backend.from_ints(_random_field(C.BN254_R, n, n))
     xw, tw = _words(x), _words(ctx.tw_fwd)
@@ -109,22 +115,61 @@ def test_ntt_stages(lib, n):
         span *= 2
 
 
-@pytest.mark.parametrize("complete", [False, True])
-def test_msm_bucket_pass(lib, complete):
-    n, lanes = 64, 4
-    pts, _ = random_point_basis("bn254", n, seed=3)
-    fc = fq_backend("bn254").consts
-    rng = np.random.default_rng(4)
-    words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
-    words[7] &= (1 << 29) - 1
-    words[:, 0] = 0
+@functools.lru_cache(maxsize=None)
+def _basis(n):
+    return random_point_basis("bn254", n, seed=3, device="cpu")[0]
+
+
+def _schedule(n, sets, chunk, events, seed):
+    """Points, c, W and the bucket schedule of ``sets`` scalar sets with a
+    run of equal scalars (heavy buckets) and half zeros."""
+    pts = _basis(n)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(sets, 8, n), dtype=np.uint64)
+    words[:, 7] &= (1 << 29) - 1
+    words[0, :, :n // 2] = words[0, :, :1]
+    words[-1, :, 1::2] = 0
     scalars = to_tensor(words.astype(np.uint32), "cpu")
-    dig = signed_digits(scalars, 254)
-    px, py = pts[0].contiguous(), pts[1].contiguous()
-    table = msm_bucket_plain(fc, px, py, dig, lanes, complete)
-    W = dig.shape[0]
-    out = np.empty(table.shape, dtype=np.uint32)
-    pxw, pyw, dw = _words(px), _words(py), np.ascontiguousarray(dig.numpy())
-    lib.host_msm_bucket(_ptr(pxw), _ptr(pyw), n, _ptr(dw), _ptr(out), W,
-                        lanes, 64, int(complete), fc.ptr)
-    assert np.array_equal(out, _words(table))
+    c = window_bits(n)
+    dig = signed_digits(scalars, 254, c)
+    return pts, c, dig.shape[1], bucket_schedule(dig, c, chunk, events)
+
+
+@pytest.mark.parametrize("complete", [False, True])
+def test_msm_accumulate(lib, complete):
+    pts, _, _, s = _schedule(64, 2, 4, 4, 4)
+    fc = fq_backend("bn254", "cpu").consts
+    xy = point_table(pts)
+    part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, complete)
+    out = np.empty(tuple(part.shape), dtype=np.uint32)
+    xyw, ent, off = _words(xy), _words(s.entries), _words(s.chunk_off)
+    lib.host_msm_accumulate(_ptr(xyw), _ptr(ent), _ptr(off), part.shape[-1],
+                            _ptr(out), int(complete), fc.ptr)
+    assert np.array_equal(out, _words(part))
+
+
+@pytest.mark.parametrize("n, sets, chunk, events",
+                         [(64, 2, 4, 4), (64, 1, 2, 32), (256, 1, 1, 1)],
+                         ids=["two-sets", "few-threads", "two-blocks"])
+def test_msm_reduce(lib, n, sets, chunk, events):
+    """The window-sum launch (pieces of events, block tree) and the Horner
+    launch; "two-blocks" has 256 threads a window, two blocks of 128."""
+    pts, c, W, s = _schedule(n, sets, chunk, events, 5)
+    if n == 256:
+        assert s.window_threads == 256
+    fc = fq_backend("bn254", "cpu").consts
+    part = msm_accumulate_plain(fc, point_table(pts), s.entries, s.chunk_off,
+                                True)
+    wp = window_sums_plain(fc, part, s.bucket_chunks, sets * W, c,
+                           s.window_threads)
+    out = np.empty(tuple(wp.shape), dtype=np.uint32)
+    pw, bw = _words(part), _words(s.bucket_chunks)
+    lib.host_msm_window_sums(_ptr(pw), part.shape[-1], _ptr(bw), sets * W,
+                             1 << (c - 1), c, s.window_threads, _ptr(out),
+                             fc.ptr)
+    assert np.array_equal(out, _words(wp))
+    res = horner_plain(fc, wp, sets, W, c)
+    got = np.empty(tuple(res.shape), dtype=np.uint32)
+    lib.host_msm_horner(_ptr(out), sets, W, wp.shape[-1] // (sets * W), c,
+                        _ptr(got), fc.ptr)
+    assert np.array_equal(got, _words(res))

@@ -1,13 +1,18 @@
 """The port's MSM against the JAX package's digit recoding and the host
 oracle.
 
-``signed_digits`` must equal the JAX recoding.  The MSM (plain versions of
-the kernels on the CPU) must equal the host sum over ``random_point_basis``
-(P_i = k_i G, so the oracle is (sum s_i k_i) G), with scalars 0, 1, r - 1
-and duplicates, on each route the JAX ``MsmContext`` would take: bit-serial
-(n <= 256: 64, 200), scan Pippenger on K9 (300, 1024) and the bucket pass
-(2048); all-zero scalars give the identity on every route.  A structured
-basis [(i+1) G] runs with ``complete=True``.
+``signed_digits`` must equal the JAX recoding at c = 7 and satisfy
+sum d_w 2^(cw) = s at every window width the bucket route uses.  The MSM
+(plain versions of the kernels on the CPU) must equal the host sum over
+``random_point_basis`` (P_i = k_i G, so the oracle is (sum s_i k_i) G),
+with scalars 0, 1, r - 1 and duplicates, on each route the JAX
+``MsmContext`` would take: bit-serial (n <= 256: 64, 200), scan Pippenger
+on K9 (300, 1024) and the sorted-bucket route (2048, 4096); all-zero
+scalars give the identity on every route.  The bucket route is also held
+to the oracle on skewed scalar sets (all zero, all equal, one nonzero,
+half zeros), batched sets and both ``complete`` settings, and never calls
+``CurveOps.add`` or ``CurveOps.double``.  A structured basis [(i+1) G]
+runs with ``complete=True``.
 """
 
 import functools
@@ -24,7 +29,10 @@ from kzg_snark_tpu.ops.msm_kernel import signed_digits as jax_signed_digits
 from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
 from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
 from kzg_snark_tpu_torch.ops.msm import MsmContext, msm_context
-from kzg_snark_tpu_torch.ops.msm_kernel import lanes_for, signed_digits
+from kzg_snark_tpu_torch.ops.benchpoints import normalize_points
+from kzg_snark_tpu_torch.ops.g1 import CurveOps
+from kzg_snark_tpu_torch.ops.msm_kernel import (num_windows, signed_digits,
+                                                window_bits)
 
 # Tiny tensors: one intra-op thread is faster than many, and the test
 # workers share the CPU (threads that spin-wait stall them all).
@@ -49,31 +57,61 @@ def host_point(total):
 
 
 def test_signed_digits_match_jax():
+    """At c = 7 the port's mag | sign << 16 is the JAX mag | sign << 7."""
     from kzg_snark_tpu.ops.fr import ints_to_limb_array
     s = scalars(64, 1)
     jax_limbs = ints_to_limb_array(s, 16)
     want = np.asarray(jax_signed_digits(jax_fr_backend("bn254"), jax_limbs,
                                         254, pad=False))
-    got = signed_digits(to_tensor(ints_to_words(s), "cpu"), 254).numpy()
-    assert np.array_equal(want.astype(np.int64), got.astype(np.int64))
+    got = signed_digits(to_tensor(ints_to_words(s), "cpu"), 254, 7).numpy()
+    got = got.astype(np.int64)
+    mapped = (got & 0xFFFF) | ((got >> 16) << 7)
+    assert np.array_equal(want.astype(np.int64), mapped)
 
 
-def test_lanes_for():
-    assert lanes_for(16) == 1
-    assert lanes_for(64) == 4
-    assert lanes_for(1024) == 64
-    assert lanes_for(1 << 16) == 256
+def test_window_bits_table():
+    """The table's widths, one more bit a doubling above it, at most 16;
+    every width the bucket route uses is one the digit tests cover."""
+    assert [window_bits(1 << lg) for lg in range(11, 25)] == [
+        9, 10, 10, 10, 10, 10, 12, 12, 13, 14, 15, 16, 16, 16]
+    assert window_bits(3 << 15) == 10
+    assert {window_bits(1 << lg) for lg in range(11, 31)} <= set(DIGIT_WIDTHS)
+
+
+DIGIT_WIDTHS = range(7, 17)     # JAX's c = 7 and every width the route uses
+
+
+@pytest.mark.parametrize("c", DIGIT_WIDTHS)
+def test_signed_digits_identity(c):
+    """sum_w d_w 2^(cw) = s, |d_w| <= 2^(c-1), and the top window leaves
+    room for the carry (254 - c (W - 1) <= c - 1)."""
+    W = num_windows(254, c)
+    assert 254 - c * (W - 1) <= c - 1
+    s = scalars(40, c) + [0, 1, R - 1, R - 2, 1 << 253]
+    d = signed_digits(to_tensor(ints_to_words(s), "cpu"), 254, c).numpy()
+    d = d.astype(np.int64)
+    assert d.shape == (W, len(s))
+    mag, neg = d & 0xFFFF, d >> 16
+    assert mag.max() <= 1 << (c - 1) and set(np.unique(neg)) <= {0, 1}
+    for j, v in enumerate(s):
+        assert sum((-int(mag[w, j]) if neg[w, j] else int(mag[w, j]))
+                   << (c * w) for w in range(W)) == v
 
 
 @functools.lru_cache(maxsize=None)
 def basis(n):
-    return random_point_basis("bn254", n, seed=n)
+    if n == 4096:       # the 2048 basis and its doubles: no second build
+        pts, ks = basis(2048)
+        curve = msm_context("bn254", "cpu").curve
+        dbl = normalize_points(curve.f, curve.double(pts))
+        return torch.cat([pts, dbl], dim=-1), ks + [2 * k for k in ks]
+    return random_point_basis("bn254", n, seed=n, device="cpu")
 
 
 @pytest.mark.parametrize("n", [64, 1024])
 def test_msm_matches_host_oracle(n):
     pts, ks = basis(n)
-    ctx = msm_context("bn254")
+    ctx = msm_context("bn254", "cpu")
     s = scalars(n, n + 1)
     got = ctx.curve.to_affine_ints(ctx.msm(pts, ctx.scalars_to_limbs(s)))
     assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
@@ -84,7 +122,7 @@ def test_msm_matches_host_oracle(n):
 def test_msm_routes_match_host_oracle(n, route):
     assert MsmContext.route(n) == route
     pts, ks = basis(n)
-    ctx = msm_context("bn254")
+    ctx = msm_context("bn254", "cpu")
     s = scalars(n, n + 2)
     got = ctx.curve.to_affine_ints(ctx.msm(pts, ctx.scalars_to_limbs(s)))
     assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
@@ -94,8 +132,8 @@ def test_msm_routes_match_host_oracle(n, route):
 
 def test_msm_many_matches_single():
     n = 64
-    pts, ks = random_point_basis("bn254", n, seed=7)
-    ctx = msm_context("bn254")
+    pts, ks = random_point_basis("bn254", n, seed=7, device="cpu")
+    ctx = msm_context("bn254", "cpu")
     sets = [scalars(n, 10 + j) for j in range(3)]
     sets[2] = [0] * n                       # an all-zero scalar set
     lim = torch.stack([ctx.scalars_to_limbs(s) for s in sets])
@@ -106,7 +144,7 @@ def test_msm_many_matches_single():
 
 def test_structured_basis_complete():
     n = 64
-    ctx = msm_context("bn254")
+    ctx = msm_context("bn254", "cpu")
     aff = [hc.normalize(hc.multiply(G1, i + 1)) for i in range(n)]
     pts = ctx.curve.from_affine_ints([int(a[0]) for a in aff],
                                      [int(a[1]) for a in aff])
@@ -114,3 +152,70 @@ def test_structured_basis_complete():
     got = ctx.curve.to_affine_ints(
         ctx.msm(pts, ctx.scalars_to_limbs(s), complete=True))
     assert got == [host_point(sum(a * (i + 1) for i, a in enumerate(s)))]
+
+
+SKEWED = {
+    "random": lambda n, rng: [int.from_bytes(rng.bytes(32), "little") % R
+                              for _ in range(n)],
+    "all-zero": lambda n, rng: [0] * n,
+    "all-equal": lambda n, rng: [R - 3] * n,
+    "one-nonzero": lambda n, rng: [0] * 37 + [R - 1] + [0] * (n - 38),
+    "half-zero": lambda n, rng: [(i * 7919 + 1) % 4096 if i % 2 else 0
+                                 for i in range(n)],
+}
+BUCKET_CASES = {(2048, False): list(SKEWED), (2048, True): list(SKEWED),
+                (4096, False): ["random", "all-equal", "half-zero"]}
+
+
+@functools.lru_cache(maxsize=None)
+def bucket_run(n, complete):
+    """One batched bucket-route MSM over all of ``BUCKET_CASES[n,
+    complete]`` -> (affine results, scalar sets)."""
+    assert MsmContext.route(n) == "bucket"
+    pts, _ = basis(n)
+    ctx = msm_context("bn254", "cpu")
+    rng = np.random.default_rng(n + complete)
+    sets = [SKEWED[name](n, rng) for name in BUCKET_CASES[n, complete]]
+    lim = torch.stack([ctx.scalars_to_limbs(s) for s in sets])
+    out = ctx.msm(pts, lim, complete=complete)
+    return ctx.curve.to_affine_ints(out), sets
+
+
+@pytest.mark.parametrize("n, complete, case", [
+    (n, complete, case) for (n, complete), cases in BUCKET_CASES.items()
+    for case in cases])
+def test_bucket_route_skewed_scalars(n, complete, case):
+    got, sets = bucket_run(n, complete)
+    j = BUCKET_CASES[n, complete].index(case)
+    _, ks = basis(n)
+    assert got[j] == host_point(sum(a * b for a, b in zip(sets[j], ks)))
+
+
+def test_bucket_route_duplicate_points_complete():
+    """A basis with each point twice: a bucket holding P, P in one chunk
+    needs the complete add's doubling."""
+    pts, ks = basis(2048)
+    dup = torch.cat([pts[..., :1024], pts[..., :1024]], dim=-1)
+    ks = ks[:1024] * 2
+    s = [0] * 2048
+    s[5] = s[1024 + 5] = 9
+    ctx = msm_context("bn254", "cpu")
+    got = ctx.curve.to_affine_ints(
+        ctx.msm(dup, ctx.scalars_to_limbs(s), complete=True))
+    assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
+
+
+def test_bucket_route_calls_no_curve_add_or_double(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the bucket route called CurveOps")
+
+    pts, ks = basis(2048)
+    ctx = msm_context("bn254", "cpu")
+    s = [(i % 5) * 1000003 for i in range(2048)]
+    lim = ctx.scalars_to_limbs(s)
+    monkeypatch.setattr(CurveOps, "add", refuse)
+    monkeypatch.setattr(CurveOps, "double", refuse)
+    out = ctx.msm(pts, lim)
+    monkeypatch.undo()
+    assert ctx.curve.to_affine_ints(out) == [
+        host_point(sum(a * b for a, b in zip(s, ks)))]

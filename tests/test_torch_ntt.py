@@ -44,7 +44,7 @@ def values(n, seed):
 def test_matches_jax_ntt_context(log_n):
     n = 1 << log_n
     jctx = jax_ntt_context("bn254", n)
-    tctx = ntt_context("bn254", n)
+    tctx = ntt_context("bn254", n, "cpu")
     assert tctx.root == jctx.root
     xs = values(n, log_n)
     ja, ta = jctx.backend.from_ints(xs), tctx.backend.from_ints(xs)
@@ -56,7 +56,7 @@ def test_matches_jax_ntt_context(log_n):
 def test_coset_matches_jax_ntt_context():
     n = 4
     jctx = jax_ntt_context("bn254", n)
-    tctx = ntt_context("bn254", n)
+    tctx = ntt_context("bn254", n, "cpu")
     xs = values(n, 99)
     ja, ta = jctx.backend.from_ints(xs), tctx.backend.from_ints(xs)
     for j_out, t_out in [
@@ -68,7 +68,7 @@ def test_coset_matches_jax_ntt_context():
 @pytest.mark.parametrize("log_n", [11, 12])
 def test_staged_plan_matches_host_fft(log_n):
     n = 1 << log_n
-    ctx = ntt_context("bn254", n)
+    ctx = ntt_context("bn254", n, "cpu")
     be = ctx.backend
     xs = values(n, 100 + log_n)
     a = be.from_ints(xs)
@@ -98,7 +98,7 @@ def test_butterfly_plain_matches_pallas_fused_butterfly():
     n = 256
     xl, xu, tw = values(n, 31), values(n, 32), values(n, 33)
     mask = np.random.default_rng(34).integers(0, 2, n)
-    jb, tb = jax_fr_backend("bn254"), fr_backend("bn254")
+    jb, tb = jax_fr_backend("bn254"), fr_backend("bn254", "cpu")
     old = pallas_fr._INTERPRET
     pallas_fr._INTERPRET = True
     try:
@@ -124,7 +124,7 @@ def test_butterfly_host_build_matches_plain():
     from kzg_snark_tpu_torch.utils.build import host_lib
 
     n = 256
-    tb = fr_backend("bn254")
+    tb = fr_backend("bn254", "cpu")
     xl, xu, tw = (tb.from_ints(values(n, s)) for s in (41, 42, 43))
     mask = torch.from_numpy(
         np.random.default_rng(44).integers(0, 2, n).astype(np.int32))
@@ -140,7 +140,7 @@ def test_scan_mode_matches_staged(log_n):
     """The scan-mode transform (two rolls and K10 per stage) equals the
     staged plan, forward and inverse."""
     n = 1 << log_n
-    ctx = ntt_context("bn254", n)
+    ctx = ntt_context("bn254", n, "cpu")
     a = ctx.backend.from_ints(values(n, 200 + log_n))
     assert torch.equal(ctx.ntt(a, mode="scan"), ctx.ntt(a))
     assert torch.equal(ctx.intt(a, mode="scan"), ctx.intt(a))
