@@ -9,7 +9,11 @@ Phases, in order, one printed line or block each:
                  source, side by side), timed
   kernels        every kernel entry point against its plain PyTorch version
                  on the card at the main paths' shapes: exact equality, both
-                 times, and the least time the card could take (bound)
+                 times (inputs rotated through copies larger than the L2),
+                 and the least time the card could take (bound)
+  chains         fr_scan and fr_pow (K1 as the provers' chains use it) at
+                 their edge widths and exponents against their plain
+                 versions, their times, one narrow K1 / K7 launch
   ntt            NTT at n = 2^18: "scan" mode (K10) equal to "staged",
                  forward and inverse; round trip, host spot checks
   msm            bucket-route MSM at 2^16 points on a random-multiplier basis
@@ -21,6 +25,8 @@ Phases, in order, one printed line or block each:
                  port's host prover's (normalized commitments)
   main           PLONK at n = 2^16: index, two proves, host verification,
                  tamper rejection, phase map, peak memory, launch counts
+                 (also by width; fails above 2000 fr_mul or 600 fr_scan +
+                 fr_pow launches)
   marlin_parity  Marlin at |H| = 2^6: the device proof byte-identical to the
                  port's host Marlin prover's; the scan MSM (K9) ran
   marlin         Marlin at |H| = 2^14 (m = 2^15): index, two proves, host
@@ -39,6 +45,7 @@ line).  Without a CUDA device the script exits non-zero at once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -69,6 +76,11 @@ KERNELS = {
                      "kzg_snark_tpu/ops/pallas_fr.py:259", "marlin_parity"),
     "fr_butterfly": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
                      "kzg_snark_tpu/ops/pallas_fr.py:158", "ntt_scan"),
+    # K1 as the lax.scan chains of kzg_snark_tpu/ops/fr.py:308-445 use it
+    "fr_scan": ("kzg_snark_tpu_torch/csrc/fr_scan_kernels.cu",
+                "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
+    "fr_pow": ("kzg_snark_tpu_torch/csrc/fr_scan_kernels.cu",
+               "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
 }
 
 MAIN_LOG_N = 16
@@ -81,6 +93,7 @@ TAU = 0xABCDEF12345
 MARLIN_TAU = 0xFEED5EED
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20         # H100 L2 cache
 INT_MUL_PER_SM_CLK = 64         # 32-bit integer multiply(-add) results per
                                 # SM per clock, compute capability 9.0
 MONT_PRODUCTS = 2 * 8 * 8 + 8   # 32x32-bit products of one CIOS Montgomery
@@ -155,19 +168,35 @@ def random_canonical(torch, n: int, seed: int, dev):
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
-def compare(torch, name, results, kernel_fn, plain_fn, work, reps=20,
+def rotated(torch, fn, args):
+    """``fn`` over copies of ``args``, a different copy each call, enough
+    of them that one round reads at least twice the L2 cache: a timed call
+    finds its inputs in device memory, as a prover's call does, and not in
+    the L2 where the previous call left them."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if torch.is_tensor(a))
+    copies = min(64, max(1, -(-2 * L2_BYTES // max(nbytes, 1))))
+    sets = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args) for _ in range(copies - 1)]
+    turn = itertools.cycle(sets)
+    return lambda: fn(*next(turn))
+
+
+def compare(torch, name, results, kernel_fn, plain_fn, args, work, reps=20,
             plain_reps=3):
-    """Run kernel and plain version on the same CUDA inputs; demand exact
-    equality; record both times and the bound of ``work`` (a dict from
+    """Run kernel and plain version on the same CUDA inputs ``args``;
+    demand exact equality; record both times (inputs rotated through
+    copies, see ``rotated``) and the bound of ``work`` (a dict from
     ``bound``)."""
-    got = kernel_fn()
-    want = plain_fn()
+    got = kernel_fn(*args)
+    want = plain_fn(*args)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain (max |diff| {err})")
-    dev_ms, wall = timed_ms(torch, kernel_fn, reps)
-    plain_dev, plain_wall = timed_ms(torch, plain_fn, plain_reps)
+    dev_ms, wall = timed_ms(torch, rotated(torch, kernel_fn, args), reps)
+    plain_dev, plain_wall = timed_ms(torch, rotated(torch, plain_fn, args),
+                                     plain_reps)
     # A call costs its device time unless the host cannot keep up; the
     # plain versions' thousands of small launches overflow the queue.
     results[name] = {"max_abs_err": err, "ms": min(dev_ms, wall),
@@ -229,12 +258,12 @@ def phase_kernels(torch, dev, results, rates):
             ("fr_mul", cuda_fr.fr_mul, cuda_fr.mul_plain, MONT_PRODUCTS),
             ("fr_add", cuda_fr.fr_add, cuda_fr.add_plain, 0),
             ("fr_sub", cuda_fr.fr_sub, cuda_fr.sub_plain, 0)]:
-        compare(torch, name, results, lambda: k(fr, a, b),
-                lambda: p(fr, a, b),
+        compare(torch, name, results, lambda x, y, k=k: k(fr, x, y),
+                lambda x, y, p=p: p(fr, x, y), (a, b),
                 bound(rates, 3 * elem, prods * n_field))
     s = b[:, :1].contiguous()
-    compare(torch, "fr_mul_scalar", {}, lambda: cuda_fr.fr_mul(fr, a, s),
-            lambda: cuda_fr.mul_plain(fr, a, s),
+    compare(torch, "fr_mul_scalar", {}, lambda x, y: cuda_fr.fr_mul(fr, x, y),
+            lambda x, y: cuda_fr.mul_plain(fr, x, y), (a, s),
             bound(rates, 2 * elem + 32, MONT_PRODUCTS * n_field))
 
     npts = 1 << MAIN_LOG_N
@@ -247,12 +276,12 @@ def phase_kernels(torch, dev, results, rates):
     q[2, :, 2 * k:3 * k] = 0
     q = q.contiguous()
     pt_bytes = 96 * npts
-    compare(torch, "g1_add", results, lambda: cuda_fr.g1_add(fq, pts, q),
-            lambda: cuda_fr.g1_add_plain(fq, pts, q),
+    compare(torch, "g1_add", results, lambda u, v: cuda_fr.g1_add(fq, u, v),
+            lambda u, v: cuda_fr.g1_add_plain(fq, u, v), (pts, q),
             bound(rates, 3 * pt_bytes, _add_products(torch, fq, pts, q)),
             plain_reps=1)
-    compare(torch, "g1_double", results, lambda: cuda_fr.g1_double(fq, q),
-            lambda: cuda_fr.g1_double_plain(fq, q),
+    compare(torch, "g1_double", results, lambda u: cuda_fr.g1_double(fq, u),
+            lambda u: cuda_fr.g1_double_plain(fq, u), (q,),
             bound(rates, 2 * pt_bytes, 7 * MONT_PRODUCTS * npts),
             plain_reps=1)
 
@@ -269,17 +298,17 @@ def phase_kernels(torch, dev, results, rates):
     acc[1, :, 2 * k:3 * k] = cuda_fr.fr_sub(fq, torch.zeros_like(qy), qy)
     acc = acc.contiguous()
     compare(torch, "g1_add_mixed", results,
-            lambda: cuda_fr.g1_add_mixed(fq, acc, qx, qy),
-            lambda: cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy),
-            bound(rates, 2 * pt_bytes + 64,
+            lambda u, x, y: cuda_fr.g1_add_mixed(fq, u, x, y),
+            lambda u, x, y: cuda_fr.g1_add_mixed_plain(fq, u, x, y),
+            (acc, qx, qy), bound(rates, 2 * pt_bytes + 64,
                   _madd_products(torch, fq, acc, qx, qy)),
             plain_reps=1)
 
     ctx = ntt_context("bn254", n_field, dev)
     x = a
     compare(torch, "ntt_radix4", results,
-            lambda: ntt_stage(fr, x, ctx.tw_fwd, 1024, 4),
-            lambda: radix4_plain(fr, x, ctx.tw_fwd, 1024),
+            lambda u, tw: ntt_stage(fr, u, tw, 1024, 4),
+            lambda u, tw: radix4_plain(fr, u, tw, 1024), (x, ctx.tw_fwd),
             bound(rates, 2 * elem + 32 * 2048, MONT_PRODUCTS * n_field))
     # The radix-2 pass of the main paths: Marlin's K-domain NTT at 2^15,
     # whose last stage has span 2^14.
@@ -287,19 +316,21 @@ def phase_kernels(torch, dev, results, rates):
     ctx_k = ntt_context("bn254", n_k, dev)
     xk = a[:, :n_k].contiguous()
     compare(torch, "ntt_radix2", results,
-            lambda: ntt_stage(fr, xk, ctx_k.tw_fwd, n_k // 2, 2),
-            lambda: radix2_plain(fr, xk, ctx_k.tw_fwd, n_k // 2),
+            lambda u, tw: ntt_stage(fr, u, tw, n_k // 2, 2),
+            lambda u, tw: radix2_plain(fr, u, tw, n_k // 2),
+            (xk, ctx_k.tw_fwd),
             bound(rates, 2 * 32 * n_k + 32 * n_k // 2,
                   MONT_PRODUCTS * n_k // 2))
     for span in (1, n_field // 2):
         compare(torch, f"ntt_stage_radix2_span{span}", {},
-                lambda: ntt_stage(fr, x, ctx.tw_fwd, span, 2),
-                lambda: radix2_plain(fr, x, ctx.tw_fwd, span),
+                lambda u, tw, span=span: ntt_stage(fr, u, tw, span, 2),
+                lambda u, tw, span=span: radix2_plain(fr, u, tw, span),
+                (x, ctx.tw_fwd),
                 bound(rates, 2 * elem + 32 * span,
                       MONT_PRODUCTS * n_field // 2))
     compare(torch, "ntt_stage_radix4_span1", {},
-            lambda: ntt_stage(fr, x, ctx.tw_fwd, 1, 4),
-            lambda: radix4_plain(fr, x, ctx.tw_fwd, 1),
+            lambda u, tw: ntt_stage(fr, u, tw, 1, 4),
+            lambda u, tw: radix4_plain(fr, u, tw, 1), (x, ctx.tw_fwd),
             bound(rates, 2 * elem + 64, MONT_PRODUCTS * n_field))
 
     import numpy as np
@@ -307,8 +338,9 @@ def phase_kernels(torch, dev, results, rates):
         0, 2, n_field).astype(np.int32)).to(dev)
     tw = random_canonical(torch, n_field, 6, dev)
     compare(torch, "fr_butterfly", results,
-            lambda: fr_butterfly(fr, a, b, tw, mask),
-            lambda: butterfly_plain(fr, a, b, tw, mask),
+            lambda u, v, w, m: fr_butterfly(fr, u, v, w, m),
+            lambda u, v, w, m: butterfly_plain(fr, u, v, w, m),
+            (a, b, tw, mask),
             bound(rates, 4 * elem + 4 * n_field, MONT_PRODUCTS * n_field))
 
     # The bucket route at the main paths' shape: 2^16 points, one set of
@@ -318,18 +350,18 @@ def phase_kernels(torch, dev, results, rates):
     sched, W, c = bucket_schedule(torch, random_canonical(torch, npts, 3, dev)
                                   [None])
     compare(torch, "msm_accumulate", results,
-            lambda: mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off,
-                                      False),
-            lambda: mk.msm_accumulate_plain(fq, xy, sched.entries,
-                                            sched.chunk_off, False),
+            lambda u, e, o: mk.msm_accumulate(fq, u, e, o, False),
+            lambda u, e, o: mk.msm_accumulate_plain(fq, u, e, o, False),
+            (xy, sched.entries, sched.chunk_off),
             bound(rates, *accumulate_work(npts, sched)), reps=10,
             plain_reps=1)
     part = mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off, False)
     compare(torch, "msm_reduce", results,
-            lambda: mk.msm_reduce(fq, part, sched.bucket_chunks, 1, W, c,
-                                  sched.window_threads),
-            lambda: mk.msm_reduce_plain(fq, part, sched.bucket_chunks, 1, W,
-                                        c, sched.window_threads),
+            lambda u, bc: mk.msm_reduce(fq, u, bc, 1, W, c,
+                                        sched.window_threads),
+            lambda u, bc: mk.msm_reduce_plain(fq, u, bc, 1, W, c,
+                                              sched.window_threads),
+            (part, sched.bucket_chunks),
             bound(rates, *reduce_work(sched, 1, W, c)), reps=10,
             plain_reps=1)
     m = 4096
@@ -338,17 +370,124 @@ def phase_kernels(torch, dev, results, rates):
     s4, W4, c4 = bucket_schedule(torch, skew)
     xy4 = xy[:m].contiguous()
     compare(torch, "msm_accumulate_complete_4096", {},
-            lambda: mk.msm_accumulate(fq, xy4, s4.entries, s4.chunk_off, True),
-            lambda: mk.msm_accumulate_plain(fq, xy4, s4.entries, s4.chunk_off,
-                                            True),
+            lambda u, e, o: mk.msm_accumulate(fq, u, e, o, True),
+            lambda u, e, o: mk.msm_accumulate_plain(fq, u, e, o, True),
+            (xy4, s4.entries, s4.chunk_off),
             bound(rates, *accumulate_work(m, s4)), reps=3, plain_reps=1)
     part4 = mk.msm_accumulate(fq, xy4, s4.entries, s4.chunk_off, True)
     compare(torch, "msm_reduce_skewed_k2_4096", {},
-            lambda: mk.msm_reduce(fq, part4, s4.bucket_chunks, 2, W4, c4,
-                                  s4.window_threads),
-            lambda: mk.msm_reduce_plain(fq, part4, s4.bucket_chunks, 2, W4,
-                                        c4, s4.window_threads),
+            lambda u, bc: mk.msm_reduce(fq, u, bc, 2, W4, c4,
+                                        s4.window_threads),
+            lambda u, bc: mk.msm_reduce_plain(fq, u, bc, 2, W4, c4,
+                                              s4.window_threads),
+            (part4, s4.bucket_chunks),
             bound(rates, *reduce_work(s4, 2, W4, c4)), reps=3, plain_reps=1)
+
+
+def phase_chains(torch, dev, results, rates):
+    """fr_scan and fr_pow (K1 as the provers' chains use it) against their
+    plain versions, exactly: fr_scan at the edge widths, both operations,
+    both directions, the total alone, a column read with step 0; fr_pow at
+    widths 1, 256 and 2^18 with e in {0, 1, 2, 2^16, r - 2} and p - 2 under
+    Fq.  The sums and powers take zero entries; the products none, since a
+    zero forces every later prefix to zero and would leave the tiles after
+    it unchecked.  Then the two rows (kernel, plain and bound), the times
+    at the paths' widths, and the device time of one narrow K1 and K7
+    launch."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import cuda_fr, scan
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
+
+    fr = fr_backend("bn254", dev).consts
+    fq = fq_backend("bn254", dev).consts
+    r, p = C.BN254_R, C.BN254_P
+    n = 1 << MAIN_LOG_N
+    n_big = (1 << (MAIN_LOG_N + 2)) + 3
+    am = random_canonical(torch, n_big, 30, dev)      # no zero column
+    am[:, 1::997] = to_tensor(ints_to_words([r - 1]), dev)
+    if not bool(am.ne(0).any(dim=0).all()):
+        raise AssertionError("the product scans' input holds a zero")
+    a = am.clone()
+    a[:, ::997] = 0
+    tile = scan.tile()
+    widths = (1, 2, tile - 1, tile, tile + 1, n, n_big)
+    for m in widths:
+        for op, src in ((scan.MUL, am), (scan.ADD, a)):
+            x = src[:, :m]             # a column slice: rows n_big apart
+            for reverse in (False, True):
+                want, want_total = scan.fr_scan_plain(fr, x, op, reverse)
+                got, total = scan.fr_scan(fr, x, op, reverse)
+                _, alone = scan.fr_scan(fr, x, op, reverse, want_scan=False)
+                if not (torch.equal(got, want)
+                        and torch.equal(total, want_total)
+                        and torch.equal(alone, want_total)):
+                    raise AssertionError(
+                        f"fr_scan differs from plain at n = {m}, op {op}, "
+                        f"reverse {reverse}")
+    z = a[:, 2:3]
+    for op in (scan.MUL, scan.ADD):
+        rep = z.expand(8, n)
+        if not torch.equal(scan.fr_scan(fr, rep, op)[0],
+                           scan.fr_scan_plain(fr, rep, op)[0]):
+            raise AssertionError("fr_scan of a repeated column differs")
+    log(f"[chains] fr_scan == plain at n = {widths} (columns of an (8, "
+        f"{n_big}) array), product (no zero) and sum (zeros), forward and "
+        f"reverse, with the total alone, and a column repeated "
+        f"2^{MAIN_LOG_N} times (step 0)")
+
+    for fc, exps in ((fr, (0, 1, 2, 1 << 16, r - 2)), (fq, (p - 2,))):
+        for m, off in ((1, 0), (1, 2), (256, 0), (1 << (MAIN_LOG_N + 2), 0)):
+            x = a[:, off:off + m].contiguous()
+            for e in exps:
+                want = scan.fr_pow_plain(fc, x, e)
+                if not torch.equal(scan.fr_pow(fc, x, e), want):
+                    raise AssertionError(
+                        f"fr_pow differs from plain at width {m}, e = {e}")
+    log("[chains] fr_pow == plain at widths 1 (a zero and a nonzero), 256 "
+        "and 2^18, e in {0, 1, 2, 2^16, r - 2} under Fr and p - 2 under Fq")
+
+    cat = lambda pair: torch.cat(pair, dim=1)                  # noqa: E731
+    xs = am[:, :n].contiguous()
+    compare(torch, "fr_scan", results,
+            lambda u: cat(scan.fr_scan(fr, u, scan.MUL)),
+            lambda u: cat(scan.fr_scan_plain(fr, u, scan.MUL)), (xs,),
+            bound(rates, 64 * n + 32, MONT_PRODUCTS * (n - 1)))
+    e = r - 2
+    steps = e.bit_length() - 1 + bin(e).count("1")
+    w18 = 1 << (MAIN_LOG_N + 2)
+    x18 = a[:, :w18].contiguous()
+    compare(torch, "fr_pow", results, lambda u: scan.fr_pow(fr, u, e),
+            lambda u: scan.fr_pow_plain(fr, u, e), (x18,),
+            bound(rates, 64 * w18, MONT_PRODUCTS * steps * w18), reps=5,
+            plain_reps=1)
+
+    def dev_ms(fn, *args, reps=20):
+        return timed_ms(torch, rotated(torch, fn, args), reps)[0]
+
+    row = []
+    for m in (n, n_big):
+        for op, name, src in ((scan.MUL, "product", am), (scan.ADD, "sum", a)):
+            row.append(f"n = {m} {name}: " + "%.4f" % dev_ms(
+                lambda u: scan.fr_scan(fr, u, op), src[:, :m].contiguous()))
+        row.append(f"n = {m} sum, total alone: %.4f" % dev_ms(
+            lambda u: scan.fr_scan(fr, u, scan.ADD, want_scan=False),
+            a[:, :m].contiguous()))
+    log("[chains] fr_scan device ms: " + "; ".join(row))
+    row = []
+    for m in (1, 256, w18):
+        x = a[:, 2:2 + m].contiguous()
+        row.append(f"width {m}: " + "%.4f" % dev_ms(
+            lambda u: scan.fr_pow(fr, u, e), x, reps=5 if m == w18 else 20))
+    log(f"[chains] fr_pow (e = r - 2, {steps} products a chain) device ms: "
+        + "; ".join(row))
+    pts = torch.stack([a[:, 3:4], a[:, 4:5], a[:, 5:6]]).contiguous()
+    log("[chains] one narrow launch, device ms: fr_mul (8, 1) %.4f, "
+        "(8, 256) %.4f; g1_double of 1 point %.4f" % (
+            dev_ms(lambda u: cuda_fr.fr_mul(fr, u, u), a[:, :1].contiguous()),
+            dev_ms(lambda u: cuda_fr.fr_mul(fr, u, u),
+                   a[:, :256].contiguous()),
+            dev_ms(lambda u: cuda_fr.g1_double(fq, u), pts)))
 
 
 def bucket_schedule(torch, sets, c=None, chunk=None, events=None):
@@ -387,15 +526,21 @@ def reduce_work(sched, sets, W, c):
             (16 * (C + top) + horner) * MONT_PRODUCTS)
 
 
+PATH_WIDTHS: dict = {}      # path -> {kernel: {width class: launches}}
+
+
 def run_path(torch, paths, name, fn):
     """Drive one path with the launch counts set to 0 just before it and
-    read just after; returns what ``fn`` returns."""
-    from kzg_snark_tpu_torch.utils.build import launch_counts, reset_launches
+    read just after (also by width, into PATH_WIDTHS); returns what ``fn``
+    returns."""
+    from kzg_snark_tpu_torch.utils.build import (launch_counts, launch_widths,
+                                                 reset_launches)
     torch.cuda.synchronize()
     reset_launches()
     out = fn()
     torch.cuda.synchronize()
     paths[name] = launch_counts()
+    PATH_WIDTHS[name] = launch_widths()
     return out
 
 
@@ -736,12 +881,19 @@ def phase_main(torch, dev, paths):
     log(f"[main] peak device memory {peak} bytes "
         f"({peak / 2 ** 30:.3f} GiB)")
     log(f"[main] launches: {json.dumps(counts, sort_keys=True)}")
+    log(f"[main] launches by width (elements or points): "
+        f"{json.dumps(PATH_WIDTHS['main'], sort_keys=True)}")
     if counts.get("g1_double", 0) > 300 or counts.get("g1_add", 0) > 80 \
             or counts.get("msm_reduce", 0) > 2 * counts.get("msm_accumulate",
                                                             0):
         raise AssertionError("the PLONK path launched more g1_double (300), "
                              "g1_add (80) or msm_reduce (2 an MSM) than the "
                              "bucket route allows")
+    chains = counts.get("fr_scan", 0) + counts.get("fr_pow", 0)
+    if counts.get("fr_mul", 0) > 2000 or chains > 600:
+        raise AssertionError(f"the PLONK path launched fr_mul "
+                             f"{counts.get('fr_mul', 0)} times (limit 2000) "
+                             f"and fr_scan + fr_pow {chains} (limit 600)")
 
 
 def phase_marlin_parity(torch, dev, paths):
@@ -846,6 +998,8 @@ def phase_marlin(torch, dev, paths):
     log(f"[marlin] peak device memory {peak} bytes "
         f"({peak / 2 ** 30:.3f} GiB)")
     log(f"[marlin] launches: {json.dumps(counts, sort_keys=True)}")
+    log(f"[marlin] launches by width (elements or points): "
+        f"{json.dumps(PATH_WIDTHS['marlin'], sort_keys=True)}")
     return lambda: times["prover"].prove(ipk, x, w)
 
 
@@ -891,6 +1045,7 @@ def main() -> int:
     results: dict = {}
     paths: dict = {}
     phase_kernels(torch, dev, results, rates)
+    phase_chains(torch, dev, results, rates)
     phase_ntt(torch, dev, paths)
     phase_msm(torch, dev, paths, rates)
     phase_parity(dev)

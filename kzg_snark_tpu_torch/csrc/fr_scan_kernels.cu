@@ -1,0 +1,278 @@
+// K1 as the provers' chains use it: an exclusive scan of a field array
+// (fr_scan) and a fixed-exponent power of every element (fr_pow).
+//
+// Replaces kzg_snark_tpu/ops/pallas_fr.py:_mul_call as the lax.scan chains
+// of kzg_snark_tpu/ops/fr.py:308-445 use it (pow_const, batch_inv,
+// exclusive_prefix_prod, suffix_sums_exclusive, sum_reduce): the JAX
+// package runs each chain as one device loop, where one K1 launch a step
+// from the host would cost a launch's 20-47 us of host time per product.
+//
+// fr_scan: out[l] = a[0] (op) ... (op) a[l - 1] in the logical order
+// (forward, or reverse: l counts from the last column), op the Montgomery
+// product (identity R mod p) or the modular sum (identity 0); also the total
+// on request.  Field products and sums are exact, so the association order
+// does not change a result.  Three launches, whatever n:
+//   tiles   one block a tile of SCAN_TILE logical elements: a coalesced load
+//           of each limb into shared memory, each thread folds SCAN_PER
+//           consecutive elements in registers, the warp scans its threads'
+//           totals with __shfl_up_sync on the 8 words, one thread scans the
+//           4 warp totals; writes the tile-local exclusive scan (coalesced,
+//           through shared memory) and the tile's total;
+//   totals  one block scans the tile totals (in place: each becomes its
+//           tile's exclusive prefix) with the same tile code, tile after
+//           tile, and writes the grand total;
+//   fixup   one thread an element combines it with its tile's prefix.
+// This is scan-then-propagate rather than a single pass with decoupled
+// look-back: no block waits on another (no spinning on flags, no order of
+// block scheduling to rely on), and the fix-up is a short fully parallel
+// pass where a reduce-first design would repeat the tile pass's chain.  A
+// total without the scan (sum_reduce) is the first two launches, the tile
+// pass writing no elements.
+//
+// fr_pow: a^e, one thread an element, square-and-multiply in registers (one
+// launch where the host loop made about 380 for e = p - 2).
+//
+// What bounds them on the H100: a scan must read 32 bytes and write 32 an
+// element and do one product; this design moves 128 bytes an element (the
+// local scan is written and read once more) and does about 3 products
+// (fold, output, fix-up) plus a chain of about 2 SCAN_PER + 10 dependent
+// products a block.  At the provers' sizes (n <= 2^18: at most 512 tiles)
+// the blocks' dependent chains, not bytes, set the time.  fr_pow at width 1
+// is one thread's chain of bit_length(e) squarings; at 2^18 it is bound by
+// its 32-bit products (about 380 x 136 an element for e = r - 2).
+//
+// Products: every pass uses the unrolled fe_mul.  The rolled
+// fe_mul_compact, which halved the latency-bound chains of the MSM
+// reduction, was slower here on an H100 80GB HBM3 at 700 W, both in the
+// single-block totals pass and in fr_pow (fr_pow, e = r - 2: 0.398 against
+// 0.247 ms at width 1, 4.02 against 2.74 ms at 2^18; the product scan at
+// 2^16: 0.0401 against 0.0345 ms; chip_smoke.py, see PERF.md).
+#include <cuda_runtime.h>
+#include <string.h>
+
+#include "scan.cuh"
+
+namespace {
+
+constexpr int kWarps = SCAN_THREADS / 32;
+constexpr int kSmStride = SCAN_TILE + SCAN_TILE / 32;  // a pad word in 32
+constexpr int kFixThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Padded shared-memory slot of tile element e: a thread's SCAN_PER
+// consecutive elements fall in distinct banks across the warp.
+__device__ __forceinline__ int slot(int e) { return e + (e >> 5); }
+
+__device__ __forceinline__ void sm_load(uint32_t r[NL], const uint32_t* sm,
+                                        int e) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = sm[k * kSmStride + slot(e)];
+}
+
+__device__ __forceinline__ void sm_store(uint32_t* sm, int e,
+                                         const uint32_t r[NL]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) sm[k * kSmStride + slot(e)] = r[k];
+}
+
+// One tile of a scan by one block: logical elements [base, base +
+// SCAN_TILE) of (a, ld, inc, n, reverse).  carry (the same in every
+// thread) is the tile's exclusive prefix on entry and the next tile's on
+// return.  If out is not null, writes carry (op) the exclusive scan of the
+// tile into the (8, n) array out; out may be a itself (dense, forward).
+template <int OP>
+__device__ __forceinline__ void block_scan_tile(
+    const uint32_t* a, int64_t ld, int64_t inc, int64_t n, bool reverse,
+    int64_t base, uint32_t carry[NL], uint32_t* out, uint32_t* sm,
+    uint32_t* wsm, const FieldConsts& F) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  __syncthreads();  // the previous tile is done with sm and wsm
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+    const uint32_t id = OP == SCAN_OP_MUL ? F.one[k] : 0u;
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; j++) {
+      const int e = t + j * SCAN_THREADS;
+      const int64_t l = base + e;
+      sm[k * kSmStride + slot(e)] =
+          l < n ? a[k * ld + scan_col(l, n, reverse) * inc] : id;
+    }
+  }
+  __syncthreads();
+
+  uint32_t acc[NL], x[NL], y[NL];
+  sm_load(acc, sm, t * SCAN_PER);
+#pragma unroll 1
+  for (int j = 1; j < SCAN_PER; j++) {
+    sm_load(x, sm, t * SCAN_PER + j);
+    scan_op<OP>(acc, acc, x, F);
+  }
+  // Inclusive scan of the threads' totals across the warp.
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int k = 0; k < NL; k++) y[k] = __shfl_up_sync(kFull, acc[k], d);
+    if (lane >= d) scan_op<OP>(acc, y, acc, F);
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int k = 0; k < NL; k++) wsm[w * NL + k] = acc[k];
+  }
+  // The thread's exclusive prefix within its warp.
+#pragma unroll
+  for (int k = 0; k < NL; k++) y[k] = __shfl_up_sync(kFull, acc[k], 1);
+  if (lane == 0) scan_identity<OP>(y, F);
+  __syncthreads();
+  if (t == 0) {  // warp prefixes, the carry folded in, and the tile total
+    fe_copy(acc, carry);
+#pragma unroll 1
+    for (int v = 0; v < kWarps; v++) {
+#pragma unroll
+      for (int k = 0; k < NL; k++) {
+        x[k] = wsm[v * NL + k];
+        wsm[v * NL + k] = acc[k];
+      }
+      scan_op<OP>(acc, acc, x, F);
+    }
+#pragma unroll
+    for (int k = 0; k < NL; k++) wsm[kWarps * NL + k] = acc[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+    x[k] = wsm[w * NL + k];
+    carry[k] = wsm[kWarps * NL + k];
+  }
+  if (out == nullptr) return;
+  scan_op<OP>(acc, x, y, F);  // the thread's exclusive prefix
+#pragma unroll 1
+  for (int j = 0; j < SCAN_PER; j++) {
+    sm_load(x, sm, t * SCAN_PER + j);
+    sm_store(sm, t * SCAN_PER + j, acc);
+    if (j + 1 < SCAN_PER) scan_op<OP>(acc, acc, x, F);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; j++) {
+      const int e = t + j * SCAN_THREADS;
+      const int64_t l = base + e;
+      if (l < n)
+        out[k * n + scan_col(l, n, reverse)] = sm[k * kSmStride + slot(e)];
+    }
+  }
+}
+
+// Launch 1: tile-local exclusive scans (if out) and tile totals.
+template <int OP>
+__global__ void __launch_bounds__(SCAN_THREADS)
+    k_scan_tiles(const uint32_t* __restrict__ a, int64_t ld, int64_t inc,
+                 int64_t n, int reverse, uint32_t* __restrict__ out,
+                 uint32_t* __restrict__ totals, int64_t tiles, FieldConsts F) {
+  __shared__ uint32_t sm[NL * kSmStride];
+  __shared__ uint32_t wsm[(kWarps + 1) * NL];
+  uint32_t carry[NL];
+  scan_identity<OP>(carry, F);
+  block_scan_tile<OP>(a, ld, inc, n, reverse, (int64_t)blockIdx.x * SCAN_TILE,
+                      carry, out, sm, wsm, F);
+  if (threadIdx.x == 0) fe_store(totals, tiles, blockIdx.x, carry);
+}
+
+// Launch 2, one block: the tile totals become their tiles' exclusive
+// prefixes (if prefixes), and total gets the grand total (if not null).
+template <int OP>
+__global__ void __launch_bounds__(SCAN_THREADS)
+    k_scan_totals(uint32_t* totals, int64_t tiles, int prefixes,
+                  uint32_t* total, FieldConsts F) {
+  __shared__ uint32_t sm[NL * kSmStride];
+  __shared__ uint32_t wsm[(kWarps + 1) * NL];
+  uint32_t carry[NL];
+  scan_identity<OP>(carry, F);
+  for (int64_t base = 0; base < tiles; base += SCAN_TILE)
+    block_scan_tile<OP>(totals, tiles, 1, tiles, false, base, carry,
+                         prefixes ? totals : nullptr, sm, wsm, F);
+  if (threadIdx.x == 0 && total != nullptr) fe_store(total, 1, 0, carry);
+}
+
+// Launch 3: every element of a tile after the first takes its prefix.
+template <int OP>
+__global__ void k_scan_fixup(uint32_t* __restrict__ out, int64_t n,
+                             const uint32_t* __restrict__ prefix,
+                             int64_t tiles, int reverse, FieldConsts F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  scan_fixup_thread<OP>(i, out, n, prefix, tiles, reverse != 0, F);
+}
+
+template <int OP>
+int launch_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
+                int reverse, uint32_t* out, uint32_t* total,
+                uint32_t* scratch, const FieldConsts& F, cudaStream_t s) {
+  const int64_t tiles = scan_tiles(n);
+  k_scan_tiles<OP><<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
+      a, ld, inc, n, reverse, out, scratch, tiles, F);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int prefixes = out != nullptr;
+  k_scan_totals<OP><<<1, SCAN_THREADS, 0, s>>>(scratch, tiles, prefixes,
+                                               total, F);
+  rc = (int)cudaGetLastError();
+  if (rc || !prefixes) return rc;
+  k_scan_fixup<OP><<<(unsigned)((n + kFixThreads - 1) / kFixThreads),
+                     kFixThreads, 0, s>>>(out, n, scratch, tiles, reverse, F);
+  return (int)cudaGetLastError();
+}
+
+struct Exponent {
+  uint32_t w[NL];
+};
+
+__global__ void k_fr_pow(const uint32_t* __restrict__ a,
+                         uint32_t* __restrict__ out, int64_t n, Exponent e,
+                         int nbits, FieldConsts F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fe_pow_thread(i, a, out, n, e.w, nbits, F);
+}
+
+}  // namespace
+
+// SCAN_TILE, the elements of a tile: the scratch array of an n-element
+// scan has ceil(n / SCAN_TILE) columns.
+extern "C" int kzg_scan_tile() { return SCAN_TILE; }
+
+// a: (8, ld) words read at columns scan_col(l) * inc, l < n (n >= 1);
+// out: (8, n) or null (total only); total: (8, 1) or null; scratch:
+// (8, scan_tiles(n)).  Launches 3 kernels, or 2 when out is null.
+extern "C" int kzg_fr_scan(const void* a, int64_t ld, int64_t inc, int64_t n,
+                           int op, int reverse, void* out, void* total,
+                           void* scratch, const void* consts, void* stream) {
+  if (n <= 0) return 0;
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (op == SCAN_OP_MUL)
+    return launch_scan<SCAN_OP_MUL>((const uint32_t*)a, ld, inc, n, reverse,
+                                    (uint32_t*)out, (uint32_t*)total,
+                                    (uint32_t*)scratch, F, s);
+  return launch_scan<SCAN_OP_ADD>((const uint32_t*)a, ld, inc, n, reverse,
+                                  (uint32_t*)out, (uint32_t*)total,
+                                  (uint32_t*)scratch, F, s);
+}
+
+// a, out: (8, n) dense; exponent: 8 words, low first, of bit length nbits.
+extern "C" int kzg_fr_pow(const void* a, int64_t n, const void* exponent,
+                          int nbits, void* out, const void* consts,
+                          void* stream) {
+  if (n <= 0) return 0;
+  FieldConsts F;
+  memcpy(&F, consts, sizeof(F));
+  Exponent e;
+  memcpy(e.w, exponent, sizeof(e.w));
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  k_fr_pow<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, n, e, nbits, F);
+  return (int)cudaGetLastError();
+}

@@ -9,6 +9,7 @@
 
 #include "msm.cuh"
 #include "ntt.cuh"
+#include "scan.cuh"
 
 static FieldConsts consts_of(const void* consts) {
   FieldConsts F;
@@ -153,5 +154,67 @@ extern "C" int host_msm_horner(const void* wparts, int64_t sets, int windows,
     g1_store((uint32_t*)out, sets, s, acc);
   }
   delete[] S;
+  return 0;
+}
+
+// The scan's three launches in order, with each block's tile scanned by
+// one loop (the kernel's shared-memory and shuffle steps are its own; the
+// element indexing, tiling, operation and fix-up thread body are the same
+// code): tile-local exclusive scans and totals, the totals' exclusive
+// scan, then the fix-up of every column.
+template <int OP>
+static void host_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
+                      bool reverse, uint32_t* out, uint32_t* total,
+                      const FieldConsts& F) {
+  int64_t tiles = scan_tiles(n);
+  uint32_t* prefix = new uint32_t[NL * tiles];
+  uint32_t run[NL], x[NL];
+  for (int64_t b = 0; b < tiles; b++) {
+    scan_identity<OP>(run, F);
+    for (int64_t e = 0; e < SCAN_TILE; e++) {
+      int64_t l = b * SCAN_TILE + e;
+      scan_load<OP>(x, a, ld, inc, l, n, reverse, F);
+      if (out != nullptr && l < n) {
+        fe_store(out, n, scan_col(l, n, reverse), run);
+      }
+      scan_op<OP>(run, run, x, F);
+    }
+    fe_store(prefix, tiles, b, run);
+  }
+  scan_identity<OP>(run, F);
+  for (int64_t b = 0; b < tiles; b++) {
+    fe_load(x, prefix, tiles, b);
+    fe_store(prefix, tiles, b, run);
+    scan_op<OP>(run, run, x, F);
+  }
+  if (total != nullptr) fe_store(total, 1, 0, run);
+  if (out != nullptr)
+    for (int64_t i = 0; i < n; i++)
+      scan_fixup_thread<OP>(i, out, n, prefix, tiles, reverse, F);
+  delete[] prefix;
+}
+
+extern "C" int host_scan_tile() { return SCAN_TILE; }
+
+extern "C" int host_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
+                            int64_t n, int reverse, void* out, void* total,
+                            const void* consts) {
+  FieldConsts F = consts_of(consts);
+  if (op == SCAN_OP_MUL) {
+    host_scan<SCAN_OP_MUL>((const uint32_t*)a, ld, inc, n, reverse != 0,
+                           (uint32_t*)out, (uint32_t*)total, F);
+  } else {
+    host_scan<SCAN_OP_ADD>((const uint32_t*)a, ld, inc, n, reverse != 0,
+                           (uint32_t*)out, (uint32_t*)total, F);
+  }
+  return 0;
+}
+
+extern "C" int host_fr_pow(const void* a, int64_t n, const void* exponent,
+                           int nbits, void* out, const void* consts) {
+  FieldConsts F = consts_of(consts);
+  const uint32_t* e = (const uint32_t*)exponent;
+  for (int64_t i = 0; i < n; i++)
+    fe_pow_thread(i, (const uint32_t*)a, (uint32_t*)out, n, e, nbits, F);
   return 0;
 }

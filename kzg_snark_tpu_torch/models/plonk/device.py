@@ -149,9 +149,10 @@ class PlonkDeviceCore:
                                                          coeffs.shape[1])))
 
     def powers_dev(self, z_scalar, count: int):
-        """[1, z, ..., z^(count-1)] (8, count) from an (8, 1) scalar."""
+        """[1, z, ..., z^(count-1)] (8, count) from an (8, 1) scalar: a
+        product scan of z repeated (read with step 0, never copied)."""
         be = self.be
-        return be.exclusive_prefix_prod(be.full(z_scalar, count))
+        return be.exclusive_prefix_prod(z_scalar.expand(be.num_limbs, count))
 
     def eval_dev(self, coeffs, z_scalar):
         be = self.be

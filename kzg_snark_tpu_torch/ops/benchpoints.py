@@ -1,4 +1,4 @@
-"""Pseudo-random G1 bases for MSM checks, and a product-tree inversion.
+"""Pseudo-random G1 bases for MSM checks.
 
 Counterpart of ``kzg_snark_tpu/ops/benchpoints.py``: P_i = k_i G with k_i
 odd 128-bit multipliers from ``random.Random(seed)``, so the incomplete
@@ -21,35 +21,9 @@ from .limbs import ints_to_words, to_tensor
 K_BITS = 128
 
 
-def batch_inv(f: FieldBackend, x: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverse of an (8, n) batch via a product tree: about 2
-    muls an element up, one width-1 Fermat inverse at the root, 2 down.
-    Zero inputs map to zero."""
-    L, n = x.shape
-    zero = f.is_zero(x)
-    v = torch.where(zero[None], f.one_mont, x)
-    m = 1
-    while m < n:
-        m *= 2
-    if m > n:
-        v = torch.cat([v, f.full(f.one_mont, m - n)], dim=1)
-    levels = []
-    while v.shape[1] > 1:
-        levels.append(v)
-        half = v.shape[1] // 2
-        v = f.mul(v[:, :half], v[:, half:])
-    inv = f.inv(v)
-    for lvl in reversed(levels):
-        half = lvl.shape[1] // 2
-        inv = torch.cat([f.mul(inv, lvl[:, half:]), f.mul(inv, lvl[:, :half])],
-                        dim=1)
-    inv = inv[:, :n]
-    return torch.where(zero[None], torch.zeros_like(inv), inv)
-
-
 def normalize_points(f: FieldBackend, pts: torch.Tensor) -> torch.Tensor:
     """(3, 8, n) Jacobian -> the same points with Z = 1 (no identities)."""
-    zinv = batch_inv(f, pts[2].contiguous())
+    zinv = f.batch_inv(pts[2].contiguous())
     zinv2 = f.mul(zinv, zinv)
     ax = f.mul(pts[0], zinv2)
     ay = f.mul(pts[1], f.mul(zinv2, zinv))

@@ -400,7 +400,7 @@ def _ewise(name: str, fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
                          f"with {tuple(b.shape)}")
     out = torch.empty((NUM_LIMBS, n), dtype=torch.int32, device=a.device)
     fn = getattr(cuda_lib(), "kzg_" + name)
-    count_launch(name)
+    count_launch(name, width=n)
     check(fn(a.data_ptr(), a.shape[1], int(a.shape[1] != 1),
              b.data_ptr(), b.shape[1], int(b.shape[1] != 1),
              out.data_ptr(), n, fc.ptr, _stream(a)), name)
@@ -436,7 +436,7 @@ def g1_add(fc: FieldConsts, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return g1_add_plain(fc, p, q)
     m = _points_check("g1_add", p, q)
     out = torch.empty_like(p)
-    count_launch("g1_add")
+    count_launch("g1_add", width=m)
     check(cuda_lib().kzg_g1_add(p.data_ptr(), q.data_ptr(), out.data_ptr(),
                                 m, fc.ptr, _stream(p)), "g1_add")
     return out
@@ -448,7 +448,7 @@ def g1_double(fc: FieldConsts, p: torch.Tensor) -> torch.Tensor:
         return g1_double_plain(fc, p)
     m = _points_check("g1_double", p)
     out = torch.empty_like(p)
-    count_launch("g1_double")
+    count_launch("g1_double", width=m)
     check(cuda_lib().kzg_g1_double(p.data_ptr(), out.data_ptr(), m, fc.ptr,
                                    _stream(p)), "g1_double")
     return out
@@ -468,7 +468,7 @@ def g1_add_mixed(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
         raise ValueError(f"g1_add_mixed: q planes {tuple(qx.shape)} / "
                          f"{tuple(qy.shape)} do not tile {m} points")
     out = torch.empty_like(p)
-    count_launch("g1_add_mixed")
+    count_launch("g1_add_mixed", width=m)
     check(cuda_lib().kzg_g1_add_mixed(p.data_ptr(), qx.data_ptr(),
                                       qy.data_ptr(), qn, out.data_ptr(), m,
                                       fc.ptr, _stream(p)), "g1_add_mixed")

@@ -6,17 +6,17 @@ with the same semantics over ``(8, ...)`` int32 limb tensors (see
 out.  Scalars are ``(8, 1)`` columns that broadcast over ``(8, n)``.
 
 Elementwise mul/square/add/sub/neg go through the K1 wrappers of
-``ops/cuda_fr.py``: the kernel for CUDA tensors, the plain version for CPU
-tensors.  Scans, inverses and reductions are Python compositions of those
-ops, as the JAX package composed XLA ops.  One backend serves one
-(modulus, device).
+``ops/cuda_fr.py``; powers, inverses, scans and reductions through
+``ops/scan.py`` (``fr_pow``, ``fr_scan``), where the JAX package ran
+``lax.scan`` loops: the kernels for CUDA tensors, the plain versions for
+CPU tensors.  One backend serves one (modulus, device).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_fr
+from . import cuda_fr, scan
 from .limbs import (NUM_LIMBS, FieldConsts, ints_to_words, to_tensor,
                     to_words, words_to_ints)
 
@@ -136,114 +136,43 @@ class FieldBackend:
         return torch.where(cond[None], a, b)
 
     # ------------------------------------------------------------------
+    # Chains (K1 as they use it: fr_pow and fr_scan, a fixed number of
+    # launches whatever the width or exponent).
+    # ------------------------------------------------------------------
     def pow_const(self, a: torch.Tensor, exponent: int) -> torch.Tensor:
-        """a^e for a static exponent: square-and-multiply, LSB first."""
+        """a^e for a static exponent; a^0 = 1 even for a = 0."""
         if exponent < 0:
             raise ValueError("negative exponents: use inv() then pow_const")
-        result = None
-        base = a
-        while exponent:
-            if exponent & 1:
-                result = base if result is None else self.mul(result, base)
-            exponent >>= 1
-            if exponent:
-                base = self.square(base)
-        if result is None:
-            return self.one_mont.expand(a.shape).contiguous()
-        return result
+        flat = a.reshape(NUM_LIMBS, -1).contiguous()
+        return scan.fr_pow(self.consts, flat, exponent).reshape(a.shape)
 
     def inv(self, a):
         """Batched inversion by Fermat: a^(p-2).  inv(0) = 0."""
         return self.pow_const(a, self.modulus - 2)
 
-    @staticmethod
-    def _lanes(n: int) -> int:
-        """Chain count of the two-level scans: about sqrt(n), so the
-        sequential depth (n / lanes steps, then lanes chain steps) is
-        balanced."""
-        return max(1, 1 << ((n - 1).bit_length() // 2)) if n > 1 else 1
-
-    def _pad_ones(self, a: torch.Tensor, total: int) -> torch.Tensor:
-        n = a.shape[1]
-        if total == n:
-            return a
-        return torch.cat([a, self.full(self.one_mont, total - n)], dim=1)
-
     def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Montgomery-trick inversion of an (8, N) batch: lane chains of
-        prefix and suffix products, one Fermat inversion of the chain
-        totals.  Zero entries map to zero."""
-        L, n = a.shape
-        lanes = self._lanes(n)
-        steps = -(-n // lanes)
+        """Montgomery-trick inversion of an (8, N) batch: exclusive prefix
+        and suffix products, one Fermat inversion of the total.  Zero
+        entries map to zero."""
         zero = self.is_zero(a)
         safe = torch.where(zero[None], self.one_mont, a)
-        x = self._pad_ones(safe, steps * lanes).reshape(L, steps, lanes)
-        pre = [None] * steps
-        acc = self.full(self.one_mont, lanes)
-        for t in range(steps):
-            pre[t] = acc
-            acc = self.mul(acc, x[:, t].contiguous())
-        chain_inv = self.inv(acc)
-        suf = [None] * steps
-        acc = self.full(self.one_mont, lanes)
-        for t in range(steps - 1, -1, -1):
-            suf[t] = acc
-            acc = self.mul(acc, x[:, t].contiguous())
-        pre_t = torch.stack(pre, dim=1).reshape(L, -1)
-        suf_t = torch.stack(suf, dim=1).reshape(L, -1)
-        chain = chain_inv[:, None, :].expand(L, steps, lanes).reshape(L, -1)
-        out = self.mul(self.mul(pre_t, suf_t), chain)[:, :n]
+        pre, total = scan.fr_scan(self.consts, safe, scan.MUL)
+        suf, _ = scan.fr_scan(self.consts, safe, scan.MUL, reverse=True)
+        out = self.mul(self.mul(pre, suf), self.inv(total))
         return torch.where(zero[None], torch.zeros_like(out), out)
 
     def exclusive_prefix_prod(self, a: torch.Tensor) -> torch.Tensor:
-        """out[j] = prod_{i<j} a[i] for an (8, N); out[0] = 1.  Two-level
-        blocked scan (the PLONK grand-product accumulator)."""
-        L, n = a.shape
-        lanes = self._lanes(n)
-        steps = -(-n // lanes)
-        # chain c = contiguous block [c * steps, (c + 1) * steps)
-        x = self._pad_ones(a, steps * lanes).reshape(L, lanes, steps)
-        pre = [None] * steps
-        acc = self.full(self.one_mont, lanes)
-        for t in range(steps):
-            pre[t] = acc
-            acc = self.mul(acc, x[:, :, t].contiguous())
-        chain_excl = [None] * lanes
-        run = self.one_mont
-        for c in range(lanes):
-            chain_excl[c] = run
-            run = self.mul(run, acc[:, c:c + 1].contiguous())
-        chain = torch.cat(chain_excl, dim=1)                  # (L, lanes)
-        pre_t = torch.stack(pre, dim=2)                  # (L, lanes, steps)
-        out = self.mul(pre_t, chain[:, :, None])
-        return out.reshape(L, steps * lanes)[:, :n].contiguous()
+        """out[j] = prod_{i<j} a[i] for an (8, N); out[0] = 1.  ``a`` may
+        repeat one column (``expand``): the kernel reads it with step 0."""
+        return scan.fr_scan(self.consts, a, scan.MUL)[0]
 
     def sum_reduce(self, a: torch.Tensor) -> torch.Tensor:
-        """Sum an (8, N) batch along the last axis -> (8, 1), by a padded
-        halving tree of adds."""
-        L, n = a.shape
-        while n > 1:
-            if n % 2:
-                a = torch.cat([a, self.zero_limbs], dim=1)
-                n += 1
-            half = n // 2
-            a = self.add(a[:, :half], a[:, half:])
-            n = half
-        return a
+        """Sum an (8, N) batch along the last axis -> (8, 1)."""
+        return scan.fr_scan(self.consts, a, scan.ADD, want_scan=False)[1]
 
     def suffix_sums_exclusive(self, a: torch.Tensor) -> torch.Tensor:
-        """out[j] = sum_{i>j} a[i] for an (8, N): one shift plus an
-        inclusive Hillis-Steele ladder (log2 N full-width adds)."""
-        L, n = a.shape
-        x = torch.cat([a[:, 1:], self.zero_limbs], dim=1)
-        shift = 1
-        while shift < n:
-            rolled = torch.cat(
-                [x[:, shift:], self.zero_limbs.expand(L, shift)], dim=1)
-            x = self.add(x, rolled)
-            shift *= 2
-        return x
+        """out[j] = sum_{i>j} a[i] for an (8, N)."""
+        return scan.fr_scan(self.consts, a, scan.ADD, reverse=True)[0]
 
     def powers_of(self, c: int, count: int) -> torch.Tensor:
         """[1, c, ..., c^(count-1)] (8, count) Montgomery, by doubling

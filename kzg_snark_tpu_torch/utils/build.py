@@ -12,7 +12,8 @@ fallback: without ``nvcc`` or with a failing build it raises.
 thread bodies on the CPU, which the tests compare with the plain versions.
 
 Every kernel wrapper calls :func:`count_launch` where it launches, so a run
-can show which kernels its main path went through.
+can show which kernels its main path went through, and over how many
+elements or points (:func:`launch_widths`).
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ CUDA_ENTRIES = {
     "kzg_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P, _P],
     "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
     "kzg_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P, _P],
+    "kzg_scan_tile": [],
+    "kzg_fr_scan": [_P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P],
+    "kzg_fr_pow": [_P, _I64, _P, _INT, _P, _P, _P],
 }
 
 HOST_ENTRIES = {
@@ -66,24 +70,48 @@ HOST_ENTRIES = {
     "host_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P],
     "host_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P],
     "host_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P],
+    "host_scan_tile": [],
+    "host_fr_scan": [_INT, _P, _I64, _I64, _I64, _INT, _P, _P, _P],
+    "host_fr_pow": [_P, _I64, _P, _INT, _P, _P],
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 LAUNCHES: collections.Counter = collections.Counter()
+# (name, width class) -> launches, for wrappers that give their width.
+LAUNCH_WIDTHS: collections.Counter = collections.Counter()
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+def _width_class(width: int) -> str:
+    return "<=256" if width <= 256 else ">=2^14" if width >= 1 << 14 \
+        else "257..2^14-1"
+
+
+def count_launch(name: str, launches: int = 1, width: int | None = None
+                 ) -> None:
+    """Count ``launches`` kernel launches of ``name``, over ``width``
+    elements or points if given."""
+    LAUNCHES[name] += launches
+    if width is not None:
+        LAUNCH_WIDTHS[name, _width_class(width)] += launches
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCH_WIDTHS.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launch_widths() -> dict[str, dict[str, int]]:
+    """{name: {width class: launches}} since the last reset."""
+    out: dict[str, dict[str, int]] = {}
+    for (name, cls), k in sorted(LAUNCH_WIDTHS.items()):
+        out.setdefault(name, {})[cls] = k
+    return out
 
 
 def check(rc: int, name: str) -> None:

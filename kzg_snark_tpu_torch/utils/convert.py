@@ -19,7 +19,7 @@ import torch
 from ..ops.limbs import to_tensor, to_words
 
 
-def limbs16_to_tensor(arr, device="cpu") -> torch.Tensor:
+def limbs16_to_tensor(arr, device="cuda") -> torch.Tensor:
     """(16, ...) uint32 16-bit limbs -> (8, ...) int32 32-bit limbs."""
     a = np.asarray(arr, dtype=np.uint32)
     if a.shape[0] != 16 or (a >> 16).any():
@@ -37,19 +37,19 @@ def tensor_to_limbs16(t: torch.Tensor) -> np.ndarray:
     return out
 
 
-def points16_to_tensor(pts, device="cpu") -> torch.Tensor:
+def points16_to_tensor(pts, device="cuda") -> torch.Tensor:
     """(3, 16, ...) JAX Jacobian points -> (3, 8, ...) port points."""
     a = np.asarray(pts, dtype=np.uint32)
     return torch.stack([limbs16_to_tensor(a[i], device) for i in range(3)])
 
 
-def device_srs_from_jax(curve_type: str, points, device="cpu"):
+def device_srs_from_jax(curve_type: str, points, device="cuda"):
     """A JAX ``DeviceSRS.points`` (3, 16, d+1) array -> port DeviceSRS."""
     from ..ops.srs import DeviceSRS
     return DeviceSRS(curve_type, points16_to_tensor(points, device))
 
 
-def device_cache_from_jax(cache: dict, device="cpu") -> dict:
+def device_cache_from_jax(cache: dict, device="cuda") -> dict:
     """A JAX ``ipk["_device_cache"]`` dict of (16, n) arrays -> the port's
     dict of (8, n) tensors, under the same keys."""
     return {k: limbs16_to_tensor(v, device) for k, v in cache.items()}

@@ -5,7 +5,8 @@ other device never does (it goes to the kernel path, which checks its
 operands and raises).  With a card (tests marked ``cuda``, skipped where
 ``torch.cuda.is_available()`` is false): every kernel entry point equals
 its plain version on small numpy-seeded inputs and counts its launch
-(K1-K7, K9, K10, and the bucket route's msm_accumulate and msm_reduce).
+(K1-K7, K9, K10, the bucket route's msm_accumulate and msm_reduce, and the
+chains' fr_scan and fr_pow).
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -18,6 +19,7 @@ from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops import msm_kernel as mk
 from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain, fr_butterfly,
                                                ntt_stage)
+from kzg_snark_tpu_torch.ops import scan
 from kzg_snark_tpu_torch.utils.build import LAUNCHES
 
 
@@ -62,6 +64,19 @@ def test_curve_and_stage_wrappers_reject_other_devices():
     m = torch.empty((8,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fr_butterfly(fc, x, x, x, m)
+
+
+def test_scan_and_pow_wrappers_reject_other_devices():
+    fc = fr_backend("bn254", "cpu").consts
+    a = torch.empty((8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.fr_scan(fc, a, scan.MUL)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.fr_scan(fc, a[:, :1].expand(8, 9), scan.ADD, want_scan=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.fr_pow(fc, a, 5)
+    with pytest.raises(ValueError, match="exponent"):
+        scan.fr_pow(fc, a, 1 << 256)
 
 
 def test_cpu_path_counts_no_launch():
@@ -192,3 +207,56 @@ def test_mixed_add_and_butterfly_kernels_match_plain(cuda):
     assert torch.equal(fr_butterfly(fr, xl, xu, tw, mask),
                        butterfly_plain(fr, xl, xu, tw, mask))
     assert LAUNCHES["fr_butterfly"] == before + 1
+
+
+@pytest.mark.parametrize("op", [scan.MUL, scan.ADD], ids=["mul", "add"])
+@pytest.mark.cuda
+def test_scan_kernel_matches_plain(cuda, op):
+    """fr_scan at the edge widths (one, two, a tile less one, a tile, a
+    tile and one, several tiles), both directions; a total alone; one
+    column read with step 0; and the launches (3 a scan, 2 a total).  The
+    sums take zero entries; the products none, so that no prefix is forced
+    to zero and every tile and the totals pass are checked."""
+    fc = fr_backend("bn254", cuda).consts
+    tile = scan.tile()
+    n_max = 3 * tile + 5
+    a = words(n_max, 11, cuda)
+    if op == scan.ADD:
+        a[:, ::7] = 0
+    else:
+        assert bool(a.ne(0).any(dim=0).all())
+    for n in (1, 2, tile - 1, tile, tile + 1, n_max):
+        x = a[:, :n]
+        for reverse in (False, True):
+            want, want_total = scan.fr_scan_plain(fc, x, op, reverse)
+            before = LAUNCHES["fr_scan"]
+            got, total = scan.fr_scan(fc, x, op, reverse)
+            assert LAUNCHES["fr_scan"] == before + 3
+            assert torch.equal(got, want), (n, reverse)
+            assert torch.equal(total, want_total), (n, reverse)
+            none, total = scan.fr_scan(fc, x, op, reverse, want_scan=False)
+            assert none is None and torch.equal(total, want_total)
+    rep = a[:, 5:6].expand(8, 1000)
+    assert torch.equal(scan.fr_scan(fc, rep, op)[0],
+                       scan.fr_scan_plain(fc, rep, op)[0])
+
+
+@pytest.mark.cuda
+def test_pow_kernel_matches_plain(cuda):
+    """fr_pow at widths 1 and 300, e = 0, 1, 2, 2^16 and r - 2 under Fr,
+    p - 2 under Fq; zero entries included."""
+    from kzg_snark_tpu_torch import constants as C
+    for modulus, exps in [(C.BN254_R, (0, 1, 2, 1 << 16, C.BN254_R - 2)),
+                          (C.BN254_P, (C.BN254_P - 2,))]:
+        be = fr_backend("bn254", cuda) if modulus == C.BN254_R \
+            else fq_backend("bn254", cuda)
+        a = be.to_mont(words(300, 12, cuda))
+        a[:, ::9] = 0
+        for width in (1, 300):
+            x = a[:, :width].contiguous()
+            for e in exps:
+                want = scan.fr_pow_plain(be.consts, x, e)
+                before = LAUNCHES["fr_pow"]
+                assert torch.equal(scan.fr_pow(be.consts, x, e), want), \
+                    (width, e)
+                assert LAUNCHES["fr_pow"] == before + 1

@@ -186,8 +186,9 @@ def test_k9_plain_matches_pallas_fused_add_mixed(curves):
     finally:
         pallas_fr._INTERPRET = old
     _, tc = curves
-    gt = points16_to_tensor(g)
-    got = cuda_fr.g1_add_mixed_plain(tc.f.consts, points16_to_tensor(P),
+    gt = points16_to_tensor(g, device="cpu")
+    got = cuda_fr.g1_add_mixed_plain(tc.f.consts,
+                                     points16_to_tensor(P, device="cpu"),
                                      gt[0].contiguous(), gt[1].contiguous())
     assert same(want, got)
 
@@ -222,5 +223,6 @@ def test_double_plain_matches_pallas_fused_double(curves):
     finally:
         pallas_fr._INTERPRET = old
     _, tc = curves
-    got = cuda_fr.g1_double_plain(tc.f.consts, points16_to_tensor(P))
+    got = cuda_fr.g1_double_plain(tc.f.consts,
+                                  points16_to_tensor(P, device="cpu"))
     assert same(want, got)

@@ -18,7 +18,8 @@ from kzg_snark_tpu import constants as C
 from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
-from kzg_snark_tpu_torch.ops.limbs import FieldConsts, to_tensor, to_words
+from kzg_snark_tpu_torch.ops.limbs import (FieldConsts, ints_to_words,
+                                           to_tensor, to_words)
 from kzg_snark_tpu_torch.ops.msm_kernel import (bucket_schedule, horner_plain,
                                                 msm_accumulate_plain,
                                                 point_table, signed_digits,
@@ -26,6 +27,7 @@ from kzg_snark_tpu_torch.ops.msm_kernel import (bucket_schedule, horner_plain,
                                                 window_sums_plain)
 from kzg_snark_tpu_torch.ops.ntt import ntt_context
 from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
+from kzg_snark_tpu_torch.ops.scan import fr_pow_plain, fr_scan_plain
 from kzg_snark_tpu_torch.utils.build import host_lib
 
 # Tiny tensors: one intra-op thread is faster than many, and the test
@@ -67,6 +69,65 @@ def test_field_ewise(lib, modulus, op):
         lib.host_fr_ewise(op, _ptr(aw), 64, 1, _ptr(bw), bb.shape[1],
                           int(bb.shape[1] != 1), _ptr(out), 64, fc.ptr)
         assert np.array_equal(out, _words(plain(fc, a, bb)))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("op", [0, 1], ids=["mul", "add"])
+def test_fr_scan(lib, op, reverse):
+    """The scan's tiling, element indexing, identity and fix-up thread body
+    (csrc/scan.cuh) against fr_scan_plain: widths around one and two tiles,
+    a total alone, and one column read with step 0.  The sums take zero
+    entries; the products none, since a zero would make every later prefix
+    zero and hide the tiles after it."""
+    be = fr_backend("bn254", "cpu")
+    fc = be.consts
+    tile = lib.host_scan_tile()
+    vals = _random_field(C.BN254_R, 2 * tile + 77, 5)
+    if op == 1:
+        vals[tile // 2::97] = [0] * len(vals[tile // 2::97])
+    else:
+        vals = [v or 1 for v in vals]
+    a = be.from_ints(vals)
+    aw = _words(a)
+    ld = aw.shape[1]
+    for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile + 77):
+        want, want_total = fr_scan_plain(fc, a[:, :n], op, reverse)
+        out = np.empty((8, n), dtype=np.uint32)
+        total = np.empty((8, 1), dtype=np.uint32)
+        lib.host_fr_scan(op, _ptr(aw), ld, 1, n, int(reverse), _ptr(out),
+                         _ptr(total), fc.ptr)
+        assert np.array_equal(out, _words(want)), n
+        assert np.array_equal(total, _words(want_total)), n
+        total[:] = 0
+        lib.host_fr_scan(op, _ptr(aw), ld, 1, n, int(reverse), None,
+                         _ptr(total), fc.ptr)
+        assert np.array_equal(total, _words(want_total)), n
+    n = tile + 3
+    col = aw[:, 3:].copy()              # column 0 of col is column 3 of a
+    want, _ = fr_scan_plain(fc, a[:, 3:4].expand(8, n), op, reverse)
+    out = np.empty((8, n), dtype=np.uint32)
+    lib.host_fr_scan(op, _ptr(col), col.shape[1], 0, n, int(reverse),
+                     _ptr(out), None, fc.ptr)
+    assert np.array_equal(out, _words(want))
+
+
+@pytest.mark.parametrize("modulus", [C.BN254_R, C.BN254_P],
+                         ids=["fr", "fq"])
+def test_fr_pow(lib, modulus):
+    """fr_pow's thread body against fr_pow_plain, under Fr and Fq, with
+    e = 0 on a zero entry (one) and inverses of zero (zero)."""
+    be = fr_backend("bn254", "cpu") if modulus == C.BN254_R \
+        else fq_backend("bn254", "cpu")
+    fc = FieldConsts(modulus)
+    for e in (0, 1, 2, 1 << 16, modulus - 2):
+        a = be.from_ints(_random_field(modulus, 24, e % 1000))
+        aw = _words(a)
+        ew = np.ascontiguousarray(_words(to_tensor(
+            ints_to_words([e]), "cpu"))[:, 0])
+        out = np.empty_like(aw)
+        lib.host_fr_pow(_ptr(aw), 24, _ptr(ew), e.bit_length(), _ptr(out),
+                        fc.ptr)
+        assert np.array_equal(out, _words(fr_pow_plain(fc, a, e))), e
 
 
 def _edge_points(curve, k=16):

@@ -109,7 +109,7 @@ def test_jax_layout_device_cache_converts(port_run):
         "sig2_vals": jb.from_ints([int(s) for s in sigma[N:2 * N]]),
     }
     converted = device_cache_from_jax(
-        {k: np.asarray(v) for k, v in jax_cache.items()})
+        {k: np.asarray(v) for k, v in jax_cache.items()}, device="cpu")
     for key, tensor in converted.items():
         assert np.array_equal(tensor.numpy(),
                               ipk["_device_cache"][key].numpy()), key
@@ -135,7 +135,8 @@ def test_jax_layout_srs_commits_identically():
     aff = [hc.normalize(pt) for pt in ck_h]
     jax_points = jax_curve_ops("bn254").from_affine_ints(
         [int(a[0]) for a in aff], [int(a[1]) for a in aff])
-    ck_j = device_srs_from_jax("bn254", np.asarray(jax_points))
+    ck_j = device_srs_from_jax("bn254", np.asarray(jax_points),
+                               device="cpu")
 
     port = PortKZG("bn254", backend="cuda", device="cpu")
     ck_p, _ = port.setup(7, tau=TAU)
