@@ -13,9 +13,15 @@ Phases, in order, one printed line or block each:
                  and the least time the card could take (bound)
   chains         fr_scan and fr_pow (K1 as the provers' chains use it) at
                  their edge widths and exponents against their plain
-                 versions, their times, one narrow K1 / K7 launch
-  ntt            NTT at n = 2^18: "scan" mode (K10) equal to "staged",
-                 forward and inverse; round trip, host spot checks
+                 versions, their times, one narrow K1 / K7 launch; the SRS
+                 table kernel's one-thread doubling chain at 8, 64 and 248
+                 doublings
+  ntt            ntt_pass against its plain version for every pass of the
+                 plan at n in {2, T, 2T, 2^15, 2^16, 2^18}, forward and
+                 inverse tables; per-transform device and wall ms at 2^15,
+                 2^16 and 2^18 for each tile size tried, beside the bound;
+                 at n = 2^18 "scan" mode (K10) equal to "staged", forward
+                 and inverse; round trip, host spot checks
   msm            bucket-route MSM at 2^16 points on a random-multiplier basis
                  (built with K9) vs the host oracle (sum s_i k_i) G: random,
                  all-equal, one-nonzero scalars and k = 9 sets; the times of
@@ -25,13 +31,16 @@ Phases, in order, one printed line or block each:
                  port's host prover's (normalized commitments)
   main           PLONK at n = 2^16: index, two proves, host verification,
                  tamper rejection, phase map, peak memory, launch counts
-                 (also by width; fails above 2000 fr_mul or 600 fr_scan +
-                 fr_pow launches)
+                 (also by width; fails above 2000 fr_mul, 600 fr_scan +
+                 fr_pow or 32 g1_add launches, on any g1_double launch, on
+                 other than one g1_fixed_base_table launch, and unless
+                 ntt_pass makes ceil(log2 n / t) launches a transform, at
+                 most 2)
   marlin_parity  Marlin at |H| = 2^6: the device proof byte-identical to the
                  port's host Marlin prover's; the scan MSM (K9) ran
   marlin         Marlin at |H| = 2^14 (m = 2^15): index, two proves, host
                  verification, tamper rejection, phase map, peak memory,
-                 launch counts
+                 launch counts (ntt_pass as on the main path)
   profile        one more steady Marlin |H| = 2^14 prove under torch.profiler:
                  device busy time, idle share, device time by kernel
 
@@ -45,6 +54,7 @@ line).  Without a CUDA device the script exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import os
@@ -60,14 +70,16 @@ KERNELS = {
                "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
     "fr_sub": ("kzg_snark_tpu_torch/csrc/fr_kernels.cu",
                "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
-    "ntt_radix4": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
-                   "kzg_snark_tpu/ops/ntt_stage.py:141", "main"),
-    "ntt_radix2": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
-                   "kzg_snark_tpu/ops/ntt_stage.py:85", "marlin"),
+    # K2-K5 (ntt_stage.py:141, :202, :85, :42) in one multi-stage kernel
+    "ntt_pass": ("kzg_snark_tpu_torch/csrc/ntt_kernels.cu",
+                 "kzg_snark_tpu/ops/ntt_stage.py:141", "main"),
     "g1_add": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
                "kzg_snark_tpu/ops/pallas_fr.py:232", "main"),
     "g1_double": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
-                  "kzg_snark_tpu/ops/pallas_fr.py:289", "main"),
+                  "kzg_snark_tpu/ops/pallas_fr.py:289", "marlin_parity"),
+    # K7 (and K6's row adds) as the SRS table build uses them
+    "g1_fixed_base_table": ("kzg_snark_tpu_torch/csrc/srs_kernels.cu",
+                            "kzg_snark_tpu/ops/pallas_fr.py:289", "main"),
     "msm_accumulate": ("kzg_snark_tpu_torch/csrc/msm_kernels.cu",
                        "kzg_snark_tpu/ops/msm_kernel.py:172", "main"),
     "msm_reduce": ("kzg_snark_tpu_torch/csrc/msm_kernels.cu",
@@ -89,6 +101,9 @@ MARLIN_LOG_H = 14
 MARLIN_PARITY_LOG_H = 6
 MARLIN_PUBLIC = 5
 MSM_TABLE_LOG_N = (11, 12, 13, 14, 15, 16, 18)
+NTT_TILES_TRIED = (8, 9, 10, 11)
+SRS_WINDOW_BITS = 8
+SRS_WINDOWS = 32            # ceil(254 / 8): the SRS build's table
 TAU = 0xABCDEF12345
 MARLIN_TAU = 0xFEED5EED
 
@@ -208,6 +223,32 @@ def compare(torch, name, results, kernel_fn, plain_fn, args, work, reps=20,
         f"({work['bound_by']}); shape {tuple(got.shape)}")
 
 
+def ntt_bound(rates: dict, n: int) -> dict:
+    """Bound of a transform of n: k n / 2 Montgomery products; the (8, n)
+    array read and written once and the (8, n/2) table read once."""
+    k = n.bit_length() - 1
+    return bound(rates, 32 * n * 2 + 32 * n // 2, MONT_PRODUCTS * k * n // 2)
+
+
+def table_bound(rates: dict, c: int, windows: int) -> dict:
+    """Bound of the fixed-base table (c, W): the base read, W 2^c points
+    written; the Montgomery products its data needs: 7 a doubling (c (W -
+    1) in the chain, W a level), 16 an add except the W a level whose left
+    operand is the identity (the case split finds no equal or opposite
+    pair: v < count)."""
+    levels = c - 1
+    doublings = c * (windows - 1) + windows * levels
+    adds = windows * ((1 << c) - 2) - windows * levels
+    return bound(rates, 96 + 96 * windows * (1 << c),
+                 (7 * doublings + 16 * adds) * MONT_PRODUCTS)
+
+
+def curve_base(torch, dev):
+    """The BN254 G1 generator (1, 2) as a (3, 8, 1) Jacobian batch."""
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    return curve_ops("bn254", dev).from_affine_ints([1], [2]).contiguous()
+
+
 def _add_products(torch, fq, p, q) -> float:
     """Montgomery products K6 does on these inputs: none with an identity
     operand, 8 before the case split, 8 more in the general case or the 7
@@ -245,8 +286,11 @@ def phase_kernels(torch, dev, results, rates):
     from kzg_snark_tpu_torch.ops import msm_kernel as mk
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
     from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain,
-                                                   fr_butterfly, ntt_stage,
-                                                   radix2_plain, radix4_plain)
+                                                   fr_butterfly,
+                                                   ntt_pass_plain,
+                                                   staged_transform)
+    from kzg_snark_tpu_torch.ops.srs import (fixed_base_table_plain,
+                                             g1_fixed_base_table)
 
     fr = fr_backend("bn254", dev).consts
     fq = fq_backend("bn254", dev).consts
@@ -304,34 +348,26 @@ def phase_kernels(torch, dev, results, rates):
                   _madd_products(torch, fq, acc, qx, qy)),
             plain_reps=1)
 
+    # ntt_pass as the paths run it: one whole 2^18 transform (its passes),
+    # against the plain stages; products k n / 2 x 136, bytes the array in
+    # and out and the (8, n/2) twiddle table.
     ctx = ntt_context("bn254", n_field, dev)
-    x = a
-    compare(torch, "ntt_radix4", results,
-            lambda u, tw: ntt_stage(fr, u, tw, 1024, 4),
-            lambda u, tw: radix4_plain(fr, u, tw, 1024), (x, ctx.tw_fwd),
-            bound(rates, 2 * elem + 32 * 2048, MONT_PRODUCTS * n_field))
-    # The radix-2 pass of the main paths: Marlin's K-domain NTT at 2^15,
-    # whose last stage has span 2^14.
-    n_k = 1 << (MARLIN_LOG_H + 1)
-    ctx_k = ntt_context("bn254", n_k, dev)
-    xk = a[:, :n_k].contiguous()
-    compare(torch, "ntt_radix2", results,
-            lambda u, tw: ntt_stage(fr, u, tw, n_k // 2, 2),
-            lambda u, tw: radix2_plain(fr, u, tw, n_k // 2),
-            (xk, ctx_k.tw_fwd),
-            bound(rates, 2 * 32 * n_k + 32 * n_k // 2,
-                  MONT_PRODUCTS * n_k // 2))
-    for span in (1, n_field // 2):
-        compare(torch, f"ntt_stage_radix2_span{span}", {},
-                lambda u, tw, span=span: ntt_stage(fr, u, tw, span, 2),
-                lambda u, tw, span=span: radix2_plain(fr, u, tw, span),
-                (x, ctx.tw_fwd),
-                bound(rates, 2 * elem + 32 * span,
-                      MONT_PRODUCTS * n_field // 2))
-    compare(torch, "ntt_stage_radix4_span1", {},
-            lambda u, tw: ntt_stage(fr, u, tw, 1, 4),
-            lambda u, tw: radix4_plain(fr, u, tw, 1), (x, ctx.tw_fwd),
-            bound(rates, 2 * elem + 64, MONT_PRODUCTS * n_field))
+    log_n = n_field.bit_length() - 1
+    compare(torch, "ntt_pass", results,
+            lambda u, tw: staged_transform(fr, u, tw),
+            lambda u, tw: ntt_pass_plain(fr, u, tw, 0, log_n),
+            (a, ctx.tw_fwd), ntt_bound(rates, n_field), reps=10,
+            plain_reps=1)
+
+    # The SRS build's table, c = 8, W = 32, of the generator.
+    base = curve_base(torch, dev)
+    compare(torch, "g1_fixed_base_table", results,
+            lambda u: g1_fixed_base_table(fq, u, SRS_WINDOW_BITS,
+                                          SRS_WINDOWS),
+            lambda u: fixed_base_table_plain(fq, u, SRS_WINDOW_BITS,
+                                             SRS_WINDOWS),
+            (base,), table_bound(rates, SRS_WINDOW_BITS, SRS_WINDOWS),
+            reps=5, plain_reps=1)
 
     import numpy as np
     mask = torch.from_numpy(np.random.default_rng(4).integers(
@@ -489,6 +525,29 @@ def phase_chains(torch, dev, results, rates):
                    a[:, :256].contiguous()),
             dev_ms(lambda u: cuda_fr.g1_double(fq, u), pts)))
 
+    # The SRS table kernel with W = 2, 9 and 32 windows of c = 8: its
+    # one-thread chain is c (W - 1) = 8, 64 and 248 doublings; its levels
+    # grow with W too (W doublings and W (2^c - 2) adds over 512 threads).
+    from kzg_snark_tpu_torch.ops.srs import (fixed_base_table_plain,
+                                             g1_fixed_base_table)
+    base = curve_base(torch, dev)
+    c = SRS_WINDOW_BITS
+    chain_ms = {}
+    for w in (2, 9, SRS_WINDOWS):
+        if not torch.equal(g1_fixed_base_table(fq, base, c, w),
+                           fixed_base_table_plain(fq, base, c, w)):
+            raise AssertionError(f"g1_fixed_base_table differs from plain "
+                                 f"at c = {c}, W = {w}")
+        chain_ms[c * (w - 1)] = dev_ms(
+            lambda u, w=w: g1_fixed_base_table(fq, u, c, w), base, reps=5)
+    lo, hi = min(chain_ms), max(chain_ms)
+    log("[chains] g1_fixed_base_table (c = 8) == plain at W = 2, 9, 32; "
+        "device ms by chain length: " + "; ".join(
+            f"{d} doublings (W = {d // c + 1}): {ms:.4f}"
+            for d, ms in sorted(chain_ms.items()))
+        + f"; slope {(chain_ms[hi] - chain_ms[lo]) / (hi - lo) * 1e3:.3f} "
+        f"us a doubling ({lo}..{hi}, levels included)")
+
 
 def bucket_schedule(torch, sets, c=None, chunk=None, events=None):
     """Scalar sets (k, 8, n) -> (schedule, W, c) of the bucket route."""
@@ -527,26 +586,108 @@ def reduce_work(sched, sets, W, c):
 
 
 PATH_WIDTHS: dict = {}      # path -> {kernel: {width class: launches}}
+PATH_TRANSFORMS: dict = {}  # path -> {n: staged transforms}
+TRANSFORMS: collections.Counter = collections.Counter()
+
+
+def count_transforms() -> None:
+    """Count the staged transforms that ops/ntt.py runs, by n, into
+    TRANSFORMS (a wrapper around its staged_transform)."""
+    from kzg_snark_tpu_torch.ops import ntt
+    inner = ntt.staged_transform
+
+    def counted(fc, x, tw):
+        TRANSFORMS[x.shape[1]] += 1
+        return inner(fc, x, tw)
+    ntt.staged_transform = counted
 
 
 def run_path(torch, paths, name, fn):
     """Drive one path with the launch counts set to 0 just before it and
-    read just after (also by width, into PATH_WIDTHS); returns what ``fn``
-    returns."""
+    read just after (also by width, into PATH_WIDTHS, and its staged
+    transforms by n, into PATH_TRANSFORMS); returns what ``fn`` returns."""
     from kzg_snark_tpu_torch.utils.build import (launch_counts, launch_widths,
                                                  reset_launches)
     torch.cuda.synchronize()
     reset_launches()
+    TRANSFORMS.clear()
     out = fn()
     torch.cuda.synchronize()
     paths[name] = launch_counts()
     PATH_WIDTHS[name] = launch_widths()
+    PATH_TRANSFORMS[name] = dict(sorted(TRANSFORMS.items()))
     return out
 
 
-def phase_ntt(torch, dev, paths):
+def check_ntt_passes(name: str, counts: dict) -> None:
+    """ntt_pass on the path made ceil(log2 n / t) launches a staged
+    transform, and at most 2."""
+    from kzg_snark_tpu_torch.ops.ntt_stage import pass_plan, tile_bits
+    tf = PATH_TRANSFORMS[name]
+    t = tile_bits()
+    want = sum(k * len(pass_plan(n, t)) for n, k in tf.items())
+    got = counts.get("ntt_pass", 0)
+    if not tf or got != want or got > 2 * sum(tf.values()):
+        raise AssertionError(f"the {name} path launched ntt_pass {got} "
+                             f"times for staged transforms {tf} (expected "
+                             f"{want}, at most 2 a transform)")
+    log(f"[{name}] staged transforms by n: {json.dumps(tf)}; ntt_pass "
+        f"launches {got} (tiles of 2^{t})")
+
+
+def phase_ntt(torch, dev, paths, rates):
     from kzg_snark_tpu_torch.ops.host.field import scalar_field
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import (ntt_pass, ntt_pass_plain,
+                                                   pass_plan,
+                                                   staged_transform,
+                                                   tile_bits)
+
+    T = tile_bits()
+    sizes = sorted({2, 1 << T, 2 << T, 1 << 15, 1 << MAIN_LOG_N,
+                    1 << (MAIN_LOG_N + 2)})
+    for m in sizes:
+        cm = ntt_context("bn254", m, dev)
+        fr = cm.backend.consts
+        xm = random_canonical(torch, m, 40 + m.bit_length(), dev)
+        for tw in (cm.tw_fwd, cm.tw_inv):
+            y = xm
+            for s0, g in pass_plan(m, T):
+                got = ntt_pass(fr, y, tw, s0, g, T)
+                y = ntt_pass_plain(fr, y, tw, s0, g)
+                if not torch.equal(got, y):
+                    raise AssertionError(f"ntt_pass differs from plain at "
+                                         f"n = {m}, stages {s0}..+{g}")
+            if not torch.equal(staged_transform(fr, xm, tw), y):
+                raise AssertionError(f"staged transform at n = {m} differs")
+    log(f"[ntt] ntt_pass == plain for every pass of the plan (tile 2^{T}) "
+        f"at n = {sizes}, forward and inverse tables, and the whole staged "
+        f"transform")
+
+    for lg in (15, MAIN_LOG_N, MAIN_LOG_N + 2):
+        m = 1 << lg
+        cm = ntt_context("bn254", m, dev)
+        fr = cm.backend.consts
+        xm = random_canonical(torch, m, 50 + lg, dev)
+        want = staged_transform(fr, xm, cm.tw_fwd)
+        cells = []
+        for t in NTT_TILES_TRIED:
+            def passes(u, tw, t=t):
+                """staged_transform's passes with 2^t-element tiles."""
+                y = None
+                for s0, g in pass_plan(m, t):
+                    y = ntt_pass(fr, u if y is None else y, tw, s0, g, t, y)
+                return y
+            if not torch.equal(passes(xm, cm.tw_fwd), want):
+                raise AssertionError(f"NTT 2^{lg} with 2^{t} tiles differs")
+            d, w = timed_ms(torch, rotated(torch, passes, (xm, cm.tw_fwd)),
+                            10)
+            cells.append(f"t = {t}{'*' if t == T else ''}: {d:.4f} / "
+                         f"{w:.4f} ({len(pass_plan(m, t))} launches)")
+        b = ntt_bound(rates, m)
+        log(f"[ntt] 2^{lg} forward transform, device ms / wall ms by tile "
+            f"bits (* = NTT_TILE_BITS): " + "; ".join(cells)
+            + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
 
     n = 1 << (MAIN_LOG_N + 2)
     ctx = ntt_context("bn254", n, dev)
@@ -883,12 +1024,15 @@ def phase_main(torch, dev, paths):
     log(f"[main] launches: {json.dumps(counts, sort_keys=True)}")
     log(f"[main] launches by width (elements or points): "
         f"{json.dumps(PATH_WIDTHS['main'], sort_keys=True)}")
-    if counts.get("g1_double", 0) > 300 or counts.get("g1_add", 0) > 80 \
+    if counts.get("g1_double", 0) > 0 or counts.get("g1_add", 0) > 32 \
+            or counts.get("g1_fixed_base_table", 0) != 1 \
             or counts.get("msm_reduce", 0) > 2 * counts.get("msm_accumulate",
                                                             0):
-        raise AssertionError("the PLONK path launched more g1_double (300), "
-                             "g1_add (80) or msm_reduce (2 an MSM) than the "
-                             "bucket route allows")
+        raise AssertionError("the PLONK path launched g1_double (none "
+                             "allowed), more g1_add (32) or msm_reduce (2 an "
+                             "MSM) than the bucket route allows, or other "
+                             "than one g1_fixed_base_table")
+    check_ntt_passes("main", counts)
     chains = counts.get("fr_scan", 0) + counts.get("fr_pow", 0)
     if counts.get("fr_mul", 0) > 2000 or chains > 600:
         raise AssertionError(f"the PLONK path launched fr_mul "
@@ -985,8 +1129,7 @@ def phase_marlin(torch, dev, paths):
     tampered["evaluations"]["beta1"] = beta1
     if Verifier("bn254", rng=Rng(903)).verify(ivk, x, tampered):
         raise AssertionError("host Marlin Verifier accepted a tampered proof")
-    if counts.get("ntt_radix2", 0) == 0:
-        raise AssertionError("the Marlin path launched no radix-2 stage")
+    check_ntt_passes("marlin", counts)
     log(f"[marlin] |H|=2^14, nnz(A)=m={m}, max_degree={max_degree}: circuit "
         f"{circuit_s:.3f} s, index {times['index']:.3f} s, prove "
         f"{times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, host "
@@ -1028,6 +1171,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kzg_snark_tpu_torch.utils.build import build_cuda, cuda_lib
+    count_transforms()
 
     dev = torch.device("cuda", 0)
     smi_name = smi("name,power.limit")
@@ -1046,7 +1190,7 @@ def main() -> int:
     paths: dict = {}
     phase_kernels(torch, dev, results, rates)
     phase_chains(torch, dev, results, rates)
-    phase_ntt(torch, dev, paths)
+    phase_ntt(torch, dev, paths, rates)
     phase_msm(torch, dev, paths, rates)
     phase_parity(dev)
     phase_main(torch, dev, paths)

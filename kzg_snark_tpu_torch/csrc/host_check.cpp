@@ -10,6 +10,7 @@
 #include "msm.cuh"
 #include "ntt.cuh"
 #include "scan.cuh"
+#include "srs.cuh"
 
 static FieldConsts consts_of(const void* consts) {
   FieldConsts F;
@@ -74,21 +75,59 @@ extern "C" int host_fr_butterfly(const void* xl, const void* xu, const void* tw,
   return 0;
 }
 
-extern "C" int host_ntt_radix2(const void* x, void* y, const void* tw,
-                               int64_t n, int64_t span, const void* consts) {
+extern "C" int host_ntt_tile() { return NTT_TILE_BITS; }
+
+// One pass as k_ntt_pass runs it, block after block: the tile and every
+// stage's twiddles loaded, the stages in radix-4 pairs (a radix-2 stage
+// last when g is odd), the tile stored.  y may be x.  Any tile_bits >= g,
+// so the tests can take tiny tiles.
+extern "C" int host_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
+                             int s0, int g, int tile_bits,
+                             const void* consts) {
   FieldConsts F = consts_of(consts);
-  for (int64_t t = 0; t < n / 2; t++)
-    ntt_radix2_thread(t, (const uint32_t*)x, (uint32_t*)y,
-                      (const uint32_t*)tw, n, span, F);
+  NttPass P = ntt_pass_geometry(n, s0, g, tile_bits);
+  const int E = 1 << P.ebits;
+  uint32_t* xs = new uint32_t[NL * E];
+  uint32_t* ws = new uint32_t[NL * E];
+  for (int64_t b = 0; b < P.blocks; b++) {
+    for (int idx = 0; idx < NL * E; idx++)
+      xs[idx] = ((const uint32_t*)x)[ntt_pass_word(P, b, idx)];
+    for (int s = s0; s < s0 + g; s++)
+      for (int idx = 0; idx < (NL << (P.lcb + s - s0)); idx++) {
+        int dst;
+        int64_t src = ntt_pass_tw_word(P, b, s, idx, &dst);
+        ws[dst] = ((const uint32_t*)tw)[src];
+      }
+    int s = s0;
+    for (; s + 1 < s0 + g; s += 2)
+      for (int j = 0; j < E / 4; j++) ntt_pass_radix4(P, s, xs, ws, j, F);
+    if (s < s0 + g)
+      for (int j = 0; j < E / 2; j++) ntt_pass_radix2(P, s, xs, ws, j, F);
+    for (int idx = 0; idx < NL * E; idx++)
+      ((uint32_t*)y)[ntt_pass_word(P, b, idx)] = xs[idx];
+  }
+  delete[] xs;
+  delete[] ws;
   return 0;
 }
 
-extern "C" int host_ntt_radix4(const void* x, void* y, const void* tw,
-                               int64_t n, int64_t span, const void* consts) {
+// The table kernel's steps in its order: the chain, the identities, then
+// per level the doublings and the adds.
+extern "C" int host_g1_fixed_base_table(const void* base, void* table,
+                                        int windows, int c,
+                                        const void* consts) {
   FieldConsts F = consts_of(consts);
-  for (int64_t t = 0; t < n / 4; t++)
-    ntt_radix4_thread(t, (const uint32_t*)x, (uint32_t*)y,
-                      (const uint32_t*)tw, n, span, F);
+  uint32_t* T = (uint32_t*)table;
+  uint32_t* steps = new uint32_t[3 * NL * windows];
+  fbt_chain((const uint32_t*)base, T, windows, c, F);
+  for (int j = 0; j < windows; j++) fbt_identity_thread(j, T, windows, c, F);
+  for (int count = 2; count < (1 << c); count *= 2) {
+    for (int j = 0; j < windows; j++)
+      fbt_step_thread(j, count, T, steps, windows, c, F);
+    for (int64_t idx = 0; idx < (int64_t)windows * count; idx++)
+      fbt_add_thread(idx, count, T, steps, windows, c, F);
+  }
+  delete[] steps;
   return 0;
 }
 

@@ -1,4 +1,4 @@
-// Thread bodies of the NTT stage kernels (decimation in time, input in
+// Thread bodies of the NTT kernels (decimation in time, input in
 // bit-reversed order, output in natural order).
 //
 // x and y are (8, n) Fr arrays in Montgomery form; tw is the (8, n/2) table
@@ -17,47 +17,129 @@ KZG_HD void ntt_butterfly(uint32_t lo[NL], uint32_t hi[NL],
   fe_add(lo, lo, prod, F);
 }
 
-// One stage of span s; thread t < n/2 owns one butterfly.
-KZG_HD void ntt_radix2_thread(int64_t t, const uint32_t* x, uint32_t* y,
-                              const uint32_t* tw, int64_t n, int64_t s,
-                              const FieldConsts& F) {
-  int64_t j = t & (s - 1);
-  int64_t i0 = (t - j) * 2 + j;
-  int64_t i1 = i0 + s;
-  uint32_t a[NL], b[NL], w[NL];
-  fe_load(a, x, n, i0);
-  fe_load(b, x, n, i1);
-  fe_load(w, tw, n / 2, j * (n / (2 * s)));
-  ntt_butterfly(a, b, w, F);
-  fe_store(y, n, i0, a);
-  fe_store(y, n, i1, b);
+// A pass of the multi-stage kernel (ntt_kernels.cu k_ntt_pass): stages
+// s0 .. s0 + g - 1 of a transform of n = 2^k.  Those stages combine the
+// elements i = hi 2^(s0+g) + m 2^s0 + lo that share hi and lo, over the
+// 2^g values of m.  A block holds 2^lcb consecutive lo columns x 2^g values
+// of m, lcb = min(s0, tile_bits - g): local element e = m 2^lcb + lo_local,
+// so a limb row is read in runs of 2^lcb consecutive words, and the first
+// pass (s0 = 0) reads contiguous tiles.  In local terms stage s is a plain
+// DIT stage of span S = 2^(lcb + s - s0) over the block's E = 2^(g + lcb)
+// elements; it needs S twiddles, which the block stages in shared memory,
+// every stage's at once, stage s at offset S - 2^lcb of an (8, E) array.
+//
+// The tile's log2, fixed here: a block holds at most 2^NTT_TILE_BITS
+// elements and as many twiddles, 64 bytes an element of shared memory.
+#define NTT_TILE_BITS 10
+#define NTT_MAX_TILE_BITS 11
+#define NTT_THREADS 256
+
+struct NttPass {
+  int64_t n;       // transform size 2^k
+  int s0, g;       // the pass runs stages s0 .. s0 + g - 1
+  int lcb;         // log2 of the lo columns a block holds
+  int ebits;       // log2 of the elements a block holds: g + lcb
+  int64_t blocks;  // n / 2^ebits
+};
+
+KZG_HD NttPass ntt_pass_geometry(int64_t n, int s0, int g, int tile_bits) {
+  NttPass P;
+  P.n = n;
+  P.s0 = s0;
+  P.g = g;
+  P.lcb = s0 < tile_bits - g ? s0 : tile_bits - g;
+  P.ebits = g + P.lcb;
+  P.blocks = n >> P.ebits;
+  return P;
 }
 
-// Two stages, spans s and 2s, in one pass; thread t < n/4 owns the four
-// elements base + {0, s, 2s, 3s} of one 4s block and does four butterflies.
-KZG_HD void ntt_radix4_thread(int64_t t, const uint32_t* x, uint32_t* y,
-                              const uint32_t* tw, int64_t n, int64_t s,
-                              const FieldConsts& F) {
-  int64_t j = t & (s - 1);
-  int64_t base = (t - j) * 4 + j;
-  int64_t half = n / 2;
+// Column of the block's first lo: (lo chunk) 2^lcb.
+KZG_HD int64_t ntt_pass_lo0(const NttPass& P, int64_t b) {
+  return (b & (((int64_t)1 << (P.s0 - P.lcb)) - 1)) << P.lcb;
+}
+
+// Global column of local element e of block b.
+KZG_HD int64_t ntt_pass_col(const NttPass& P, int64_t b, int e) {
+  int64_t hi = b >> (P.s0 - P.lcb);
+  int lo = e & ((1 << P.lcb) - 1);
+  return (hi << (P.s0 + P.g)) + ((int64_t)(e >> P.lcb) << P.s0) +
+         ntt_pass_lo0(P, b) + lo;
+}
+
+// Tile word idx < 8 2^ebits (limb idx >> ebits, element idx mod 2^ebits of
+// the (8, 2^ebits) tile) is word ntt_pass_word(idx) of x, (8, n).
+KZG_HD int64_t ntt_pass_word(const NttPass& P, int64_t b, int idx) {
+  int k = idx >> P.ebits;
+  int e = idx & ((1 << P.ebits) - 1);
+  return k * P.n + ntt_pass_col(P, b, e);
+}
+
+// Offset of local stage s's twiddles in the block's (8, E) twiddle array.
+KZG_HD int ntt_pass_tw_off(const NttPass& P, int s) {
+  return (1 << (P.lcb + s - P.s0)) - (1 << P.lcb);
+}
+
+// Word idx < 8 S of stage s's twiddles: its place in ws, (8, E), and (the
+// return value) its word in the (8, n/2) table of w^j.  The element pairs
+// at span 2^s take w^((i mod 2^s) n / 2^(s+1)); local q < S = 2^(lcb + s -
+// s0), q = mm 2^lcb + lo_local, stands for i mod 2^s = mm 2^s0 + lo0 +
+// lo_local.
+KZG_HD int64_t ntt_pass_tw_word(const NttPass& P, int64_t b, int s, int idx,
+                                int* dst) {
+  int sb = P.lcb + s - P.s0;
+  int k = idx >> sb;
+  int q = idx & ((1 << sb) - 1);
+  int64_t r = ((int64_t)(q >> P.lcb) << P.s0) + ntt_pass_lo0(P, b) +
+              (q & ((1 << P.lcb) - 1));
+  *dst = (k << P.ebits) + ntt_pass_tw_off(P, s) + q;
+  return k * (P.n / 2) + r * (P.n >> (s + 1));
+}
+
+// Butterfly j < E/2 of local stage s on the tile xs (radix 2: the last
+// stage of a pass with an odd number of stages).
+KZG_HD void ntt_pass_radix2(const NttPass& P, int s, uint32_t* xs,
+                            const uint32_t* ws, int j, const FieldConsts& F) {
+  const int sb = P.lcb + s - P.s0;
+  const int E = 1 << P.ebits;
+  const int p = j & ((1 << sb) - 1);
+  const int e0 = ((j >> sb) << (sb + 1)) + p;
+  uint32_t a[NL], c[NL], w[NL];
+  fe_load(a, xs, E, e0);
+  fe_load(c, xs, E, e0 + (1 << sb));
+  fe_load(w, ws, E, ntt_pass_tw_off(P, s) + p);
+  ntt_butterfly(a, c, w, F);
+  fe_store(xs, E, e0, a);
+  fe_store(xs, E, e0 + (1 << sb), c);
+}
+
+// Group j < E/4 of local stages s and s + 1 (spans S and 2S) in registers:
+// elements e0 + {0, S, 2S, 3S}; stage s pairs (0, 1) and (2, 3) with
+// twiddle p, stage s + 1 pairs (0, 2) with p and (1, 3) with p + S.
+KZG_HD void ntt_pass_radix4(const NttPass& P, int s, uint32_t* xs,
+                            const uint32_t* ws, int j, const FieldConsts& F) {
+  const int sb = P.lcb + s - P.s0;
+  const int E = 1 << P.ebits;
+  const int S = 1 << sb;
+  const int p = j & (S - 1);
+  const int e0 = ((j >> sb) << (sb + 2)) + p;
+  const int wa = ntt_pass_tw_off(P, s) + p;
+  const int wb = ntt_pass_tw_off(P, s + 1) + p;
   uint32_t x0[NL], x1[NL], x2[NL], x3[NL], w[NL];
-  fe_load(x0, x, n, base);
-  fe_load(x1, x, n, base + s);
-  fe_load(x2, x, n, base + 2 * s);
-  fe_load(x3, x, n, base + 3 * s);
-  fe_load(w, tw, half, j * (n / (2 * s)));
+  fe_load(x0, xs, E, e0);
+  fe_load(x1, xs, E, e0 + S);
+  fe_load(x2, xs, E, e0 + 2 * S);
+  fe_load(x3, xs, E, e0 + 3 * S);
+  fe_load(w, ws, E, wa);
   ntt_butterfly(x0, x1, w, F);
   ntt_butterfly(x2, x3, w, F);
-  int64_t stride_b = n / (4 * s);
-  fe_load(w, tw, half, j * stride_b);
+  fe_load(w, ws, E, wb);
   ntt_butterfly(x0, x2, w, F);
-  fe_load(w, tw, half, (j + s) * stride_b);
+  fe_load(w, ws, E, wb + S);
   ntt_butterfly(x1, x3, w, F);
-  fe_store(y, n, base, x0);
-  fe_store(y, n, base + s, x1);
-  fe_store(y, n, base + 2 * s, x2);
-  fe_store(y, n, base + 3 * s, x3);
+  fe_store(xs, E, e0, x0);
+  fe_store(xs, E, e0 + S, x1);
+  fe_store(xs, E, e0 + 2 * S, x2);
+  fe_store(xs, E, e0 + 3 * S, x3);
 }
 
 // K10: one stage combine on pre-aligned rows (the scan-mode NTT):

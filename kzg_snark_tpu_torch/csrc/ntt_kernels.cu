@@ -1,18 +1,29 @@
-// K2-K5 and K10 replacements: NTT stages over Fr.
+// K2-K5 and K10 replacements: NTT passes and the scan-mode combine over Fr.
 //
-// Replaces kzg_snark_tpu/ops/ntt_stage.py:_local_pair_call (K2) and
-// :_paired_pair_call (K4) with the radix-4 kernel (two stages, spans s and
-// 2s, per pass), and :_local_stage_call (K3) and :_paired_stage_call (K5)
-// with the radix-2 kernel (one stage at any span).  The TPU split stages by
-// whether a span fitted inside one (8, 128) tile; here one kernel serves
-// every span.
+// ntt_pass replaces kzg_snark_tpu/ops/ntt_stage.py:_local_pair_call (K2),
+// :_paired_pair_call (K4), :_local_stage_call (K3) and :_paired_stage_call
+// (K5).  The TPU split stages by whether a span fitted inside one (8, 128)
+// tile, a launch for each stage or pair of stages; here one kernel runs as
+// many stages as a shared-memory tile holds, so a transform of n = 2^k is
+// ceil(k / NTT_TILE_BITS) launches (two at 2^11..2^20 with 10-bit tiles).
 //
-// What bounds it on the H100: each stage reads and writes the (8, n) array
-// once (64 bytes an element) for half a Montgomery product an element, so
-// a stage is memory-bound; the radix-4 pass halves the passes over device
-// memory.  At n = 2^18 the array is 8 MB and stays in the 50 MB L2.
-// Design: one thread per butterfly (radix 2) or per four-element group
-// (radix 4), twiddles read from one (8, n/2) power table, out of place.
+// What bounds it on the H100: a DIT transform does k n / 2 Montgomery
+// products (136 32-bit products each) and must read and write the (8, n)
+// array once: at 2^18 that is 0.019 ms of products against 0.006 ms of
+// bytes, so fused stages are bound by operations; below about 2^17 the
+// card has too few independent butterflies a stage to hide a product's
+// latency.  Design (ntt.cuh for the indexing): a block copies its tile (a
+// group of elements that the pass's stages combine only among themselves)
+// limb row by limb row in runs of consecutive words, and every stage's
+// twiddles from the (8, n/2) table, into shared memory by cp.async, all in
+// flight at once; then it runs the stages in pairs, each thread four
+// elements through two stages in registers (a radix-2 stage last when the
+// pass has an odd number), with one __syncthreads a pair; it stores the
+// tile at the end.  Every block reads all of its elements before it writes
+// any and blocks own disjoint elements, so a pass may run in place.
+// Shared memory: 64 bytes an element (the tile and its twiddles), 64 KB a
+// block at 10-bit tiles.  Tiles of 2^8..2^11 elements were measured
+// (PERF.md): 10 bits is the fastest at 2^18 and loses to 9 bits at 2^16.
 //
 // K10 replaces kzg_snark_tpu/ops/pallas_fr.py:_butterfly_call
 // (fused_butterfly), the stage combine of the scan-mode NTT
@@ -20,6 +31,7 @@
 // with two rolls and passes a full-width twiddle row and the upper-half
 // mask.  It reads 3 x 32 + 4 bytes and writes 32 per element for one
 // Montgomery product: memory-bound.  One thread per element.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -29,22 +41,42 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void k_ntt_radix2(const uint32_t* __restrict__ x,
-                             uint32_t* __restrict__ y,
-                             const uint32_t* __restrict__ tw, int64_t n,
-                             int64_t s, FieldConsts F) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n / 2) return;
-  ntt_radix2_thread(t, x, y, tw, n, s, F);
-}
-
-__global__ void k_ntt_radix4(const uint32_t* __restrict__ x,
-                             uint32_t* __restrict__ y,
-                             const uint32_t* __restrict__ tw, int64_t n,
-                             int64_t s, FieldConsts F) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n / 4) return;
-  ntt_radix4_thread(t, x, y, tw, n, s, F);
+// One block a tile; x and y may be the same array.
+__global__ void __launch_bounds__(NTT_THREADS)
+    k_ntt_pass(const uint32_t* x, uint32_t* y, const uint32_t* __restrict__ tw,
+               NttPass P, FieldConsts F) {
+  extern __shared__ uint32_t sm[];
+  const int E = 1 << P.ebits;
+  uint32_t* xs = sm;           // (8, E): the tile
+  uint32_t* ws = sm + NL * E;  // (8, E): every stage's twiddles
+  const int64_t b = blockIdx.x;
+  // Tile and twiddles by asynchronous copies (cp.async), all in flight at
+  // once: a loop of plain loads would wait on each load in turn.
+  for (int idx = threadIdx.x; idx < NL * E; idx += blockDim.x)
+    __pipeline_memcpy_async(&xs[idx], &x[ntt_pass_word(P, b, idx)], 4);
+  for (int s = P.s0; s < P.s0 + P.g; s++)
+    for (int idx = threadIdx.x; idx < (NL << (P.lcb + s - P.s0));
+         idx += blockDim.x) {
+      int dst;
+      int64_t src = ntt_pass_tw_word(P, b, s, idx, &dst);
+      __pipeline_memcpy_async(&ws[dst], &tw[src], 4);
+    }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  int s = P.s0;
+  for (; s + 1 < P.s0 + P.g; s += 2) {
+    for (int j = threadIdx.x; j < E / 4; j += blockDim.x)
+      ntt_pass_radix4(P, s, xs, ws, j, F);
+    __syncthreads();
+  }
+  if (s < P.s0 + P.g) {
+    for (int j = threadIdx.x; j < E / 2; j += blockDim.x)
+      ntt_pass_radix2(P, s, xs, ws, j, F);
+    __syncthreads();
+  }
+  for (int idx = threadIdx.x; idx < NL * E; idx += blockDim.x)
+    y[ntt_pass_word(P, b, idx)] = xs[idx];
 }
 
 __global__ void k_fr_butterfly(const uint32_t* __restrict__ xl,
@@ -60,23 +92,31 @@ __global__ void k_fr_butterfly(const uint32_t* __restrict__ xl,
 
 }  // namespace
 
-// One launch: radix 2 (one stage of span s) or radix 4 (spans s and 2s).
-extern "C" int kzg_ntt_stage(const void* x, void* y, const void* tw,
-                             int64_t n, int64_t span, int radix,
-                             const void* consts, void* stream) {
-  int64_t work = n / radix;
-  if (work <= 0) return 0;
+// NTT_TILE_BITS, the log2 of a pass's tile: the launches of a transform
+// of 2^k are ceil(k / NTT_TILE_BITS).
+extern "C" int kzg_ntt_tile() { return NTT_TILE_BITS; }
+
+// One pass: stages s0 .. s0 + g - 1 of the transform of x (8, n), n = 2^k,
+// into y (which may be x), with tiles of 2^tile_bits elements.
+extern "C" int kzg_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
+                            int s0, int g, int tile_bits, const void* consts,
+                            void* stream) {
+  if (n < 2 || (n & (n - 1)) || tile_bits < 1 ||
+      tile_bits > NTT_MAX_TILE_BITS || g < 1 || g > tile_bits || s0 < 0 ||
+      ((int64_t)1 << (s0 + g)) > n)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      k_ntt_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      64 << NTT_MAX_TILE_BITS);
+  if (attr != cudaSuccess) return (int)attr;
   FieldConsts F;
   memcpy(&F, consts, sizeof(F));
-  unsigned blocks = (unsigned)((work + kThreads - 1) / kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (radix == 4) {
-    k_ntt_radix4<<<blocks, kThreads, 0, st>>>(
-        (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, n, span, F);
-  } else {
-    k_ntt_radix2<<<blocks, kThreads, 0, st>>>(
-        (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, n, span, F);
-  }
+  NttPass P = ntt_pass_geometry(n, s0, g, tile_bits);
+  int groups = P.ebits >= 2 ? 1 << (P.ebits - 2) : 1;
+  int threads = groups < NTT_THREADS ? groups : NTT_THREADS;
+  size_t smem = (size_t)64 << P.ebits;
+  k_ntt_pass<<<(unsigned)P.blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, P, F);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ input and output over (8, n) Montgomery limb tensors, the deterministic
 domain root of ``ops/host/field`` ``nth_root_of_unity``.  Two modes, chosen
 by the caller:
 
-* ``"staged"`` (the default): ``ops/ntt_stage.staged_transform`` on the
-  K2-K5 kernels, the bit reversal a torch index gather;
+* ``"staged"`` (the default): ``ops/ntt_stage.staged_transform``, the
+  K2-K5 replacement ``ntt_pass`` (as many stages a launch as a
+  shared-memory tile holds), the bit reversal a torch index gather;
 * ``"scan"``: the JAX ``_transform_scan`` (``KZG_TPU_NTT_MODE=scan``): the
   bit reversal by two half-width gathers and a transpose, then per stage
   two rolls align the pairs and the K10 kernel combines them against a

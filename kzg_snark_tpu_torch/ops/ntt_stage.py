@@ -1,16 +1,14 @@
-"""NTT stage kernels (K2-K5 replacements) and the staged transform.
+"""The NTT pass kernel (K2-K5 replacement) and the staged transform.
 
-Counterpart of ``kzg_snark_tpu/ops/ntt_stage.py``.  Two kernels in
-``csrc/ntt_kernels.cu``, behind one entry point ``ntt_stage``, serve every
-span:
-
-* radix 2: one DIT stage of span s (replaces K3 and K5);
-* radix 4: two DIT stages, spans s and 2s, in one pass over the array
-  (replaces K2 and K4).
-
-``staged_transform`` plans as ``StagedNtt.transform`` does: pair stages
-whenever 4 * span <= n, else one radix-2 stage.  Input is bit-reversed,
-output in natural order; values are exact, so any plan gives equal output.
+Counterpart of ``kzg_snark_tpu/ops/ntt_stage.py``, whose four stage
+kernels ran one or two stages a launch.  Here one kernel, ``ntt_pass``
+(``csrc/ntt_kernels.cu``), runs the stages s0 .. s0 + g - 1 of a transform
+on tiles of at most 2^t elements held in shared memory, t = ``tile_bits()``
+(``NTT_TILE_BITS`` of ``csrc/ntt.cuh``).  ``staged_transform`` runs the
+plan ``pass_plan``: g = min(t, stages left) a pass, so a transform of n =
+2^k is ceil(k / t) launches.  Input is bit-reversed, output in natural
+order; values are exact, so any plan gives equal output.  The plain
+version ``ntt_pass_plain`` runs the same stages one ``radix2_plain`` each.
 
 ``fr_butterfly`` (K10, replaces ``pallas_fr.py`` ``_butterfly_call``) is
 the stage combine of the scan-mode transform (``ops/ntt.py``): pairs
@@ -42,34 +40,51 @@ def radix2_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
         L, n)
 
 
-def radix4_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
-                 span: int) -> torch.Tensor:
-    """Stages of spans ``span`` and ``2 * span`` on (8, n)."""
-    return radix2_plain(fc, radix2_plain(fc, x, tw, span), tw, 2 * span)
+def ntt_pass_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
+                   s0: int, g: int) -> torch.Tensor:
+    """Stages s0 .. s0 + g - 1 (spans 2^s0 .. 2^(s0+g-1)) on (8, n)."""
+    for s in range(s0, s0 + g):
+        x = radix2_plain(fc, x, tw, 1 << s)
+    return x
 
 
-def ntt_stage(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
-              span: int, radix: int) -> torch.Tensor:
-    """One pass of the stage kernels: radix 2 (one stage of span ``span``)
-    or radix 4 (spans ``span`` and ``2 * span``) on (8, n), out of place."""
-    if radix not in (2, 4):
-        raise ValueError(f"ntt_stage: radix must be 2 or 4, got {radix}")
+def tile_bits() -> int:
+    """NTT_TILE_BITS of csrc/ntt.cuh, as the built library has it: a pass
+    holds at most 2^t elements a block."""
+    return cuda_lib().kzg_ntt_tile()
+
+
+def pass_plan(n: int, t: int) -> list[tuple[int, int]]:
+    """(s0, g) of each pass of a transform of n = 2^k with tiles of 2^t
+    elements: ceil(k / t) passes of min(t, stages left) stages."""
+    k = n.bit_length() - 1
+    return [(s0, min(t, k - s0)) for s0 in range(0, k, t)]
+
+
+def ntt_pass(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor, s0: int,
+             g: int, t: int, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """One launch: stages s0 .. s0 + g - 1 of the transform of x (8, n)
+    against tw (8, n/2), tiles of 2^t elements (g <= t <= 11), into ``out``
+    (a new tensor if None; may be x itself)."""
     if cuda_fr._on_cpu(x, tw):
-        fn = radix2_plain if radix == 2 else radix4_plain
-        return fn(fc, x, tw, span)
-    cuda_fr._require_cuda("ntt_stage", x, tw)
+        y = ntt_pass_plain(fc, x, tw, s0, g)
+        return y if out is None else out.copy_(y)
+    out = torch.empty_like(x) if out is None else out
+    cuda_fr._require_cuda("ntt_pass", x, tw, out)
     L, n = x.shape
-    if L != NUM_LIMBS or tw.shape != (NUM_LIMBS, n // 2) or n & (n - 1):
-        raise ValueError(f"ntt_stage: expected x (8, 2^k) and tw (8, n/2), "
-                         f"got {tuple(x.shape)}, {tuple(tw.shape)}")
-    if span < 1 or span & (span - 1) or radix * span > n:
-        raise ValueError(f"ntt_stage: bad span {span} for radix {radix}, "
-                         f"n = {n}")
-    out = torch.empty_like(x)
-    count_launch(f"ntt_radix{radix}")
-    check(cuda_lib().kzg_ntt_stage(x.data_ptr(), out.data_ptr(),
-                                   tw.data_ptr(), n, span, radix, fc.ptr,
-                                   cuda_fr._stream(x)), "ntt_stage")
+    if L != NUM_LIMBS or n < 2 or n & (n - 1) \
+            or tw.shape != (NUM_LIMBS, n // 2) or out.shape != x.shape:
+        raise ValueError(f"ntt_pass: expected x and out (8, 2^k), k >= 1, "
+                         f"and tw (8, n/2), got {tuple(x.shape)}, "
+                         f"{tuple(out.shape)}, {tuple(tw.shape)}")
+    if s0 < 0 or not 1 <= g <= t or 1 << (s0 + g) > n:
+        raise ValueError(f"ntt_pass: bad stages {s0}..{s0 + g - 1} for "
+                         f"n = {n}, tile 2^{t}")
+    count_launch("ntt_pass", width=n)
+    check(cuda_lib().kzg_ntt_pass(x.data_ptr(), out.data_ptr(),
+                                  tw.data_ptr(), n, s0, g, t, fc.ptr,
+                                  cuda_fr._stream(x)), "ntt_pass")
     return out
 
 
@@ -105,12 +120,15 @@ def fr_butterfly(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
 
 def staged_transform(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor
                      ) -> torch.Tensor:
-    """Bit-reversed (8, n) input -> natural-order transform (8, n)."""
+    """Bit-reversed (8, n) input -> natural-order transform (8, n): the
+    plain stages on the CPU, else the passes of ``pass_plan`` with the
+    library's tile, the first out of place, the rest in place."""
     n = x.shape[1]
     x = x.contiguous()
-    span = 1
-    while span < n:
-        radix = 4 if 4 * span <= n else 2
-        x = ntt_stage(fc, x, tw, span, radix)
-        span *= radix
-    return x
+    if cuda_fr._on_cpu(x, tw):
+        return ntt_pass_plain(fc, x, tw, 0, n.bit_length() - 1)
+    t = tile_bits()
+    out = None
+    for s0, g in pass_plan(n, t):
+        out = ntt_pass(fc, x if out is None else out, tw, s0, g, t, out)
+    return x if out is None else out

@@ -3,10 +3,12 @@
 Counterpart of ``kzg_snark_tpu/ops/srs.py``: ``DeviceSRS`` holds
 [G1, tau G1, ..., tau^d G1] as a (3, 8, d+1) tensor with Z = 1, and
 ``setup_g1_powers`` builds it by a windowed fixed-base method: a table
-T[j, v] = v 2^(c j) G of W x 2^c points, then every tau^i G is a sum of W
-table entries, one complete add (K6) per window over the whole batch.  The
-JAX package gathered the entries through a one-hot matmul to dodge a TPU
-fault; here a plain index gather does it.
+T[j, v] = v 2^(c j) G of W x 2^c points (``g1_fixed_base_table``, one
+launch of ``csrc/srs_kernels.cu``: K7 and K6 as this build uses them),
+then every tau^i G is a sum of W table entries, one complete add (K6) per
+window over the whole batch.  The JAX package gathered the entries
+through a one-hot matmul to dodge a TPU fault; here a plain index gather
+does it.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.build import check, count_launch, cuda_lib
+from . import cuda_fr
 from .benchpoints import normalize_points
 from .fr import canonical_device
-from .g1 import CurveOps
-from .limbs import NUM_LIMBS, ints_to_words
+from .limbs import NUM_LIMBS, FieldConsts, ints_to_words
 from .msm import msm_context
 
 
@@ -55,26 +58,50 @@ class DeviceSRS:
         return self._host_cache[i]
 
 
-def _fixed_base_table(curve: CurveOps, base: torch.Tensor, window_bits: int,
-                      windows: int) -> torch.Tensor:
-    """T[:, :, j, v] = v 2^(c j) base for j < W, v < 2^c: (3, 8, W, 2^c).
+def fixed_base_table_plain(fc: FieldConsts, base: torch.Tensor,
+                           window_bits: int, windows: int) -> torch.Tensor:
+    """T[:, :, j, v] = v 2^(c j) base for j < W, v < 2^c: (3, 8, W, 2^c),
+    base (3, 8, 1).
 
-    Window bases by c doublings each (K7); the rows by doubling
-    concatenation, T[:, v + 2^k] = T[:, v] + T[:, 2^k] (K6)."""
+    Window bases by c doublings each; the rows by doubling concatenation,
+    T[:, v + 2^k] = T[:, v] + T[:, 2^k] (the K7 and K6 plain versions)."""
     bases = [base]
     for _ in range(windows - 1):
         b = bases[-1]
         for _ in range(window_bits):
-            b = curve.double(b)
+            b = cuda_fr.g1_double_plain(fc, b)
         bases.append(b)
     bases = torch.cat(bases, dim=-1)                        # (3, 8, W)
-    rows = torch.stack([curve.identity((windows,)), bases], dim=-1)
+    one = fc.tensors(base.device)["one"].expand(NUM_LIMBS, windows)
+    ident = torch.stack([one, one, torch.zeros_like(one)])
+    rows = torch.stack([ident, bases], dim=-1)
     while rows.shape[-1] < (1 << window_bits):
         count = rows.shape[-1]
-        step = curve.double(rows[..., count // 2:count // 2 + 1])  # count*b
-        rows = torch.cat([rows, curve.add(rows, step.expand(rows.shape))],
-                         dim=-1)
+        step = cuda_fr.g1_double_plain(
+            fc, rows[..., count // 2:count // 2 + 1])      # count * b
+        rows = torch.cat([rows, cuda_fr.g1_add_plain(
+            fc, rows, step.expand(rows.shape))], dim=-1)
     return rows
+
+
+def g1_fixed_base_table(fc: FieldConsts, base: torch.Tensor,
+                        window_bits: int, windows: int) -> torch.Tensor:
+    """The fixed-base table (3, 8, W, 2^c) of base (3, 8, 1) in one launch
+    (``csrc/srs_kernels.cu``), equal word for word to
+    ``fixed_base_table_plain``, which CPU tensors take."""
+    if cuda_fr._on_cpu(base):
+        return fixed_base_table_plain(fc, base, window_bits, windows)
+    cuda_fr._require_cuda("g1_fixed_base_table", base)
+    if base.shape != (3, NUM_LIMBS, 1):
+        raise ValueError(f"g1_fixed_base_table: expected a (3, 8, 1) base, "
+                         f"got {tuple(base.shape)}")
+    table = torch.empty((3, NUM_LIMBS, windows, 1 << window_bits),
+                        dtype=torch.int32, device=base.device)
+    count_launch("g1_fixed_base_table")
+    check(cuda_lib().kzg_g1_fixed_base_table(
+        base.data_ptr(), table.data_ptr(), windows, window_bits, fc.ptr,
+        cuda_fr._stream(base)), "g1_fixed_base_table")
+    return table
 
 
 def setup_g1_powers(kzg, tau: int, max_degree: int, window_bits: int = 8,
@@ -106,7 +133,8 @@ def setup_g1_powers(kzg, tau: int, max_degree: int, window_bits: int = 8,
 
     g1 = kzg.G1
     base = curve.from_affine_ints([int(g1[0])], [int(g1[1])])
-    table = _fixed_base_table(curve, base, c, windows)     # (3, 8, W, 2^c)
+    table = g1_fixed_base_table(curve.f.consts, base.contiguous(), c,
+                                windows)                  # (3, 8, W, 2^c)
     digits = torch.from_numpy(dig).to(ctx.device)
     acc_pts = curve.identity((n,)).contiguous()
     for j in range(windows):

@@ -49,7 +49,9 @@ CUDA_ENTRIES = {
     "kzg_g1_add": [_P, _P, _P, _I64, _P, _P],
     "kzg_g1_double": [_P, _P, _I64, _P, _P],
     "kzg_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P, _P],
-    "kzg_ntt_stage": [_P, _P, _P, _I64, _I64, _INT, _P, _P],
+    "kzg_g1_fixed_base_table": [_P, _P, _INT, _INT, _P, _P],
+    "kzg_ntt_tile": [],
+    "kzg_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
     "kzg_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
     "kzg_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P, _P],
     "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
@@ -65,8 +67,9 @@ HOST_ENTRIES = {
     "host_g1_double": [_P, _P, _I64, _P],
     "host_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P],
     "host_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P],
-    "host_ntt_radix2": [_P, _P, _P, _I64, _I64, _P],
-    "host_ntt_radix4": [_P, _P, _P, _I64, _I64, _P],
+    "host_ntt_tile": [],
+    "host_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P],
+    "host_g1_fixed_base_table": [_P, _P, _INT, _INT, _P],
     "host_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P],
     "host_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P],
     "host_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P],

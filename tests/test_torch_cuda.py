@@ -5,8 +5,9 @@ other device never does (it goes to the kernel path, which checks its
 operands and raises).  With a card (tests marked ``cuda``, skipped where
 ``torch.cuda.is_available()`` is false): every kernel entry point equals
 its plain version on small numpy-seeded inputs and counts its launch
-(K1-K7, K9, K10, the bucket route's msm_accumulate and msm_reduce, and the
-chains' fr_scan and fr_pow).
+(K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
+bucket route's msm_accumulate and msm_reduce, and the chains' fr_scan and
+fr_pow).
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -18,8 +19,9 @@ from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops import msm_kernel as mk
 from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain, fr_butterfly,
-                                               ntt_stage)
+                                               ntt_pass)
 from kzg_snark_tpu_torch.ops import scan
+from kzg_snark_tpu_torch.ops.srs import g1_fixed_base_table
 from kzg_snark_tpu_torch.utils.build import LAUNCHES
 
 
@@ -49,7 +51,9 @@ def test_curve_and_stage_wrappers_reject_other_devices():
     x = torch.empty((8, 8), dtype=torch.int32, device="meta")
     tw = torch.empty((8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ntt_stage(fc, x, tw, 1, 2)
+        ntt_pass(fc, x, tw, 0, 2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_fixed_base_table(fc, p[:, :, :1], 8, 32)
     xy = torch.empty((4, 16), dtype=torch.int32, device="meta")
     e = torch.empty((8,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -115,8 +119,12 @@ def test_field_kernels_match_plain(cuda):
 @pytest.mark.cuda
 def test_curve_and_stage_kernels_match_plain(cuda):
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
     from kzg_snark_tpu_torch.ops.ntt import ntt_context
-    from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
+    from kzg_snark_tpu_torch.ops.ntt_stage import (ntt_pass_plain, pass_plan,
+                                                   staged_transform,
+                                                   tile_bits)
+    from kzg_snark_tpu_torch.ops.srs import fixed_base_table_plain
 
     fq = fq_backend("bn254", cuda).consts
     pts, _ = random_point_basis("bn254", 256, seed=1, device=cuda)
@@ -125,15 +133,25 @@ def test_curve_and_stage_kernels_match_plain(cuda):
                        cuda_fr.g1_add_plain(fq, pts, q))
     assert torch.equal(cuda_fr.g1_double(fq, q),
                        cuda_fr.g1_double_plain(fq, q))
-    ctx = ntt_context("bn254", 64, cuda)
-    fr = ctx.backend.consts
-    x = words(64, 3, cuda)
-    for span in (1, 2, 16):
-        assert torch.equal(ntt_stage(fr, x, ctx.tw_fwd, span, 4),
-                           radix4_plain(fr, x, ctx.tw_fwd, span))
-    for span in (1, 32):
-        assert torch.equal(ntt_stage(fr, x, ctx.tw_fwd, span, 2),
-                           radix2_plain(fr, x, ctx.tw_fwd, span))
+    T = tile_bits()
+    for n in (64, 2 << T, 1 << 15):
+        ctx = ntt_context("bn254", n, cuda)
+        fr = ctx.backend.consts
+        x = words(n, 3, cuda)
+        for tw in (ctx.tw_fwd, ctx.tw_inv):
+            y = x
+            for s0, g in pass_plan(n, T):
+                before = LAUNCHES["ntt_pass"]
+                got = ntt_pass(fr, y, tw, s0, g, T)
+                assert LAUNCHES["ntt_pass"] == before + 1
+                y = ntt_pass_plain(fr, y, tw, s0, g)
+                assert torch.equal(got, y), (n, s0, g)
+            assert torch.equal(staged_transform(fr, x, tw), y), n
+    base = curve_ops("bn254", cuda).from_affine_ints([1], [2]).contiguous()
+    before = LAUNCHES["g1_fixed_base_table"]
+    table = g1_fixed_base_table(fq, base, 8, 32)
+    assert LAUNCHES["g1_fixed_base_table"] == before + 1
+    assert torch.equal(table, fixed_base_table_plain(fq, base, 8, 32))
 
 
 @pytest.mark.parametrize("skew", ["random", "all-equal", "one-nonzero",

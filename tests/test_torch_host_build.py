@@ -26,7 +26,9 @@ from kzg_snark_tpu_torch.ops.msm_kernel import (bucket_schedule, horner_plain,
                                                 window_bits,
                                                 window_sums_plain)
 from kzg_snark_tpu_torch.ops.ntt import ntt_context
-from kzg_snark_tpu_torch.ops.ntt_stage import radix2_plain, radix4_plain
+from kzg_snark_tpu_torch.ops import ntt_stage
+from kzg_snark_tpu_torch.ops.ntt_stage import ntt_pass_plain, pass_plan
+from kzg_snark_tpu_torch.ops.srs import fixed_base_table_plain
 from kzg_snark_tpu_torch.ops.scan import fr_pow_plain, fr_scan_plain
 from kzg_snark_tpu_torch.utils.build import host_lib
 
@@ -156,24 +158,91 @@ def test_g1_add_double(lib):
     assert np.array_equal(out, _words(cuda_fr.g1_double_plain(fc, p)))
 
 
-@pytest.mark.parametrize("n", [2, 8, 32])
-def test_ntt_stages(lib, n):
+# (log2 n as a function of the library's tile bits T, tile bits or None
+# for T): sizes below, at and above one tile with the library's tile, and
+# tiny tiles that give three- to five-pass plans at n <= 2^9.
+NTT_PASS_CASES = {
+    "2": (lambda T: 1, None), "8": (lambda T: 3, None),
+    "32": (lambda T: 5, None), "T/2": (lambda T: T - 1, None),
+    "T": (lambda T: T, None), "2T": (lambda T: T + 1, None),
+    "2^15": (lambda T: 15, None), "2^5-t2": (lambda T: 5, 2),
+    "2^9-t2": (lambda T: 9, 2), "2^8-t3": (lambda T: 8, 3),
+    "2^9-t3": (lambda T: 9, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(NTT_PASS_CASES))
+def test_ntt_pass(lib, case):
+    """Every pass of the plan, under g++ (the kernel's tile load, twiddle
+    staging, butterflies and store, block after block), against
+    ntt_pass_plain on the pass's input, out of place and in place, with
+    the forward and inverse tables."""
+    log_n, t = NTT_PASS_CASES[case]
+    T = lib.host_ntt_tile()
+    n, t = 1 << log_n(T), t or T
     ctx = ntt_context("bn254", n, "cpu")
     fc = ctx.backend.consts
     x = ctx.backend.from_ints(_random_field(C.BN254_R, n, n))
-    xw, tw = _words(x), _words(ctx.tw_fwd)
-    out = np.empty_like(xw)
-    span = 1
-    while 2 * span <= n:
-        lib.host_ntt_radix2(_ptr(xw), _ptr(out), _ptr(tw), n, span, fc.ptr)
-        assert np.array_equal(out, _words(radix2_plain(fc, x, ctx.tw_fwd,
-                                                        span)))
-        if 4 * span <= n:
-            lib.host_ntt_radix4(_ptr(xw), _ptr(out), _ptr(tw), n, span,
-                                fc.ptr)
-            assert np.array_equal(out, _words(radix4_plain(
-                fc, x, ctx.tw_fwd, span)))
-        span *= 2
+    for tw in (ctx.tw_fwd, ctx.tw_inv):
+        tww = _words(tw)
+        y = x
+        for s0, g in pass_plan(n, t):
+            yw = _words(y).copy()
+            y = ntt_pass_plain(fc, y, tw, s0, g)
+            out = np.empty_like(yw)
+            lib.host_ntt_pass(_ptr(yw), _ptr(out), _ptr(tww), n, s0, g, t,
+                              fc.ptr)
+            assert np.array_equal(out, _words(y)), (s0, g)
+            lib.host_ntt_pass(_ptr(yw), _ptr(yw), _ptr(tww), n, s0, g, t,
+                              fc.ptr)
+            assert np.array_equal(yw, _words(y)), (s0, g)
+
+
+@pytest.mark.parametrize("log_n", range(4, 21))
+def test_staged_transform_launches(lib, monkeypatch, log_n):
+    """On a device other than the CPU, staged_transform makes ceil(log2 n
+    / t) ntt_pass launches, the stages of each following the last's, the
+    first out of place and the rest in place.  ntt_pass is replaced by a
+    fake that records each call and returns a tensor on the meta device,
+    which holds no data; t is the library's NTT_TILE_BITS."""
+    T = lib.host_ntt_tile()
+    calls = []
+
+    def fake_pass(fc, x, tw, s0, g, t, out=None):
+        calls.append((s0, g, t, out is x))
+        return torch.empty_like(x) if out is None else out
+
+    monkeypatch.setattr(ntt_stage, "tile_bits", lambda: T)
+    monkeypatch.setattr(ntt_stage, "ntt_pass", fake_pass)
+    n = 1 << log_n
+    x = torch.empty((8, n), dtype=torch.int32, device="meta")
+    tw = torch.empty((8, n // 2), dtype=torch.int32, device="meta")
+    out = ntt_stage.staged_transform(fr_backend("bn254", "cpu").consts, x,
+                                     tw)
+    assert out.device.type == "meta" and out.shape == (8, n)
+    assert len(calls) == -(-log_n // T)
+    assert [c[0] for c in calls] == [sum(c[1] for c in calls[:i])
+                                     for i in range(len(calls))]
+    assert sum(c[1] for c in calls) == log_n
+    assert all(c[1] <= T and c[2] == T for c in calls)
+    assert [c[3] for c in calls] == [False] + [True] * (len(calls) - 1)
+
+
+@pytest.mark.parametrize("c, windows", [(8, 32), (3, 5)])
+def test_g1_fixed_base_table(lib, c, windows):
+    """The table kernel's chain, identities and levels, in its order under
+    g++, against fixed_base_table_plain: equal Jacobian words at the SRS
+    build's c = 8, W = 32 and at a small shape."""
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    curve = curve_ops("bn254", "cpu")
+    fc = curve.f.consts
+    base = curve.from_affine_ints([1], [2]).contiguous()
+    want = fixed_base_table_plain(fc, base, c, windows)
+    assert want.shape == (3, 8, windows, 1 << c)
+    out = np.empty((3, 8, windows << c), dtype=np.uint32)
+    lib.host_g1_fixed_base_table(_ptr(_words(base)), _ptr(out), windows, c,
+                                 fc.ptr)
+    assert np.array_equal(out, _words(want).reshape(3, 8, -1))
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,9 +5,9 @@ ntt and intt must equal the JAX ``NttContext`` limb for limb at n = 2^1 ..
 eagerly; ntt and intt run its compile-light mode (``light=True``, one
 loop body per size: the unrolled mode compiles every stage's ops apart and
 costs minutes on the CPU), which gives the same integers.  The port's own
-radix-4 / radix-2 plan is checked against the host ``ops/host/fft.py`` at
-2^11 and 2^12, odd and even log n, and the "scan" mode (K10) against the
-staged plan up to 2^11.  K10's plain version is held to the JAX
+staged transform is checked against the host ``ops/host/fft.py`` at 2^11
+and 2^12, odd and even log n, and the "scan" mode (K10) against the staged
+transform up to 2^11.  K10's plain version is held to the JAX
 ``fused_butterfly`` and to its own g++-built thread body.  Inputs are
 numpy-seeded.
 """
