@@ -43,13 +43,28 @@ Phases, in order, one printed line or block each:
                  launch counts (ntt_pass as on the main path)
   profile        one more steady Marlin |H| = 2^14 prove under torch.profiler:
                  device busy time, idle share, device time by kernel
+  bls            BLS12-381 (Fr in 8 words, Fq in the kernels' 12-word
+                 instantiation): a random-multiplier basis of 2^16 points
+                 (K9, the bls_msm_basis path); every kernel against its
+                 plain version on the card, exactly, at Fr and Fq where
+                 both are used (fr_pow at 2^16 / 2^14 wide: its plain
+                 version takes seconds), with times and bounds; the
+                 bucket-route MSM at 2^16 points against the host oracle;
+                 the scan-mode NTT (K10, bls_ntt_scan); PLONK n = 2^6
+                 byte-identical to the port's host prover (bls_parity);
+                 PLONK n = 2^16 (bls_main) as the main phase, with its
+                 guards, and the BLS phases' time
 
-Each path (ntt scan, msm_one, main, marlin_parity, marlin) runs with the launch
-counts set to 0 just before it and read just after; a kernel's "launches"
-in the kernels JSON line are those of the path it is listed under.  The
-second-to-last lines are the kernels JSON and the nvidia-smi line; the last
-line is the result JSON.  Any failure raises (non-zero exit, no result
-line).  Without a CUDA device the script exits non-zero at once.
+The build phase also prints each kernel instantiation's registers, stack
+and spills (-Xptxas -v).  Each path (ntt scan, msm_one, main,
+marlin_parity, marlin and the bls paths) runs with the launch counts set
+to 0 just before it and read just after; a kernel's "launches" in the
+kernels JSON line are those of the path it is listed under, and its
+"bls12_381" entry gives its launches on its BLS12-381 path (also by limb
+count) and its rows at BLS12-381.  The second-to-last lines are the
+kernels JSON and the nvidia-smi line; the last line is the result JSON.
+Any failure raises (non-zero exit, no result line).  Without a CUDA
+device the script exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -115,6 +130,12 @@ MONT_PRODUCTS = 2 * 8 * 8 + 8   # 32x32-bit products of one CIOS Montgomery
                                 # product over 8 limbs
 
 
+def mont_products(limbs: int) -> int:
+    """32x32-bit products of one CIOS Montgomery product over ``limbs``
+    words: 136 at 8, 300 at 12."""
+    return 2 * limbs * limbs + limbs
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -174,12 +195,14 @@ def timed_ms(torch, fn, reps: int) -> tuple[float, float]:
     return start.elapsed_time(end) / reps, wall_s * 1e3 / reps
 
 
-def random_canonical(torch, n: int, seed: int, dev):
-    """(8, n) int32 limbs of uniform values below 2^253 (< r < p)."""
+def random_canonical(torch, n: int, seed: int, dev, limbs: int = 8):
+    """(limbs, n) int32 limbs of uniform values below 2^253 at 8 limbs
+    (under both curves' r and BN254's p) or 2^380 at 12 (under BLS12-381's
+    p)."""
     import numpy as np
-    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(8, n),
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(limbs, n),
                                              dtype=np.uint64)
-    w[7] &= (1 << 29) - 1
+    w[-1] &= (1 << (29 if limbs == 8 else 28)) - 1
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
@@ -230,23 +253,25 @@ def ntt_bound(rates: dict, n: int) -> dict:
     return bound(rates, 32 * n * 2 + 32 * n // 2, MONT_PRODUCTS * k * n // 2)
 
 
-def table_bound(rates: dict, c: int, windows: int) -> dict:
+def table_bound(rates: dict, c: int, windows: int, limbs: int = 8) -> dict:
     """Bound of the fixed-base table (c, W): the base read, W 2^c points
-    written; the Montgomery products its data needs: 7 a doubling (c (W -
-    1) in the chain, W a level), 16 an add except the W a level whose left
-    operand is the identity (the case split finds no equal or opposite
-    pair: v < count)."""
+    written (12 limbs bytes a point); the Montgomery products its data
+    needs: 7 a doubling (c (W - 1) in the chain, W a level), 16 an add
+    except the W a level whose left operand is the identity (the case
+    split finds no equal or opposite pair: v < count)."""
     levels = c - 1
     doublings = c * (windows - 1) + windows * levels
     adds = windows * ((1 << c) - 2) - windows * levels
-    return bound(rates, 96 + 96 * windows * (1 << c),
-                 (7 * doublings + 16 * adds) * MONT_PRODUCTS)
+    pt = 12 * limbs
+    return bound(rates, pt + pt * windows * (1 << c),
+                 (7 * doublings + 16 * adds) * mont_products(limbs))
 
 
-def curve_base(torch, dev):
-    """The BN254 G1 generator (1, 2) as a (3, 8, 1) Jacobian batch."""
-    from kzg_snark_tpu_torch.ops.g1 import curve_ops
-    return curve_ops("bn254", dev).from_affine_ints([1], [2]).contiguous()
+def curve_base(torch, dev, curve="bn254"):
+    """The curve's G1 generator as a (3, L, 1) Jacobian batch."""
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops, generator
+    gx, gy = generator(curve)
+    return curve_ops(curve, dev).from_affine_ints([gx], [gy]).contiguous()
 
 
 def _add_products(torch, fq, p, q) -> float:
@@ -261,7 +286,7 @@ def _add_products(torch, fq, p, q) -> float:
     finite = ~f.is_zero(p[2]) & ~f.is_zero(q[2])
     h0, r0 = f.is_zero(h), f.is_zero(r)
     per = (8 * finite + 8 * (finite & ~h0) + 7 * (finite & h0 & r0))
-    return float(per.sum()) * MONT_PRODUCTS
+    return float(per.sum()) * mont_products(fq.num_limbs)
 
 
 def _madd_products(torch, fq, p, qx, qy) -> float:
@@ -276,7 +301,7 @@ def _madd_products(torch, fq, p, qx, qy) -> float:
     r = f.sub(f.mul(f.mul(qy, p[2]), z1z1), p[1])
     finite = ~f.is_zero(p[2])
     per = 11 * finite + 7 * (finite & f.is_zero(h) & f.is_zero(r))
-    return float(per.sum()) * MONT_PRODUCTS
+    return float(per.sum()) * mont_products(fq.num_limbs)
 
 
 def phase_kernels(torch, dev, results, rates):
@@ -549,27 +574,28 @@ def phase_chains(torch, dev, results, rates):
         f"us a doubling ({lo}..{hi}, levels included)")
 
 
-def bucket_schedule(torch, sets, c=None, chunk=None, events=None):
-    """Scalar sets (k, 8, n) -> (schedule, W, c) of the bucket route."""
+def bucket_schedule(torch, sets, c=None, chunk=None, events=None, bits=254):
+    """Scalar sets (k, 8, n) of ``bits`` bits -> (schedule, W, c) of the
+    bucket route."""
     from kzg_snark_tpu_torch.ops import msm_kernel as mk
     c = c or mk.window_bits(sets.shape[-1])
-    dig = mk.signed_digits(sets, 254, c)
+    dig = mk.signed_digits(sets, bits, c)
     sched = mk.bucket_schedule(dig, c, chunk or mk.CHUNK,
                                events or mk.EVENTS_PER_THREAD)
     return sched, dig.shape[1], c
 
 
-def accumulate_work(n, sched):
+def accumulate_work(n, sched, limbs=8):
     """(bytes, 32-bit products) of the accumulate: the points read once,
     the entries and offsets, the partials written; 11 Montgomery products
     a mixed add, one add per entry after a chunk's first."""
     E = sched.entries.numel()
     C = sched.chunk_off.numel() - 1
-    return (64 * n + 4 * E + 4 * (C + 1) + 96 * C,
-            (E - C) * 11 * MONT_PRODUCTS)
+    return (8 * limbs * n + 4 * E + 4 * (C + 1) + 12 * limbs * C,
+            (E - C) * 11 * mont_products(limbs))
 
 
-def reduce_work(sched, sets, W, c):
+def reduce_work(sched, sets, W, c, limbs=8):
     """(bytes, products) of the reduction this data needs: one complete add
     (16 products) a chunk partial (bucket sums and running sums) and a
     step (Wt += R) for each magnitude up to a window's top nonempty
@@ -581,11 +607,13 @@ def reduce_work(sched, sets, W, c):
     mags = torch.arange(1, half + 1, device=per.device)
     top = float(((per > 0) * mags).max(dim=1).values.sum())
     horner = sets * (7 * c * (W - 1) + 16 * W)
-    return (96 * C + 4 * (per.numel() + 1) + 96 * sets,
-            (16 * (C + top) + horner) * MONT_PRODUCTS)
+    pt = 12 * limbs
+    return (pt * C + 4 * (per.numel() + 1) + pt * sets,
+            (16 * (C + top) + horner) * mont_products(limbs))
 
 
 PATH_WIDTHS: dict = {}      # path -> {kernel: {width class: launches}}
+PATH_LIMBS: dict = {}       # path -> {kernel: {limb count: launches}}
 PATH_TRANSFORMS: dict = {}  # path -> {n: staged transforms}
 TRANSFORMS: collections.Counter = collections.Counter()
 
@@ -604,9 +632,11 @@ def count_transforms() -> None:
 
 def run_path(torch, paths, name, fn):
     """Drive one path with the launch counts set to 0 just before it and
-    read just after (also by width, into PATH_WIDTHS, and its staged
-    transforms by n, into PATH_TRANSFORMS); returns what ``fn`` returns."""
-    from kzg_snark_tpu_torch.utils.build import (launch_counts, launch_widths,
+    read just after (also by width, into PATH_WIDTHS, by limb count, into
+    PATH_LIMBS, and its staged transforms by n, into PATH_TRANSFORMS);
+    returns what ``fn`` returns."""
+    from kzg_snark_tpu_torch.utils.build import (launch_counts, launch_limbs,
+                                                 launch_widths,
                                                  reset_launches)
     torch.cuda.synchronize()
     reset_launches()
@@ -615,6 +645,7 @@ def run_path(torch, paths, name, fn):
     torch.cuda.synchronize()
     paths[name] = launch_counts()
     PATH_WIDTHS[name] = launch_widths()
+    PATH_LIMBS[name] = launch_limbs()
     PATH_TRANSFORMS[name] = dict(sorted(TRANSFORMS.items()))
     return out
 
@@ -900,6 +931,228 @@ def phase_msm(torch, dev, paths, rates):
             + ", ".join(row))
 
 
+# The BLS12-381 path where each kernel's BLS launches count.
+BLS_PATHS = {name: "bls_main" for name in KERNELS}
+BLS_PATHS.update(g1_double="bls_parity", g1_add_mixed="bls_msm_basis",
+                 fr_butterfly="bls_ntt_scan")
+BLS_MSM_LOG_N = 16
+BLS_POW_LOG_N = 16          # fr_pow's width: its plain version at 2^18
+                            # takes about 6 s at 8 words
+
+
+def phase_bls_kernels(torch, dev, rows, rates, basis):
+    """Every kernel at BLS12-381 against its plain version, exactly:
+    K1 and the chains at Fr (8 words) and Fq (12 words), the NTT pass and
+    K10 at Fr, the curve kernels, the SRS table and the bucket kernels at
+    Fq; the main paths' shapes but fr_pow (2^16 at Fr, 2^14 at Fq, where
+    the plain version takes seconds).  ``rows[name]`` gets one row a
+    field."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import cuda_fr, scan
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import (butterfly_plain,
+                                                   fr_butterfly,
+                                                   ntt_pass_plain,
+                                                   staged_transform)
+    from kzg_snark_tpu_torch.ops.srs import (fixed_base_table_plain,
+                                             g1_fixed_base_table)
+
+    def row(name, field, shape, *args, **kw):
+        got = {}
+        compare(torch, f"bls {name} {field}", got, *args, **kw)
+        rows.setdefault(name, []).append(
+            {"curve": "bls12_381", "field": field, "shape": shape,
+             **got[f"bls {name} {field}"]})
+
+    fr_be, fq_be = fr_backend("bls12_381", dev), fq_backend("bls12_381", dev)
+    n_field = 1 << (MAIN_LOG_N + 2)
+    n = 1 << MAIN_LOG_N
+    for field, be in (("Fr", fr_be), ("Fq", fq_be)):
+        fc, L = be.consts, be.num_limbs
+        a = random_canonical(torch, n_field, 61, dev, L)
+        b = random_canonical(torch, n_field, 62, dev, L)
+        elem = 4 * L * n_field
+        for name, k, p, prods in [
+                ("fr_mul", cuda_fr.fr_mul, cuda_fr.mul_plain,
+                 mont_products(L)),
+                ("fr_add", cuda_fr.fr_add, cuda_fr.add_plain, 0),
+                ("fr_sub", cuda_fr.fr_sub, cuda_fr.sub_plain, 0)]:
+            row(name, field, f"({L}, 2^18)",
+                lambda x, y, k=k, fc=fc: k(fc, x, y),
+                lambda x, y, p=p, fc=fc: p(fc, x, y), (a, b),
+                bound(rates, 3 * elem, prods * n_field))
+        xs = a[:, :n].clone()
+        xs[:, xs.eq(0).all(dim=0)] = be.one_mont  # products: no zero
+        cat = lambda pair: torch.cat(pair, dim=1)                # noqa
+        row("fr_scan", field, f"({L}, 2^16) product scan and total",
+            lambda u, fc=fc: cat(scan.fr_scan(fc, u, scan.MUL)),
+            lambda u, fc=fc: cat(scan.fr_scan_plain(fc, u, scan.MUL)),
+            (xs,), bound(rates, 8 * L * n + 4 * L,
+                         mont_products(L) * (n - 1)))
+        e = be.modulus - 2
+        steps = e.bit_length() - 1 + bin(e).count("1")
+        w = 1 << (BLS_POW_LOG_N if field == "Fr" else BLS_POW_LOG_N - 2)
+        xp = a[:, :w].contiguous()
+        row("fr_pow", field, f"({L}, 2^{w.bit_length() - 1}), e = p - 2",
+            lambda u, fc=fc, e=e: scan.fr_pow(fc, u, e),
+            lambda u, fc=fc, e=e: scan.fr_pow_plain(fc, u, e), (xp,),
+            bound(rates, 8 * L * w, mont_products(L) * steps * w), reps=5,
+            plain_reps=1)
+
+    fr = fr_be.consts
+    a = random_canonical(torch, n_field, 63, dev)
+    ctx = ntt_context("bls12_381", n_field, dev)
+    log_n = n_field.bit_length() - 1
+    row("ntt_pass", "Fr", "a 2^18 transform",
+        lambda u, tw: staged_transform(fr, u, tw),
+        lambda u, tw: ntt_pass_plain(fr, u, tw, 0, log_n),
+        (a, ctx.tw_fwd), ntt_bound(rates, n_field), reps=10, plain_reps=1)
+    import numpy as np
+    mask = torch.from_numpy(np.random.default_rng(64).integers(
+        0, 2, n_field).astype(np.int32)).to(dev)
+    b, tw = (random_canonical(torch, n_field, s_, dev) for s_ in (65, 66))
+    row("fr_butterfly", "Fr", "(8, 2^18)",
+        lambda u, v, t, m: fr_butterfly(fr, u, v, t, m),
+        lambda u, v, t, m: butterfly_plain(fr, u, v, t, m),
+        (a, b, tw, mask),
+        bound(rates, 4 * 32 * n_field + 4 * n_field,
+              MONT_PRODUCTS * n_field))
+
+    fq = fq_be.consts
+    L = fq.num_limbs
+    pts = basis[..., :n].contiguous()
+    q = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
+    k = 64          # equal, opposite and identity cases in the first lanes
+    q[:, :, :2 * k] = pts[:, :, :2 * k]
+    q[1, :, k:2 * k] = fq_be.neg(pts[1, :, k:2 * k].contiguous())
+    q[2, :, 2 * k:3 * k] = 0
+    q = q.contiguous()
+    pt_bytes = 12 * L * n
+    row("g1_add", "Fq", "2^16 points",
+        lambda u, v: cuda_fr.g1_add(fq, u, v),
+        lambda u, v: cuda_fr.g1_add_plain(fq, u, v), (pts, q),
+        bound(rates, 3 * pt_bytes, _add_products(torch, fq, pts, q)),
+        plain_reps=1)
+    row("g1_double", "Fq", "2^16 points",
+        lambda u: cuda_fr.g1_double(fq, u),
+        lambda u: cuda_fr.g1_double_plain(fq, u), (q,),
+        bound(rates, 2 * pt_bytes, 7 * mont_products(L) * n), plain_reps=1)
+    qx = pts[0, :, 7:8].contiguous()
+    qy = pts[1, :, 7:8].contiguous()
+    acc = q.clone()
+    acc[2, :, :k] = 0
+    acc[0, :, k:2 * k] = qx
+    acc[1, :, k:2 * k] = qy
+    acc[2, :, k:3 * k] = fq_be.one_mont
+    acc[0, :, 2 * k:3 * k] = qx
+    acc[1, :, 2 * k:3 * k] = fq_be.neg(qy)
+    acc = acc.contiguous()
+    row("g1_add_mixed", "Fq", "2^16 points, one q",
+        lambda u, x, y: cuda_fr.g1_add_mixed(fq, u, x, y),
+        lambda u, x, y: cuda_fr.g1_add_mixed_plain(fq, u, x, y),
+        (acc, qx, qy), bound(rates, 2 * pt_bytes + 8 * L,
+                             _madd_products(torch, fq, acc, qx, qy)),
+        plain_reps=1)
+    base = curve_base(torch, dev, "bls12_381")
+    windows = -(-C.BLS12_381_R.bit_length() // SRS_WINDOW_BITS)
+    row("g1_fixed_base_table", "Fq", f"c = 8, W = {windows}",
+        lambda u: g1_fixed_base_table(fq, u, SRS_WINDOW_BITS, windows),
+        lambda u: fixed_base_table_plain(fq, u, SRS_WINDOW_BITS, windows),
+        (base,), table_bound(rates, SRS_WINDOW_BITS, windows, L), reps=5,
+        plain_reps=1)
+
+    xy = mk.point_table(pts)
+    bits = C.BLS12_381_R.bit_length()
+    sched, W, c = bucket_schedule(
+        torch, random_canonical(torch, n, 67, dev)[None], bits=bits)
+    row("msm_accumulate", "Fq", f"2^16 points, c = {c}",
+        lambda u, e_, o: mk.msm_accumulate(fq, u, e_, o, False),
+        lambda u, e_, o: mk.msm_accumulate_plain(fq, u, e_, o, False),
+        (xy, sched.entries, sched.chunk_off),
+        bound(rates, *accumulate_work(n, sched, L)), reps=10, plain_reps=1)
+    part = mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off, False)
+    row("msm_reduce", "Fq", f"2^16 points, {W} windows",
+        lambda u, bc: mk.msm_reduce(fq, u, bc, 1, W, c,
+                                    sched.window_threads),
+        lambda u, bc: mk.msm_reduce_plain(fq, u, bc, 1, W, c,
+                                          sched.window_threads),
+        (part, sched.bucket_chunks),
+        bound(rates, *reduce_work(sched, 1, W, c, L)), reps=10,
+        plain_reps=1)
+
+
+def phase_bls(torch, dev, paths, rates, rows):
+    """The BLS12-381 phases: the random-multiplier basis (K9 at 12 words,
+    the bls_msm_basis path), every kernel against its plain version
+    (``phase_bls_kernels``), the bucket-route MSM at 2^16 points against
+    the host oracle, the scan-mode NTT (K10, the bls_ntt_scan path), PLONK
+    at n = 2^6 against the host prover (bls_parity) and PLONK at n = 2^16
+    (bls_main, with the main path's guards)."""
+    import numpy as np
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
+    from kzg_snark_tpu_torch.ops.limbs import to_tensor, words_to_ints
+    from kzg_snark_tpu_torch.ops.msm import msm_context
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+
+    t_bls = time.perf_counter()
+    n = 1 << BLS_MSM_LOG_N
+    t0 = time.perf_counter()
+    pts, ks = run_path(
+        torch, paths, "bls_msm_basis", lambda: random_point_basis(
+            "bls12_381", n, seed=20261017, device=dev))
+    log(f"[bls] random-multiplier basis of 2^{BLS_MSM_LOG_N} points (3, "
+        f"{pts.shape[1]}, n) in {time.perf_counter() - t0:.2f} s, launches "
+        f"{json.dumps(paths['bls_msm_basis'], sort_keys=True)}")
+    phase_bls_kernels(torch, dev, rows, rates, pts)
+
+    r = C.BLS12_381_R
+    Fp = base_field("bls12_381")
+    G = (Fp(C.BLS12_381_G1[0]), Fp(C.BLS12_381_G1[1]), Fp(1))
+    w = np.random.default_rng(9300).integers(0, 1 << 32, size=(8, n),
+                                             dtype=np.uint64)
+    w[7] &= (1 << 30) - 1                   # below 2^254 < r
+    words = w.astype(np.uint32)
+    words[:, :4] = np.stack([np.array([(v >> (32 * i)) & 0xFFFFFFFF
+                                       for i in range(8)], dtype=np.uint32)
+                             for v in (0, 1, r - 1, r - 2)], axis=1)
+    ctx = msm_context("bls12_381", dev)
+    scalars = to_tensor(words, dev)
+    ms, wall = timed_ms(torch, lambda: ctx.msm(pts, scalars), 5)
+    got = ctx.curve.to_affine_ints(ctx.msm(pts, scalars))[0]
+    total = sum(s_ * k_ for s_, k_ in zip(words_to_ints(words), ks)) % r
+    want = hc.normalize(hc.multiply(G, total))
+    if want is None or got != (int(want[0]), int(want[1])):
+        raise AssertionError(f"BLS12-381 MSM 2^{BLS_MSM_LOG_N} differs from "
+                             "the host oracle")
+    k_, c, W, _ = ctx.fused.schedule(scalars, n)
+    log(f"[bls] MSM 2^{BLS_MSM_LOG_N} points (bucket route, c = {c}, W = "
+        f"{W}) == host oracle; device {ms:.3f} ms, wall {wall:.3f} ms")
+
+    nn = 1 << MAIN_LOG_N
+    nctx = ntt_context("bls12_381", nn, dev)
+    x = nctx.backend.to_mont(random_canonical(torch, nn, 68, dev))
+    y = nctx.ntt(x)
+    y_scan, back = run_path(torch, paths, "bls_ntt_scan", lambda: (
+        nctx.ntt(x, mode="scan"), nctx.intt(y, mode="scan")))
+    if not torch.equal(y_scan, y) or not torch.equal(back, x):
+        raise AssertionError("BLS12-381 scan-mode NTT differs from staged")
+    log(f"[bls] NTT 2^{MAIN_LOG_N} scan mode (K10) == staged, forward and "
+        f"inverse; launches {json.dumps(paths['bls_ntt_scan'])}")
+
+    phase_parity(dev, "bls12_381", "bls_parity",
+                 lambda fn: run_path(torch, paths, "bls_parity", fn))
+    log(f"[bls_parity] launches "
+        f"{json.dumps(paths['bls_parity'], sort_keys=True)}")
+    phase_main(torch, dev, paths, "bls12_381", "bls_main")
+    log(f"[bls] BLS12-381 phases in {time.perf_counter() - t_bls:.1f} s")
+
+
+
 def device_activities(torch, fn):
     """(number of device activities, device busy ms) of one call of ``fn``
     under torch.profiler."""
@@ -945,7 +1198,10 @@ def _circuit(Fr, n):
             a + b + c)
 
 
-def phase_parity(dev):
+def phase_parity(dev, curve="bn254", tag="parity", run=None):
+    """PLONK at n = 2^6 on ``curve``: the device index and proof against
+    the port's host prover; ``run(fn)`` drives the device part (a
+    run_path)."""
     from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
     from kzg_snark_tpu_torch.models.plonk.indexer import Indexer
     from kzg_snark_tpu_torch.models.plonk.prover import Prover
@@ -953,36 +1209,46 @@ def phase_parity(dev):
     from kzg_snark_tpu_torch.rng import Rng
 
     n = 1 << PARITY_LOG_N
-    qM, qZ, qO, perm, w = _circuit(scalar_field("bn254"), n)
+    qM, qZ, qO, perm, w = _circuit(scalar_field(curve), n)
     args = (qM, qZ, qZ, qO, qZ, perm)
-    ipk_d, ivk_d = DeviceProver("bn254", rng=Rng(600), device=dev) \
-        .preprocess(*args, max_degree=n + 5, tau=TAU)
-    proof_d = DeviceProver("bn254", rng=Rng(601), device=dev).prove(
-        ipk_d, [], w)
-    idx = Indexer("bn254", backend="host", rng=Rng(600))
+
+    def device():
+        keys = DeviceProver(curve, rng=Rng(600), device=dev).preprocess(
+            *args, max_degree=n + 5, tau=TAU)
+        return keys, DeviceProver(curve, rng=Rng(601), device=dev).prove(
+            keys[0], [], w)
+    (ipk_d, ivk_d), proof_d = run(device) if run else device()
+    t0 = time.perf_counter()
+    idx = Indexer(curve, backend="host", rng=Rng(600))
     idx.kzg.normalize_commitments = True
     ipk_h, ivk_h = idx.preprocess(*args, max_degree=n + 5, tau=TAU)
-    prover = Prover("bn254", backend="host", rng=Rng(601))
+    prover = Prover(curve, backend="host", rng=Rng(601))
     prover.kzg.normalize_commitments = True
     proof_h = prover.prove(ipk_h, [], w)
+    host_s = time.perf_counter() - t0
     if ivk_d["commitments"] != ivk_h["commitments"]:
-        raise AssertionError("n=2^6 index commitments differ from host")
+        raise AssertionError(f"{curve} n=2^6 index commitments differ from "
+                             "host")
     for part in ("commitments", "evaluations", "kzg_proofs"):
         if proof_d[part] != proof_h[part]:
-            raise AssertionError(f"n=2^6 proof {part} differ from host")
-    log("[parity] PLONK n=2^6 index and proof byte-identical to the host "
-        "prover")
+            raise AssertionError(f"{curve} n=2^6 proof {part} differ from "
+                                 "host")
+    log(f"[{tag}] PLONK {curve} n=2^6 index and proof byte-identical to the "
+        f"host prover (host side {host_s:.1f} s)")
 
 
-def phase_main(torch, dev, paths):
+def phase_main(torch, dev, paths, curve="bn254", name="main"):
+    """PLONK on ``curve`` at n = 2^16 as the path ``name``: index, two
+    proves, host verification and tamper rejection, and the launch
+    guards."""
     from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
     from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
     from kzg_snark_tpu_torch.ops.host.field import scalar_field
     from kzg_snark_tpu_torch.rng import Rng
 
     n = 1 << MAIN_LOG_N
-    qM, qZ, qO, perm, w = _circuit(scalar_field("bn254"), n)
-    prover = DeviceProver("bn254", rng=Rng(77), collect_timings=True,
+    qM, qZ, qO, perm, w = _circuit(scalar_field(curve), n)
+    prover = DeviceProver(curve, rng=Rng(77), collect_timings=True,
                           device=dev)
     torch.cuda.reset_peak_memory_stats()
     times = {}
@@ -1001,41 +1267,44 @@ def phase_main(torch, dev, paths):
             times["prove"].append(time.perf_counter() - t0)
         return keys, proof
 
-    (ipk, ivk), proof = run_path(torch, paths, "main", run)
-    counts = paths["main"]
+    (ipk, ivk), proof = run_path(torch, paths, name, run)
+    counts = paths[name]
     peak = torch.cuda.max_memory_allocated()
     phases = {k: round(v * 1e3, 3) for k, v in prover.timings.items()}
 
     t0 = time.perf_counter()
-    ok = Verifier("bn254", rng=Rng(78)).verify(ivk, [], proof)
+    ok = Verifier(curve, rng=Rng(78)).verify(ivk, [], proof)
     verify_s = time.perf_counter() - t0
     if not ok:
-        raise AssertionError("host Verifier rejected the n=2^16 proof")
+        raise AssertionError(f"host Verifier rejected the {curve} n=2^16 "
+                             "proof")
     proof["evaluations"]["a"] = proof["evaluations"]["a"] + 1
-    if Verifier("bn254", rng=Rng(79)).verify(ivk, [], proof):
+    if Verifier(curve, rng=Rng(79)).verify(ivk, [], proof):
         raise AssertionError("host Verifier accepted a tampered proof")
-    log(f"[main] PLONK n=2^16: index {times['index']:.3f} s, prove "
-        f"{times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, host "
-        f"verify {verify_s:.3f} s: accepted, tampered rejected")
-    log(f"[main] phases of the second prove (ms): {json.dumps(phases)}; "
+    log(f"[{name}] PLONK {curve} n=2^16: index {times['index']:.3f} s, "
+        f"prove {times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, "
+        f"host verify {verify_s:.3f} s: accepted, tampered rejected")
+    log(f"[{name}] phases of the second prove (ms): {json.dumps(phases)}; "
         f"sum {sum(phases.values()):.3f} ms")
-    log(f"[main] peak device memory {peak} bytes "
+    log(f"[{name}] peak device memory {peak} bytes "
         f"({peak / 2 ** 30:.3f} GiB)")
-    log(f"[main] launches: {json.dumps(counts, sort_keys=True)}")
-    log(f"[main] launches by width (elements or points): "
-        f"{json.dumps(PATH_WIDTHS['main'], sort_keys=True)}")
+    log(f"[{name}] launches: {json.dumps(counts, sort_keys=True)}")
+    log(f"[{name}] launches by width (elements or points): "
+        f"{json.dumps(PATH_WIDTHS[name], sort_keys=True)}")
+    log(f"[{name}] launches by limb count: "
+        f"{json.dumps(PATH_LIMBS[name], sort_keys=True)}")
     if counts.get("g1_double", 0) > 0 or counts.get("g1_add", 0) > 32 \
             or counts.get("g1_fixed_base_table", 0) != 1 \
             or counts.get("msm_reduce", 0) > 2 * counts.get("msm_accumulate",
                                                             0):
-        raise AssertionError("the PLONK path launched g1_double (none "
-                             "allowed), more g1_add (32) or msm_reduce (2 an "
-                             "MSM) than the bucket route allows, or other "
-                             "than one g1_fixed_base_table")
-    check_ntt_passes("main", counts)
+        raise AssertionError(f"the {curve} PLONK path launched g1_double "
+                             "(none allowed), more g1_add (32) or "
+                             "msm_reduce (2 an MSM) than the bucket route "
+                             "allows, or other than one g1_fixed_base_table")
+    check_ntt_passes(name, counts)
     chains = counts.get("fr_scan", 0) + counts.get("fr_pow", 0)
     if counts.get("fr_mul", 0) > 2000 or chains > 600:
-        raise AssertionError(f"the PLONK path launched fr_mul "
+        raise AssertionError(f"the {curve} PLONK path launched fr_mul "
                              f"{counts.get('fr_mul', 0)} times (limit 2000) "
                              f"and fr_scan + fr_pow {chains} (limit 600)")
 
@@ -1170,7 +1439,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kzg_snark_tpu_torch.utils.build import build_cuda, cuda_lib
+    from kzg_snark_tpu_torch.utils.build import (build_cuda, cuda_lib,
+                                                 kernel_resources)
     count_transforms()
 
     dev = torch.device("cuda", 0)
@@ -1185,6 +1455,8 @@ def main() -> int:
     lib_path = build_cuda()
     cuda_lib()
     log(f"[build] {lib_path} in {time.perf_counter() - t0:.2f} s")
+    for name, res in sorted(kernel_resources(lib_path).items()):
+        log(f"[build] {json.dumps(res, sort_keys=True)} {name}")
 
     results: dict = {}
     paths: dict = {}
@@ -1197,16 +1469,28 @@ def main() -> int:
     phase_marlin_parity(torch, dev, paths)
     marlin_prove = phase_marlin(torch, dev, paths)
     profile_run(torch, "Marlin |H|=2^14 steady prove", marlin_prove)
+    bls_rows: dict = {}
+    phase_bls(torch, dev, paths, rates, bls_rows)
 
     kernels = []
     for name, (src, rep, path) in KERNELS.items():
         launches = paths[path].get(name, 0)
-        if launches == 0:
+        bls_path = BLS_PATHS[name]
+        bls_launches = paths[bls_path].get(name, 0)
+        if launches == 0 or bls_launches == 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"{path} path")
+                                 f"{path} or the {bls_path} path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "path": path, "launches": launches,
-                        **results[name]})
+                        **results[name],
+                        "held_at": ["bn254"] + [
+                            f"bls12_381 {r_['field']}" for r_ in
+                            bls_rows[name]],
+                        "bls12_381": {"path": bls_path,
+                                      "launches": bls_launches,
+                                      "by_limbs": PATH_LIMBS[bls_path].get(
+                                          name, {}),
+                                      "rows": bls_rows[name]}})
     print(json.dumps({"kernels": kernels}))
     print(smi_name)
     print(json.dumps({"ok": True, "device": {

@@ -71,8 +71,8 @@ BLS12_381_FR_GEN = 7
 BLS12_381_FR_TWO_ADICITY = 32
 
 # --------------------------------------------------------------------------
-# 16-bit limb layout (the port's kernels use 8 x 32-bit limbs of the same
-# Montgomery integers, ops/limbs.py).
+# 16-bit limb layout (the port's kernels use 8 or 12 x 32-bit limbs of the
+# same Montgomery integers, ops/limbs.py).
 #
 # 256-bit field elements are represented as NUM_LIMBS little-endian limbs of
 # LIMB_BITS bits each, held in uint32 lanes.  16-bit limbs keep single

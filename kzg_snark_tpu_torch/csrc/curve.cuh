@@ -9,28 +9,31 @@
 
 #include "field.cuh"
 
+template <int NL>
 struct G1J {
   uint32_t X[NL], Y[NL], Z[NL];
 };
 
-// A point batch in device memory is (3, 8, m): coordinate c, limb k, point i
-// at (c * 8 + k) * m + i.
-KZG_HD void g1_load(G1J& P, const uint32_t* base, int64_t m, int64_t i) {
-  fe_load(P.X, base, m, i);
-  fe_load(P.Y, base + NL * m, m, i);
-  fe_load(P.Z, base + 2 * NL * m, m, i);
+// A point batch in device memory is (3, NL, m): coordinate c, limb k, point
+// i at (c * NL + k) * m + i.
+template <int NL>
+KZG_HD void g1_load(G1J<NL>& P, const uint32_t* base, int64_t m, int64_t i) {
+  fe_load<NL>(P.X, base, m, i);
+  fe_load<NL>(P.Y, base + NL * m, m, i);
+  fe_load<NL>(P.Z, base + 2 * NL * m, m, i);
 }
 
-KZG_HD void g1_store(uint32_t* base, int64_t m, int64_t i, const G1J& P) {
-  fe_store(base, m, i, P.X);
-  fe_store(base + NL * m, m, i, P.Y);
-  fe_store(base + 2 * NL * m, m, i, P.Z);
+template <int NL>
+KZG_HD void g1_store(uint32_t* base, int64_t m, int64_t i, const G1J<NL>& P) {
+  fe_store<NL>(base, m, i, P.X);
+  fe_store<NL>(base + NL * m, m, i, P.Y);
+  fe_store<NL>(base + 2 * NL * m, m, i, P.Z);
 }
 
 // LAT = true: the product with the small loop body (fe_mul_compact).
-template <bool LAT>
+template <bool LAT, int NL>
 KZG_HD void fmul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
-                 const FieldConsts& F) {
+                 const FieldConsts<NL>& F) {
   if (LAT) {
     fe_mul_compact(r, a, b, F);
   } else {
@@ -38,14 +41,15 @@ KZG_HD void fmul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
   }
 }
 
-template <bool LAT>
-KZG_HD void fsqr(uint32_t r[NL], const uint32_t a[NL], const FieldConsts& F) {
+template <bool LAT, int NL>
+KZG_HD void fsqr(uint32_t r[NL], const uint32_t a[NL],
+                 const FieldConsts<NL>& F) {
   fmul<LAT>(r, a, a, F);
 }
 
 // dbl-2009-l; the identity maps to Z3 = 0.
-template <bool LAT = false>
-KZG_HD void g1_double(G1J& R, const G1J& P, const FieldConsts& F) {
+template <bool LAT = false, int NL>
+KZG_HD void g1_double(G1J<NL>& R, const G1J<NL>& P, const FieldConsts<NL>& F) {
   uint32_t A[NL], B[NL], C[NL], t[NL], D[NL], E[NL], FF[NL], X3[NL], Y3[NL],
       Z3[NL], u[NL];
   fsqr<LAT>(A, P.X, F);
@@ -69,17 +73,18 @@ KZG_HD void g1_double(G1J& R, const G1J& P, const FieldConsts& F) {
   fe_sub(Y3, Y3, u, F);
   fmul<LAT>(Z3, P.Y, P.Z, F);
   fe_double(Z3, Z3, F);
-  fe_copy(R.X, X3);
-  fe_copy(R.Y, Y3);
-  fe_copy(R.Z, Z3);
+  fe_copy<NL>(R.X, X3);
+  fe_copy<NL>(R.Y, Y3);
+  fe_copy<NL>(R.Z, Z3);
 }
 
 // Complete Jacobian + Jacobian (add-2007-bl with the case analysis of
 // RegCurve.add).  R may alias P or Q.
-template <bool LAT = false>
-KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
-  bool p_inf = fe_is_zero(P.Z);
-  bool q_inf = fe_is_zero(Q.Z);
+template <bool LAT = false, int NL>
+KZG_HD void g1_add(G1J<NL>& R, const G1J<NL>& P, const G1J<NL>& Q,
+                   const FieldConsts<NL>& F) {
+  bool p_inf = fe_is_zero<NL>(P.Z);
+  bool q_inf = fe_is_zero<NL>(Q.Z);
   if (p_inf) {
     R = Q;
     return;
@@ -99,12 +104,12 @@ KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
   fmul<LAT>(S2, S2, Z1Z1, F);
   fe_sub(H, U2, U1, F);
   fe_sub(Rr, S2, S1, F);
-  if (fe_is_zero(H)) {
-    if (fe_is_zero(Rr)) {
+  if (fe_is_zero<NL>(H)) {
+    if (fe_is_zero<NL>(Rr)) {
       g1_double<LAT>(R, P, F);
     } else {
-      fe_copy(R.X, F.one);
-      fe_copy(R.Y, F.one);
+      fe_copy<NL>(R.X, F.one);
+      fe_copy<NL>(R.Y, F.one);
       for (int k = 0; k < NL; k++) R.Z[k] = 0;
     }
     return;
@@ -130,16 +135,17 @@ KZG_HD void g1_add(G1J& R, const G1J& P, const G1J& Q, const FieldConsts& F) {
   fe_sub(t, t, Z1Z1, F);
   fe_sub(t, t, Z2Z2, F);
   fmul<LAT>(Z3, t, H, F);
-  fe_copy(R.X, X3);
-  fe_copy(R.Y, Y3);
-  fe_copy(R.Z, Z3);
+  fe_copy<NL>(R.X, X3);
+  fe_copy<NL>(R.Y, Y3);
+  fe_copy<NL>(R.Z, Z3);
 }
 
 // Shared general case of madd-2007-bl: P + (qx, qy, 1).  Returns H and Rr so
 // the complete variant can classify the equal and opposite cases.
-KZG_HD void g1_madd_general(G1J& R, uint32_t H[NL], uint32_t Rr[NL],
-                            const G1J& P, const uint32_t qx[NL],
-                            const uint32_t qy[NL], const FieldConsts& F) {
+template <int NL>
+KZG_HD void g1_madd_general(G1J<NL>& R, uint32_t H[NL], uint32_t Rr[NL],
+                            const G1J<NL>& P, const uint32_t qx[NL],
+                            const uint32_t qy[NL], const FieldConsts<NL>& F) {
   uint32_t Z1Z1[NL], U2[NL], S2[NL];
   fe_square(Z1Z1, P.Z, F);
   fe_mul(U2, qx, Z1Z1, F);
@@ -167,19 +173,21 @@ KZG_HD void g1_madd_general(G1J& R, uint32_t H[NL], uint32_t Rr[NL],
   fe_square(t, t, F);
   fe_sub(t, t, Z1Z1, F);
   fe_sub(Z3, t, HH, F);
-  fe_copy(R.X, X3);
-  fe_copy(R.Y, Y3);
-  fe_copy(R.Z, Z3);
+  fe_copy<NL>(R.X, X3);
+  fe_copy<NL>(R.Y, Y3);
+  fe_copy<NL>(R.Z, Z3);
 }
 
 // Incomplete mixed add (RegCurve.add_mixed_fast): exact when P is the
 // identity and when P == -q; P == q yields the identity instead of 2q.
-KZG_HD void g1_add_mixed_fast(G1J& R, const G1J& P, const uint32_t qx[NL],
-                              const uint32_t qy[NL], const FieldConsts& F) {
-  if (fe_is_zero(P.Z)) {
-    fe_copy(R.X, qx);
-    fe_copy(R.Y, qy);
-    fe_copy(R.Z, F.one);
+template <int NL>
+KZG_HD void g1_add_mixed_fast(G1J<NL>& R, const G1J<NL>& P,
+                              const uint32_t qx[NL], const uint32_t qy[NL],
+                              const FieldConsts<NL>& F) {
+  if (fe_is_zero<NL>(P.Z)) {
+    fe_copy<NL>(R.X, qx);
+    fe_copy<NL>(R.Y, qy);
+    fe_copy<NL>(R.Z, F.one);
     return;
   }
   uint32_t H[NL], Rr[NL];
@@ -187,23 +195,24 @@ KZG_HD void g1_add_mixed_fast(G1J& R, const G1J& P, const uint32_t qx[NL],
 }
 
 // Complete mixed add (RegCurve.add_mixed); q must be a finite point.
-KZG_HD void g1_add_mixed(G1J& R, const G1J& P, const uint32_t qx[NL],
-                         const uint32_t qy[NL], const FieldConsts& F) {
-  if (fe_is_zero(P.Z)) {
-    fe_copy(R.X, qx);
-    fe_copy(R.Y, qy);
-    fe_copy(R.Z, F.one);
+template <int NL>
+KZG_HD void g1_add_mixed(G1J<NL>& R, const G1J<NL>& P, const uint32_t qx[NL],
+                         const uint32_t qy[NL], const FieldConsts<NL>& F) {
+  if (fe_is_zero<NL>(P.Z)) {
+    fe_copy<NL>(R.X, qx);
+    fe_copy<NL>(R.Y, qy);
+    fe_copy<NL>(R.Z, F.one);
     return;
   }
-  G1J S;
+  G1J<NL> S;
   uint32_t H[NL], Rr[NL];
   g1_madd_general(S, H, Rr, P, qx, qy, F);
-  if (fe_is_zero(H)) {
-    if (fe_is_zero(Rr)) {
+  if (fe_is_zero<NL>(H)) {
+    if (fe_is_zero<NL>(Rr)) {
       g1_double(R, P, F);
     } else {
-      fe_copy(R.X, F.one);
-      fe_copy(R.Y, F.one);
+      fe_copy<NL>(R.X, F.one);
+      fe_copy<NL>(R.Y, F.one);
       for (int k = 0; k < NL; k++) R.Z[k] = 0;
     }
     return;
@@ -212,37 +221,40 @@ KZG_HD void g1_add_mixed(G1J& R, const G1J& P, const uint32_t qx[NL],
 }
 
 // Thread bodies of the K6 / K7 / K9 replacements: one point per thread.
+template <int NL>
 KZG_HD void g1_add_thread(int64_t i, const uint32_t* p, const uint32_t* q,
-                          uint32_t* out, int64_t m, const FieldConsts& F) {
-  G1J P, Q, R;
+                          uint32_t* out, int64_t m, const FieldConsts<NL>& F) {
+  G1J<NL> P, Q, R;
   g1_load(P, p, m, i);
   g1_load(Q, q, m, i);
   g1_add(R, P, Q, F);
   g1_store(out, m, i, R);
 }
 
+template <int NL>
 KZG_HD void g1_double_thread(int64_t i, const uint32_t* p, uint32_t* out,
-                             int64_t m, const FieldConsts& F) {
-  G1J P, R;
+                             int64_t m, const FieldConsts<NL>& F) {
+  G1J<NL> P, R;
   g1_load(P, p, m, i);
   g1_double(R, P, F);
   g1_store(out, m, i, R);
 }
 
-// K9: p (3, 8, m) + the affine point (qx, qy), complete.  qx and qy are
-// (8, qn) planes with qn dividing m; point i takes column i % qn, so one
+// K9: p (3, NL, m) + the affine point (qx, qy), complete.  qx and qy are
+// (NL, qn) planes with qn dividing m; point i takes column i % qn, so one
 // point (qn = 1) or one point per lane (qn = lanes) broadcasts without
 // being materialized at full width.
+template <int NL>
 KZG_HD void g1_add_mixed_thread(int64_t i, const uint32_t* p,
                                 const uint32_t* qx, const uint32_t* qy,
                                 int64_t qn, uint32_t* out, int64_t m,
-                                const FieldConsts& F) {
-  G1J P, R;
+                                const FieldConsts<NL>& F) {
+  G1J<NL> P, R;
   uint32_t x[NL], y[NL];
   g1_load(P, p, m, i);
   int64_t j = i % qn;
-  fe_load(x, qx, qn, j);
-  fe_load(y, qy, qn, j);
+  fe_load<NL>(x, qx, qn, j);
+  fe_load<NL>(y, qy, qn, j);
   g1_add_mixed(R, P, x, y, F);
   g1_store(out, m, i, R);
 }

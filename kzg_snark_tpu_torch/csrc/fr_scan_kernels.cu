@@ -15,7 +15,7 @@
 //   tiles   one block a tile of SCAN_TILE logical elements: a coalesced load
 //           of each limb into shared memory, each thread folds SCAN_PER
 //           consecutive elements in registers, the warp scans its threads'
-//           totals with __shfl_up_sync on the 8 words, one thread scans the
+//           totals with __shfl_up_sync on the NL words, one thread scans the
 //           4 warp totals; writes the tile-local exclusive scan (coalesced,
 //           through shared memory) and the tile's total;
 //   totals  one block scans the tile totals (in place: each becomes its
@@ -31,6 +31,10 @@
 //
 // fr_pow: a^e, one thread an element, square-and-multiply in registers (one
 // launch where the host loop made about 380 for e = p - 2).
+//
+// Both are instantiated at NL = 8 (Fr of both curves, BN254 Fq) and NL = 12
+// (BLS12-381 Fq: the batched inversions of its points); the entry points
+// take the limb count from the consts block.
 //
 // What bounds them on the H100: a scan must read 32 bytes and write 32 an
 // element and do one product; this design moves 128 bytes an element (the
@@ -63,12 +67,14 @@ constexpr unsigned kFull = 0xffffffffu;
 // consecutive elements fall in distinct banks across the warp.
 __device__ __forceinline__ int slot(int e) { return e + (e >> 5); }
 
+template <int NL>
 __device__ __forceinline__ void sm_load(uint32_t r[NL], const uint32_t* sm,
                                         int e) {
 #pragma unroll
   for (int k = 0; k < NL; k++) r[k] = sm[k * kSmStride + slot(e)];
 }
 
+template <int NL>
 __device__ __forceinline__ void sm_store(uint32_t* sm, int e,
                                          const uint32_t r[NL]) {
 #pragma unroll
@@ -79,12 +85,12 @@ __device__ __forceinline__ void sm_store(uint32_t* sm, int e,
 // SCAN_TILE) of (a, ld, inc, n, reverse).  carry (the same in every
 // thread) is the tile's exclusive prefix on entry and the next tile's on
 // return.  If out is not null, writes carry (op) the exclusive scan of the
-// tile into the (8, n) array out; out may be a itself (dense, forward).
-template <int OP>
+// tile into the (NL, n) array out; out may be a itself (dense, forward).
+template <int OP, int NL>
 __device__ __forceinline__ void block_scan_tile(
     const uint32_t* a, int64_t ld, int64_t inc, int64_t n, bool reverse,
     int64_t base, uint32_t carry[NL], uint32_t* out, uint32_t* sm,
-    uint32_t* wsm, const FieldConsts& F) {
+    uint32_t* wsm, const FieldConsts<NL>& F) {
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   __syncthreads();  // the previous tile is done with sm and wsm
 #pragma unroll
@@ -101,10 +107,10 @@ __device__ __forceinline__ void block_scan_tile(
   __syncthreads();
 
   uint32_t acc[NL], x[NL], y[NL];
-  sm_load(acc, sm, t * SCAN_PER);
+  sm_load<NL>(acc, sm, t * SCAN_PER);
 #pragma unroll 1
   for (int j = 1; j < SCAN_PER; j++) {
-    sm_load(x, sm, t * SCAN_PER + j);
+    sm_load<NL>(x, sm, t * SCAN_PER + j);
     scan_op<OP>(acc, acc, x, F);
   }
   // Inclusive scan of the threads' totals across the warp.
@@ -124,7 +130,7 @@ __device__ __forceinline__ void block_scan_tile(
   if (lane == 0) scan_identity<OP>(y, F);
   __syncthreads();
   if (t == 0) {  // warp prefixes, the carry folded in, and the tile total
-    fe_copy(acc, carry);
+    fe_copy<NL>(acc, carry);
 #pragma unroll 1
     for (int v = 0; v < kWarps; v++) {
 #pragma unroll
@@ -147,8 +153,8 @@ __device__ __forceinline__ void block_scan_tile(
   scan_op<OP>(acc, x, y, F);  // the thread's exclusive prefix
 #pragma unroll 1
   for (int j = 0; j < SCAN_PER; j++) {
-    sm_load(x, sm, t * SCAN_PER + j);
-    sm_store(sm, t * SCAN_PER + j, acc);
+    sm_load<NL>(x, sm, t * SCAN_PER + j);
+    sm_store<NL>(sm, t * SCAN_PER + j, acc);
     if (j + 1 < SCAN_PER) scan_op<OP>(acc, acc, x, F);
   }
   __syncthreads();
@@ -165,92 +171,86 @@ __device__ __forceinline__ void block_scan_tile(
 }
 
 // Launch 1: tile-local exclusive scans (if out) and tile totals.
-template <int OP>
+template <int OP, int NL>
 __global__ void __launch_bounds__(SCAN_THREADS)
     k_scan_tiles(const uint32_t* __restrict__ a, int64_t ld, int64_t inc,
                  int64_t n, int reverse, uint32_t* __restrict__ out,
-                 uint32_t* __restrict__ totals, int64_t tiles, FieldConsts F) {
+                 uint32_t* __restrict__ totals, int64_t tiles,
+                 FieldConsts<NL> F) {
   __shared__ uint32_t sm[NL * kSmStride];
   __shared__ uint32_t wsm[(kWarps + 1) * NL];
   uint32_t carry[NL];
   scan_identity<OP>(carry, F);
-  block_scan_tile<OP>(a, ld, inc, n, reverse, (int64_t)blockIdx.x * SCAN_TILE,
-                      carry, out, sm, wsm, F);
-  if (threadIdx.x == 0) fe_store(totals, tiles, blockIdx.x, carry);
+  block_scan_tile<OP, NL>(a, ld, inc, n, reverse,
+                          (int64_t)blockIdx.x * SCAN_TILE, carry, out, sm,
+                          wsm, F);
+  if (threadIdx.x == 0) fe_store<NL>(totals, tiles, blockIdx.x, carry);
 }
 
 // Launch 2, one block: the tile totals become their tiles' exclusive
 // prefixes (if prefixes), and total gets the grand total (if not null).
-template <int OP>
+template <int OP, int NL>
 __global__ void __launch_bounds__(SCAN_THREADS)
     k_scan_totals(uint32_t* totals, int64_t tiles, int prefixes,
-                  uint32_t* total, FieldConsts F) {
+                  uint32_t* total, FieldConsts<NL> F) {
   __shared__ uint32_t sm[NL * kSmStride];
   __shared__ uint32_t wsm[(kWarps + 1) * NL];
   uint32_t carry[NL];
   scan_identity<OP>(carry, F);
   for (int64_t base = 0; base < tiles; base += SCAN_TILE)
-    block_scan_tile<OP>(totals, tiles, 1, tiles, false, base, carry,
+    block_scan_tile<OP, NL>(totals, tiles, 1, tiles, false, base, carry,
                          prefixes ? totals : nullptr, sm, wsm, F);
-  if (threadIdx.x == 0 && total != nullptr) fe_store(total, 1, 0, carry);
+  if (threadIdx.x == 0 && total != nullptr) fe_store<NL>(total, 1, 0, carry);
 }
 
 // Launch 3: every element of a tile after the first takes its prefix.
-template <int OP>
+template <int OP, int NL>
 __global__ void k_scan_fixup(uint32_t* __restrict__ out, int64_t n,
                              const uint32_t* __restrict__ prefix,
-                             int64_t tiles, int reverse, FieldConsts F) {
+                             int64_t tiles, int reverse, FieldConsts<NL> F) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   scan_fixup_thread<OP>(i, out, n, prefix, tiles, reverse != 0, F);
 }
 
-template <int OP>
+template <int OP, int NL>
 int launch_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
                 int reverse, uint32_t* out, uint32_t* total,
-                uint32_t* scratch, const FieldConsts& F, cudaStream_t s) {
+                uint32_t* scratch, const FieldConsts<NL>& F, cudaStream_t s) {
   const int64_t tiles = scan_tiles(n);
-  k_scan_tiles<OP><<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
+  k_scan_tiles<OP, NL><<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
       a, ld, inc, n, reverse, out, scratch, tiles, F);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int prefixes = out != nullptr;
-  k_scan_totals<OP><<<1, SCAN_THREADS, 0, s>>>(scratch, tiles, prefixes,
+  k_scan_totals<OP, NL><<<1, SCAN_THREADS, 0, s>>>(scratch, tiles, prefixes,
                                                total, F);
   rc = (int)cudaGetLastError();
   if (rc || !prefixes) return rc;
-  k_scan_fixup<OP><<<(unsigned)((n + kFixThreads - 1) / kFixThreads),
+  k_scan_fixup<OP, NL><<<(unsigned)((n + kFixThreads - 1) / kFixThreads),
                      kFixThreads, 0, s>>>(out, n, scratch, tiles, reverse, F);
   return (int)cudaGetLastError();
 }
 
+template <int NL>
 struct Exponent {
   uint32_t w[NL];
 };
 
+template <int NL>
 __global__ void k_fr_pow(const uint32_t* __restrict__ a,
-                         uint32_t* __restrict__ out, int64_t n, Exponent e,
-                         int nbits, FieldConsts F) {
+                         uint32_t* __restrict__ out, int64_t n, Exponent<NL> e,
+                         int nbits, FieldConsts<NL> F) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   fe_pow_thread(i, a, out, n, e.w, nbits, F);
 }
 
-}  // namespace
-
-// SCAN_TILE, the elements of a tile: the scratch array of an n-element
-// scan has ceil(n / SCAN_TILE) columns.
-extern "C" int kzg_scan_tile() { return SCAN_TILE; }
-
-// a: (8, ld) words read at columns scan_col(l) * inc, l < n (n >= 1);
-// out: (8, n) or null (total only); total: (8, 1) or null; scratch:
-// (8, scan_tiles(n)).  Launches 3 kernels, or 2 when out is null.
-extern "C" int kzg_fr_scan(const void* a, int64_t ld, int64_t inc, int64_t n,
-                           int op, int reverse, void* out, void* total,
-                           void* scratch, const void* consts, void* stream) {
-  if (n <= 0) return 0;
-  FieldConsts F;
-  memcpy(&F, consts, sizeof(F));
+template <int NL>
+int run_scan(const void* a, int64_t ld, int64_t inc, int64_t n, int op,
+             int reverse, void* out, void* total, void* scratch,
+             const void* consts, void* stream) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   cudaStream_t s = (cudaStream_t)stream;
   if (op == SCAN_OP_MUL)
     return launch_scan<SCAN_OP_MUL>((const uint32_t*)a, ld, inc, n, reverse,
@@ -261,18 +261,40 @@ extern "C" int kzg_fr_scan(const void* a, int64_t ld, int64_t inc, int64_t n,
                                   (uint32_t*)scratch, F, s);
 }
 
-// a, out: (8, n) dense; exponent: 8 words, low first, of bit length nbits.
+template <int NL>
+int run_pow(const void* a, int64_t n, const void* exponent, int nbits,
+            void* out, const void* consts, void* stream) {
+  Exponent<NL> e;
+  memcpy(e.w, exponent, sizeof(e.w));
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  k_fr_pow<NL><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, n, e, nbits, consts_of<NL>(consts));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// SCAN_TILE, the elements of a tile: the scratch array of an n-element
+// scan has ceil(n / SCAN_TILE) columns.
+extern "C" int kzg_scan_tile() { return SCAN_TILE; }
+
+// a: (NL, ld) words read at columns scan_col(l) * inc, l < n (n >= 1);
+// out: (NL, n) or null (total only); total: (NL, 1) or null; scratch:
+// (NL, scan_tiles(n)).  Launches 3 kernels, or 2 when out is null.
+extern "C" int kzg_fr_scan(const void* a, int64_t ld, int64_t inc, int64_t n,
+                           int op, int reverse, void* out, void* total,
+                           void* scratch, const void* consts, void* stream) {
+  if (n <= 0) return 0;
+  return KZG_BY_LIMBS(consts, run_scan, a, ld, inc, n, op, reverse, out,
+                      total, scratch, consts, stream);
+}
+
+// a, out: (NL, n) dense; exponent: NL words, low first, of bit length nbits.
 extern "C" int kzg_fr_pow(const void* a, int64_t n, const void* exponent,
                           int nbits, void* out, const void* consts,
                           void* stream) {
   if (n <= 0) return 0;
-  FieldConsts F;
-  memcpy(&F, consts, sizeof(F));
-  Exponent e;
-  memcpy(e.w, exponent, sizeof(e.w));
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  k_fr_pow<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, n, e, nbits, F);
-  return (int)cudaGetLastError();
+  return KZG_BY_LIMBS(consts, run_pow, a, n, exponent, nbits, out, consts,
+                      stream);
 }

@@ -3,7 +3,10 @@
 // Each entry loops over the thread indices a launch would cover and calls
 // the same __host__ __device__ body the CUDA kernel calls, so the tests on
 // a machine without a card check the kernels' arithmetic and indexing
-// against the plain PyTorch versions.
+// against the plain PyTorch versions.  Each entry is a template on the limb
+// count NL (impl_*), instantiated at 8 and 12 words and chosen by the consts
+// block's limb count, as the CUDA entry points choose theirs (the NTT's at 8
+// words only: its field is Fr).
 #include <stdint.h>
 #include <string.h>
 
@@ -12,16 +15,11 @@
 #include "scan.cuh"
 #include "srs.cuh"
 
-static FieldConsts consts_of(const void* consts) {
-  FieldConsts F;
-  memcpy(&F, consts, sizeof(F));
-  return F;
-}
-
-extern "C" int host_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
-                             const void* b, int64_t ldb, int64_t incb,
-                             void* out, int64_t n, const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
+                         const void* b, int64_t ldb, int64_t incb,
+                         void* out, int64_t n, const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   const uint32_t* x = (const uint32_t*)a;
   const uint32_t* y = (const uint32_t*)b;
   uint32_t* o = (uint32_t*)out;
@@ -37,37 +35,41 @@ extern "C" int host_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
   return 0;
 }
 
-extern "C" int host_g1_add(const void* p, const void* q, void* out, int64_t m,
-                           const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_g1_add(const void* p, const void* q, void* out, int64_t m,
+                       const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t i = 0; i < m; i++)
     g1_add_thread(i, (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out,
                   m, F);
   return 0;
 }
 
-extern "C" int host_g1_double(const void* p, void* out, int64_t m,
-                              const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_g1_double(const void* p, void* out, int64_t m,
+                          const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t i = 0; i < m; i++)
     g1_double_thread(i, (const uint32_t*)p, (uint32_t*)out, m, F);
   return 0;
 }
 
-extern "C" int host_g1_add_mixed(const void* p, const void* qx, const void* qy,
-                                 int64_t qn, void* out, int64_t m,
-                                 const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_g1_add_mixed(const void* p, const void* qx, const void* qy,
+                             int64_t qn, void* out, int64_t m,
+                             const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t i = 0; i < m; i++)
     g1_add_mixed_thread(i, (const uint32_t*)p, (const uint32_t*)qx,
                         (const uint32_t*)qy, qn, (uint32_t*)out, m, F);
   return 0;
 }
 
-extern "C" int host_fr_butterfly(const void* xl, const void* xu, const void* tw,
-                                 const void* mask, void* out, int64_t n,
-                                 const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_fr_butterfly(const void* xl, const void* xu, const void* tw,
+                             const void* mask, void* out, int64_t n,
+                             const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t i = 0; i < n; i++)
     fr_butterfly_thread(i, (const uint32_t*)xl, (const uint32_t*)xu,
                         (const uint32_t*)tw, (const int32_t*)mask,
@@ -81,10 +83,11 @@ extern "C" int host_ntt_tile() { return NTT_TILE_BITS; }
 // stage's twiddles loaded, the stages in radix-4 pairs (a radix-2 stage
 // last when g is odd), the tile stored.  y may be x.  Any tile_bits >= g,
 // so the tests can take tiny tiles.
-extern "C" int host_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
-                             int s0, int g, int tile_bits,
-                             const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
+                         int s0, int g, int tile_bits,
+                         const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   NttPass P = ntt_pass_geometry(n, s0, g, tile_bits);
   const int E = 1 << P.ebits;
   uint32_t* xs = new uint32_t[NL * E];
@@ -113,10 +116,11 @@ extern "C" int host_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
 
 // The table kernel's steps in its order: the chain, the identities, then
 // per level the doublings and the adds.
-extern "C" int host_g1_fixed_base_table(const void* base, void* table,
-                                        int windows, int c,
-                                        const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_g1_fixed_base_table(const void* base, void* table,
+                                    int windows, int c,
+                                    const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   uint32_t* T = (uint32_t*)table;
   uint32_t* steps = new uint32_t[3 * NL * windows];
   fbt_chain((const uint32_t*)base, T, windows, c, F);
@@ -131,11 +135,12 @@ extern "C" int host_g1_fixed_base_table(const void* base, void* table,
   return 0;
 }
 
-extern "C" int host_msm_accumulate(const void* xy, const void* entries,
-                                   const void* chunk_off, int64_t chunks,
-                                   void* partials, int complete,
-                                   const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_msm_accumulate(const void* xy, const void* entries,
+                               const void* chunk_off, int64_t chunks,
+                               void* partials, int complete,
+                               const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t c = 0; c < chunks; c++) {
     if (complete) {
       msm_accumulate_thread<true>(c, (const uint32_t*)xy,
@@ -154,15 +159,16 @@ extern "C" int host_msm_accumulate(const void* xy, const void* entries,
 
 // The window-sum launch: every block's threads, then its shared-memory tree
 // in the kernel's order (thread t < s takes t + s, s halving).
-extern "C" int host_msm_window_sums(const void* partials, int64_t chunks,
-                                    const void* bco, int64_t windows,
-                                    int64_t half, int c, int64_t tpw,
-                                    void* wparts, const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_msm_window_sums(const void* partials, int64_t chunks,
+                                const void* bco, int64_t windows,
+                                int64_t half, int c, int64_t tpw,
+                                void* wparts, const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   int64_t threads = tpw < 128 ? tpw : 128;
   int64_t pieces = tpw / threads;
   int64_t blocks = windows * pieces;
-  G1J* sh = new G1J[threads];
+  G1J<NL>* sh = new G1J<NL>[threads];
   for (int64_t blk = 0; blk < blocks; blk++) {
     int64_t wi = blk / pieces;
     for (int64_t t = 0; t < threads; t++)
@@ -178,17 +184,18 @@ extern "C" int host_msm_window_sums(const void* partials, int64_t chunks,
   return 0;
 }
 
-extern "C" int host_msm_horner(const void* wparts, int64_t sets, int windows,
-                               int pieces, int c, void* out,
-                               const void* consts) {
-  FieldConsts F = consts_of(consts);
-  G1J* S = new G1J[windows];
+template <int NL>
+static int impl_msm_horner(const void* wparts, int64_t sets, int windows,
+                           int pieces, int c, void* out,
+                           const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
+  G1J<NL>* S = new G1J<NL>[windows];
   int64_t m = sets * windows * pieces;
   for (int64_t s = 0; s < sets; s++) {
     for (int w = 0; w < windows; w++)
       msm_window_total(S[w], (const uint32_t*)wparts, m, s * windows + w,
                        pieces, F);
-    G1J acc;
+    G1J<NL> acc;
     msm_horner(acc, S, windows, c, F);
     g1_store((uint32_t*)out, sets, s, acc);
   }
@@ -201,10 +208,10 @@ extern "C" int host_msm_horner(const void* wparts, int64_t sets, int windows,
 // element indexing, tiling, operation and fix-up thread body are the same
 // code): tile-local exclusive scans and totals, the totals' exclusive
 // scan, then the fix-up of every column.
-template <int OP>
+template <int OP, int NL>
 static void host_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
                       bool reverse, uint32_t* out, uint32_t* total,
-                      const FieldConsts& F) {
+                      const FieldConsts<NL>& F) {
   int64_t tiles = scan_tiles(n);
   uint32_t* prefix = new uint32_t[NL * tiles];
   uint32_t run[NL], x[NL];
@@ -214,19 +221,19 @@ static void host_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
       int64_t l = b * SCAN_TILE + e;
       scan_load<OP>(x, a, ld, inc, l, n, reverse, F);
       if (out != nullptr && l < n) {
-        fe_store(out, n, scan_col(l, n, reverse), run);
+        fe_store<NL>(out, n, scan_col(l, n, reverse), run);
       }
       scan_op<OP>(run, run, x, F);
     }
-    fe_store(prefix, tiles, b, run);
+    fe_store<NL>(prefix, tiles, b, run);
   }
   scan_identity<OP>(run, F);
   for (int64_t b = 0; b < tiles; b++) {
-    fe_load(x, prefix, tiles, b);
-    fe_store(prefix, tiles, b, run);
+    fe_load<NL>(x, prefix, tiles, b);
+    fe_store<NL>(prefix, tiles, b, run);
     scan_op<OP>(run, run, x, F);
   }
-  if (total != nullptr) fe_store(total, 1, 0, run);
+  if (total != nullptr) fe_store<NL>(total, 1, 0, run);
   if (out != nullptr)
     for (int64_t i = 0; i < n; i++)
       scan_fixup_thread<OP>(i, out, n, prefix, tiles, reverse, F);
@@ -235,25 +242,108 @@ static void host_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
 
 extern "C" int host_scan_tile() { return SCAN_TILE; }
 
-extern "C" int host_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
-                            int64_t n, int reverse, void* out, void* total,
-                            const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
+                        int64_t n, int reverse, void* out, void* total,
+                        const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   if (op == SCAN_OP_MUL) {
-    host_scan<SCAN_OP_MUL>((const uint32_t*)a, ld, inc, n, reverse != 0,
+    host_scan<SCAN_OP_MUL, NL>((const uint32_t*)a, ld, inc, n, reverse != 0,
                            (uint32_t*)out, (uint32_t*)total, F);
   } else {
-    host_scan<SCAN_OP_ADD>((const uint32_t*)a, ld, inc, n, reverse != 0,
+    host_scan<SCAN_OP_ADD, NL>((const uint32_t*)a, ld, inc, n, reverse != 0,
                            (uint32_t*)out, (uint32_t*)total, F);
   }
   return 0;
 }
 
-extern "C" int host_fr_pow(const void* a, int64_t n, const void* exponent,
-                           int nbits, void* out, const void* consts) {
-  FieldConsts F = consts_of(consts);
+template <int NL>
+static int impl_fr_pow(const void* a, int64_t n, const void* exponent,
+                       int nbits, void* out, const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
   const uint32_t* e = (const uint32_t*)exponent;
   for (int64_t i = 0; i < n; i++)
     fe_pow_thread(i, (const uint32_t*)a, (uint32_t*)out, n, e, nbits, F);
   return 0;
+}
+
+// The entries, each dispatching on the consts block's limb count.
+
+extern "C" int host_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
+                             const void* b, int64_t ldb, int64_t incb,
+                             void* out, int64_t n, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_fr_ewise, op, a, lda, inca, b, ldb, incb,
+                      out, n, consts);
+}
+
+extern "C" int host_g1_add(const void* p, const void* q, void* out, int64_t m,
+                           const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_g1_add, p, q, out, m, consts);
+}
+
+extern "C" int host_g1_double(const void* p, void* out, int64_t m,
+                              const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_g1_double, p, out, m, consts);
+}
+
+extern "C" int host_g1_add_mixed(const void* p, const void* qx, const void* qy,
+                                 int64_t qn, void* out, int64_t m,
+                                 const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_g1_add_mixed, p, qx, qy, qn, out, m, consts);
+}
+
+extern "C" int host_fr_butterfly(const void* xl, const void* xu, const void* tw,
+                                 const void* mask, void* out, int64_t n,
+                                 const void* consts) {
+  if (consts_limbs(consts) != 8) return KZG_BAD_LIMBS;
+  return impl_fr_butterfly<8>(xl, xu, tw, mask, out, n, consts);
+}
+
+extern "C" int host_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
+                             int s0, int g, int tile_bits,
+                             const void* consts) {
+  if (consts_limbs(consts) != 8) return KZG_BAD_LIMBS;
+  return impl_ntt_pass<8>(x, y, tw, n, s0, g, tile_bits, consts);
+}
+
+extern "C" int host_g1_fixed_base_table(const void* base, void* table,
+                                        int windows, int c,
+                                        const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_g1_fixed_base_table, base, table, windows, c,
+                      consts);
+}
+
+extern "C" int host_msm_accumulate(const void* xy, const void* entries,
+                                   const void* chunk_off, int64_t chunks,
+                                   void* partials, int complete,
+                                   const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_msm_accumulate, xy, entries, chunk_off,
+                      chunks, partials, complete, consts);
+}
+
+extern "C" int host_msm_window_sums(const void* partials, int64_t chunks,
+                                    const void* bco, int64_t windows,
+                                    int64_t half, int c, int64_t tpw,
+                                    void* wparts, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_msm_window_sums, partials, chunks, bco,
+                      windows, half, c, tpw, wparts, consts);
+}
+
+extern "C" int host_msm_horner(const void* wparts, int64_t sets, int windows,
+                               int pieces, int c, void* out,
+                               const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_msm_horner, wparts, sets, windows, pieces, c,
+                      out, consts);
+}
+
+extern "C" int host_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
+                            int64_t n, int reverse, void* out, void* total,
+                            const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_fr_scan, op, a, ld, inc, n, reverse, out,
+                      total, consts);
+}
+
+extern "C" int host_fr_pow(const void* a, int64_t n, const void* exponent,
+                           int nbits, void* out, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_fr_pow, a, n, exponent, nbits, out, consts);
 }

@@ -8,39 +8,49 @@
 // points keep index order), and each bucket's run is cut into chunks of at
 // most T entries.
 //
-// xy:        (n, 16) uint32, point-major affine Montgomery (x limbs, y limbs).
+// xy:        (n, 2 NL) uint32, point-major affine Montgomery (x limbs, y
+//            limbs).
 // entries:   (E,) int32, point index << 1 | sign, in bucket order.
 // chunk_off: (C + 1,) int32, chunk c covers entries [chunk_off[c],
 //            chunk_off[c + 1]); chunks are in bucket order.
 // bco:       (nb + 1,) int32, bucket b owns chunks [bco[b], bco[b + 1]).
-// partials:  (3, 8, C) uint32 Jacobian, one per chunk.
+// partials:  (3, NL, C) uint32 Jacobian, one per chunk.
 #pragma once
 
 #include "curve.cuh"
 
-KZG_HD void g1_set_identity(G1J& P, const FieldConsts& F) {
-  fe_copy(P.X, F.one);
-  fe_copy(P.Y, F.one);
+template <int NL>
+KZG_HD void g1_set_identity(G1J<NL>& P, const FieldConsts<NL>& F) {
+  fe_copy<NL>(P.X, F.one);
+  fe_copy<NL>(P.Y, F.one);
   for (int k = 0; k < NL; k++) P.Z[k] = 0;
 }
 
-KZG_HD void g1_select(G1J& R, bool c, const G1J& A, const G1J& B) {
-  fe_select(R.X, c, A.X, B.X);
-  fe_select(R.Y, c, A.Y, B.Y);
-  fe_select(R.Z, c, A.Z, B.Z);
+template <int NL>
+KZG_HD void g1_select(G1J<NL>& R, bool c, const G1J<NL>& A, const G1J<NL>& B) {
+  fe_select<NL>(R.X, c, A.X, B.X);
+  fe_select<NL>(R.Y, c, A.Y, B.Y);
+  fe_select<NL>(R.Z, c, A.Z, B.Z);
 }
 
 // Entry -> the affine point (x, y), y negated for a negative digit.
+template <int NL>
 KZG_HD void msm_load_entry(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
-                           int32_t entry, const FieldConsts& F) {
+                           int32_t entry, const FieldConsts<NL>& F) {
   const uint32_t* p = xy + (int64_t)((uint32_t)entry >> 1) * 2 * NL;
 #ifdef __CUDA_ARCH__
+  // 16-byte loads: a row is 8 NL bytes (64 or 96), so each stays aligned.
   const uint4* v = reinterpret_cast<const uint4*>(p);
-  uint4 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2), d = __ldg(v + 3);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-  y[0] = c.x; y[1] = c.y; y[2] = c.z; y[3] = c.w;
-  y[4] = d.x; y[5] = d.y; y[6] = d.z; y[7] = d.w;
+  uint4 q[NL / 2];
+#pragma unroll
+  for (int j = 0; j < NL / 2; j++) q[j] = __ldg(v + j);
+#pragma unroll
+  for (int j = 0; j < NL / 4; j++) {
+    x[4 * j] = q[j].x; x[4 * j + 1] = q[j].y;
+    x[4 * j + 2] = q[j].z; x[4 * j + 3] = q[j].w;
+    y[4 * j] = q[NL / 4 + j].x; y[4 * j + 1] = q[NL / 4 + j].y;
+    y[4 * j + 2] = q[NL / 4 + j].z; y[4 * j + 3] = q[NL / 4 + j].w;
+  }
 #else
   for (int k = 0; k < NL; k++) {
     x[k] = p[k];
@@ -53,15 +63,15 @@ KZG_HD void msm_load_entry(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
 // Chunk c: its first point is loaded with Z = 1 (not added to the identity,
 // so the incomplete add never meets acc == q on a duplicate-free basis),
 // the rest are mixed-added in entry order.
-template <bool COMPLETE>
+template <bool COMPLETE, int NL>
 KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
                                   const int32_t* entries,
                                   const int32_t* chunk_off, uint32_t* partials,
-                                  int64_t chunks, const FieldConsts& F) {
+                                  int64_t chunks, const FieldConsts<NL>& F) {
   int32_t s = chunk_off[c], e = chunk_off[c + 1];
-  G1J acc;
+  G1J<NL> acc;
   msm_load_entry(acc.X, acc.Y, xy, entries[s], F);
-  fe_copy(acc.Z, F.one);
+  fe_copy<NL>(acc.Z, F.one);
   for (int32_t j = s + 1; j < e; j++) {
     uint32_t x[NL], y[NL];
     msm_load_entry(x, y, xy, entries[j], F);
@@ -78,8 +88,9 @@ KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
 // takes the product with the small loop body (LAT = true): same values.
 //
 // Doubling that leaves the identity alone (its X, Y stay as they are).
-KZG_HD void g1_double_finite(G1J& P, const FieldConsts& F) {
-  if (!fe_is_zero(P.Z)) g1_double<true>(P, P, F);
+template <int NL>
+KZG_HD void g1_double_finite(G1J<NL>& P, const FieldConsts<NL>& F) {
+  if (!fe_is_zero<NL>(P.Z)) g1_double<true>(P, P, F);
 }
 
 // One thread's share of a window sum sum_m m B_m (B_m: the sum of bucket m's
@@ -98,15 +109,16 @@ KZG_HD void g1_double_finite(G1J& P, const FieldConsts& F) {
 // ch - cb + m (cb = bco[base]).  Thread g walks A downward from
 // E - 1 - g E / tpw.  All adds are complete: suffix sums of structured
 // inputs can meet equal points.
-KZG_HD void msm_window_piece(G1J& V, int64_t wi, int64_t g, int64_t tpw,
+template <int NL>
+KZG_HD void msm_window_piece(G1J<NL>& V, int64_t wi, int64_t g, int64_t tpw,
                              const uint32_t* partials, int64_t chunks,
                              const int32_t* bco, int64_t half, int c,
-                             const FieldConsts& F) {
+                             const FieldConsts<NL>& F) {
   int64_t base = wi * half;
   int64_t cb = bco[base];
   int64_t E = (int64_t)bco[base + half] - cb + half;
   int64_t a = g * E / tpw, b = (g + 1) * E / tpw;
-  G1J R, Wt;
+  G1J<NL> R, Wt;
   g1_set_identity(R, F);
   g1_set_identity(Wt, F);
   int64_t m = 0;
@@ -125,7 +137,7 @@ KZG_HD void msm_window_piece(G1J& V, int64_t wi, int64_t g, int64_t tpw,
     int64_t sp = (int64_t)bco[base + m - 1] - cb + m - 1;
     for (int64_t p = hi; p >= E - b; p--) {
       bool st = p == sp;
-      G1J X, Q;
+      G1J<NL> X, Q;
       if (st) {
         Q = R;
       } else {
@@ -142,7 +154,7 @@ KZG_HD void msm_window_piece(G1J& V, int64_t wi, int64_t g, int64_t tpw,
       }
     }
   }
-  G1J acc;
+  G1J<NL> acc;
   g1_set_identity(acc, F);
   for (int bit = c - 1; bit >= 0; bit--) {
     g1_double_finite(acc, F);
@@ -152,19 +164,21 @@ KZG_HD void msm_window_piece(G1J& V, int64_t wi, int64_t g, int64_t tpw,
 }
 
 // Window wi's total: the sum of its P block partials in order.
-KZG_HD void msm_window_total(G1J& S, const uint32_t* wparts, int64_t m,
-                             int64_t wi, int pieces, const FieldConsts& F) {
+template <int NL>
+KZG_HD void msm_window_total(G1J<NL>& S, const uint32_t* wparts, int64_t m,
+                             int64_t wi, int pieces, const FieldConsts<NL>& F) {
   g1_load(S, wparts, m, wi * pieces);
   for (int j = 1; j < pieces; j++) {
-    G1J Q;
+    G1J<NL> Q;
     g1_load(Q, wparts, m, wi * pieces + j);
     g1_add<true>(S, S, Q, F);
   }
 }
 
 // acc = 2^c acc + S_w from the top window down.
-KZG_HD void msm_horner(G1J& acc, const G1J* S, int windows, int c,
-                       const FieldConsts& F) {
+template <int NL>
+KZG_HD void msm_horner(G1J<NL>& acc, const G1J<NL>* S, int windows, int c,
+                       const FieldConsts<NL>& F) {
   g1_set_identity(acc, F);
   for (int w = windows - 1; w >= 0; w--) {
     for (int i = 0; i < c; i++) g1_double_finite(acc, F);

@@ -1,7 +1,7 @@
 // Thread bodies of the NTT kernels (decimation in time, input in
 // bit-reversed order, output in natural order).
 //
-// x and y are (8, n) Fr arrays in Montgomery form; tw is the (8, n/2) table
+// x and y are (NL, n) Fr arrays in Montgomery form; tw is the (NL, n/2) table
 // of root powers w^k.  A stage of span s pairs i with i + s and multiplies
 // the upper element by w^((i mod s) * n / (2 s)), the schedule of
 // kzg_snark_tpu/ops/ntt.py NttContext._transform.
@@ -9,8 +9,9 @@
 
 #include "field.cuh"
 
+template <int NL>
 KZG_HD void ntt_butterfly(uint32_t lo[NL], uint32_t hi[NL],
-                          const uint32_t w[NL], const FieldConsts& F) {
+                          const uint32_t w[NL], const FieldConsts<NL>& F) {
   uint32_t prod[NL];
   fe_mul(prod, hi, w, F);
   fe_sub(hi, lo, prod, F);
@@ -26,7 +27,7 @@ KZG_HD void ntt_butterfly(uint32_t lo[NL], uint32_t hi[NL],
 // pass (s0 = 0) reads contiguous tiles.  In local terms stage s is a plain
 // DIT stage of span S = 2^(lcb + s - s0) over the block's E = 2^(g + lcb)
 // elements; it needs S twiddles, which the block stages in shared memory,
-// every stage's at once, stage s at offset S - 2^lcb of an (8, E) array.
+// every stage's at once, stage s at offset S - 2^lcb of an (NL, E) array.
 //
 // The tile's log2, fixed here: a block holds at most 2^NTT_TILE_BITS
 // elements and as many twiddles, 64 bytes an element of shared memory.
@@ -66,21 +67,21 @@ KZG_HD int64_t ntt_pass_col(const NttPass& P, int64_t b, int e) {
          ntt_pass_lo0(P, b) + lo;
 }
 
-// Tile word idx < 8 2^ebits (limb idx >> ebits, element idx mod 2^ebits of
-// the (8, 2^ebits) tile) is word ntt_pass_word(idx) of x, (8, n).
+// Tile word idx < NL 2^ebits (limb idx >> ebits, element idx mod 2^ebits of
+// the (NL, 2^ebits) tile) is word ntt_pass_word(idx) of x, (NL, n).
 KZG_HD int64_t ntt_pass_word(const NttPass& P, int64_t b, int idx) {
   int k = idx >> P.ebits;
   int e = idx & ((1 << P.ebits) - 1);
   return k * P.n + ntt_pass_col(P, b, e);
 }
 
-// Offset of local stage s's twiddles in the block's (8, E) twiddle array.
+// Offset of local stage s's twiddles in the block's (NL, E) twiddle array.
 KZG_HD int ntt_pass_tw_off(const NttPass& P, int s) {
   return (1 << (P.lcb + s - P.s0)) - (1 << P.lcb);
 }
 
-// Word idx < 8 S of stage s's twiddles: its place in ws, (8, E), and (the
-// return value) its word in the (8, n/2) table of w^j.  The element pairs
+// Word idx < NL S of stage s's twiddles: its place in ws, (NL, E), and (the
+// return value) its word in the (NL, n/2) table of w^j.  The element pairs
 // at span 2^s take w^((i mod 2^s) n / 2^(s+1)); local q < S = 2^(lcb + s -
 // s0), q = mm 2^lcb + lo_local, stands for i mod 2^s = mm 2^s0 + lo0 +
 // lo_local.
@@ -97,26 +98,30 @@ KZG_HD int64_t ntt_pass_tw_word(const NttPass& P, int64_t b, int s, int idx,
 
 // Butterfly j < E/2 of local stage s on the tile xs (radix 2: the last
 // stage of a pass with an odd number of stages).
+template <int NL>
 KZG_HD void ntt_pass_radix2(const NttPass& P, int s, uint32_t* xs,
-                            const uint32_t* ws, int j, const FieldConsts& F) {
+                            const uint32_t* ws, int j,
+                            const FieldConsts<NL>& F) {
   const int sb = P.lcb + s - P.s0;
   const int E = 1 << P.ebits;
   const int p = j & ((1 << sb) - 1);
   const int e0 = ((j >> sb) << (sb + 1)) + p;
   uint32_t a[NL], c[NL], w[NL];
-  fe_load(a, xs, E, e0);
-  fe_load(c, xs, E, e0 + (1 << sb));
-  fe_load(w, ws, E, ntt_pass_tw_off(P, s) + p);
+  fe_load<NL>(a, xs, E, e0);
+  fe_load<NL>(c, xs, E, e0 + (1 << sb));
+  fe_load<NL>(w, ws, E, ntt_pass_tw_off(P, s) + p);
   ntt_butterfly(a, c, w, F);
-  fe_store(xs, E, e0, a);
-  fe_store(xs, E, e0 + (1 << sb), c);
+  fe_store<NL>(xs, E, e0, a);
+  fe_store<NL>(xs, E, e0 + (1 << sb), c);
 }
 
 // Group j < E/4 of local stages s and s + 1 (spans S and 2S) in registers:
 // elements e0 + {0, S, 2S, 3S}; stage s pairs (0, 1) and (2, 3) with
 // twiddle p, stage s + 1 pairs (0, 2) with p and (1, 3) with p + S.
+template <int NL>
 KZG_HD void ntt_pass_radix4(const NttPass& P, int s, uint32_t* xs,
-                            const uint32_t* ws, int j, const FieldConsts& F) {
+                            const uint32_t* ws, int j,
+                            const FieldConsts<NL>& F) {
   const int sb = P.lcb + s - P.s0;
   const int E = 1 << P.ebits;
   const int S = 1 << sb;
@@ -125,38 +130,39 @@ KZG_HD void ntt_pass_radix4(const NttPass& P, int s, uint32_t* xs,
   const int wa = ntt_pass_tw_off(P, s) + p;
   const int wb = ntt_pass_tw_off(P, s + 1) + p;
   uint32_t x0[NL], x1[NL], x2[NL], x3[NL], w[NL];
-  fe_load(x0, xs, E, e0);
-  fe_load(x1, xs, E, e0 + S);
-  fe_load(x2, xs, E, e0 + 2 * S);
-  fe_load(x3, xs, E, e0 + 3 * S);
-  fe_load(w, ws, E, wa);
+  fe_load<NL>(x0, xs, E, e0);
+  fe_load<NL>(x1, xs, E, e0 + S);
+  fe_load<NL>(x2, xs, E, e0 + 2 * S);
+  fe_load<NL>(x3, xs, E, e0 + 3 * S);
+  fe_load<NL>(w, ws, E, wa);
   ntt_butterfly(x0, x1, w, F);
   ntt_butterfly(x2, x3, w, F);
-  fe_load(w, ws, E, wb);
+  fe_load<NL>(w, ws, E, wb);
   ntt_butterfly(x0, x2, w, F);
-  fe_load(w, ws, E, wb + S);
+  fe_load<NL>(w, ws, E, wb + S);
   ntt_butterfly(x1, x3, w, F);
-  fe_store(xs, E, e0, x0);
-  fe_store(xs, E, e0 + S, x1);
-  fe_store(xs, E, e0 + 2 * S, x2);
-  fe_store(xs, E, e0 + 3 * S, x3);
+  fe_store<NL>(xs, E, e0, x0);
+  fe_store<NL>(xs, E, e0 + S, x1);
+  fe_store<NL>(xs, E, e0 + 2 * S, x2);
+  fe_store<NL>(xs, E, e0 + 3 * S, x3);
 }
 
 // K10: one stage combine on pre-aligned rows (the scan-mode NTT):
-// out[i] = mask[i] ? xl[i] - tw[i] xu[i] : xl[i] + tw[i] xu[i] over (8, n).
+// out[i] = mask[i] ? xl[i] - tw[i] xu[i] : xl[i] + tw[i] xu[i] over (NL, n).
+template <int NL>
 KZG_HD void fr_butterfly_thread(int64_t i, const uint32_t* xl,
                                 const uint32_t* xu, const uint32_t* tw,
                                 const int32_t* mask, uint32_t* out, int64_t n,
-                                const FieldConsts& F) {
+                                const FieldConsts<NL>& F) {
   uint32_t a[NL], b[NL], w[NL], prod[NL];
-  fe_load(a, xl, n, i);
-  fe_load(b, xu, n, i);
-  fe_load(w, tw, n, i);
+  fe_load<NL>(a, xl, n, i);
+  fe_load<NL>(b, xu, n, i);
+  fe_load<NL>(w, tw, n, i);
   fe_mul(prod, b, w, F);
   if (mask[i]) {
     fe_sub(a, a, prod, F);
   } else {
     fe_add(a, a, prod, F);
   }
-  fe_store(out, n, i, a);
+  fe_store<NL>(out, n, i, a);
 }

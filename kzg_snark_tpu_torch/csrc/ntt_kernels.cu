@@ -24,6 +24,9 @@
 // Shared memory: 64 bytes an element (the tile and its twiddles), 64 KB a
 // block at 10-bit tiles.  Tiles of 2^8..2^11 elements were measured
 // (PERF.md): 10 bits is the fastest at 2^18 and loses to 9 bits at 2^16.
+// The transforms are over Fr, 8 words on both curves (BN254, BLS12-381),
+// so both kernels are instantiated at NL = 8 alone; an entry point given
+// another limb count returns KZG_BAD_LIMBS.
 //
 // K10 replaces kzg_snark_tpu/ops/pallas_fr.py:_butterfly_call
 // (fused_butterfly), the stage combine of the scan-mode NTT
@@ -42,13 +45,14 @@ namespace {
 constexpr int kThreads = 256;
 
 // One block a tile; x and y may be the same array.
+template <int NL>
 __global__ void __launch_bounds__(NTT_THREADS)
     k_ntt_pass(const uint32_t* x, uint32_t* y, const uint32_t* __restrict__ tw,
-               NttPass P, FieldConsts F) {
+               NttPass P, FieldConsts<NL> F) {
   extern __shared__ uint32_t sm[];
   const int E = 1 << P.ebits;
-  uint32_t* xs = sm;           // (8, E): the tile
-  uint32_t* ws = sm + NL * E;  // (8, E): every stage's twiddles
+  uint32_t* xs = sm;           // (NL, E): the tile
+  uint32_t* ws = sm + NL * E;  // (NL, E): every stage's twiddles
   const int64_t b = blockIdx.x;
   // Tile and twiddles by asynchronous copies (cp.async), all in flight at
   // once: a loop of plain loads would wait on each load in turn.
@@ -79,15 +83,51 @@ __global__ void __launch_bounds__(NTT_THREADS)
     y[ntt_pass_word(P, b, idx)] = xs[idx];
 }
 
+template <int NL>
 __global__ void k_fr_butterfly(const uint32_t* __restrict__ xl,
                                const uint32_t* __restrict__ xu,
                                const uint32_t* __restrict__ tw,
                                const int32_t* __restrict__ mask,
                                uint32_t* __restrict__ out, int64_t n,
-                               FieldConsts F) {
+                               FieldConsts<NL> F) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   fr_butterfly_thread(i, xl, xu, tw, mask, out, n, F);
+}
+
+// Shared memory of a pass: the tile and its twiddles, 2 x 4 NL bytes an
+// element.
+template <int NL>
+size_t pass_smem(int ebits) {
+  return (size_t)(8 * NL) << ebits;
+}
+
+template <int NL>
+int launch_pass(const void* x, void* y, const void* tw, int64_t n, int s0,
+                int g, int tile_bits, const void* consts, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      k_ntt_pass<NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pass_smem<NL>(NTT_MAX_TILE_BITS));
+  if (attr != cudaSuccess) return (int)attr;
+  NttPass P = ntt_pass_geometry(n, s0, g, tile_bits);
+  int groups = P.ebits >= 2 ? 1 << (P.ebits - 2) : 1;
+  int threads = groups < NTT_THREADS ? groups : NTT_THREADS;
+  k_ntt_pass<NL><<<(unsigned)P.blocks, threads, pass_smem<NL>(P.ebits),
+                   (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, P,
+      consts_of<NL>(consts));
+  return (int)cudaGetLastError();
+}
+
+template <int NL>
+int launch_butterfly(const void* xl, const void* xu, const void* tw,
+                     const void* mask, void* out, int64_t n,
+                     const void* consts, void* stream) {
+  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  k_fr_butterfly<NL><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)xl, (const uint32_t*)xu, (const uint32_t*)tw,
+      (const int32_t*)mask, (uint32_t*)out, n, consts_of<NL>(consts));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -96,7 +136,7 @@ __global__ void k_fr_butterfly(const uint32_t* __restrict__ xl,
 // of 2^k are ceil(k / NTT_TILE_BITS).
 extern "C" int kzg_ntt_tile() { return NTT_TILE_BITS; }
 
-// One pass: stages s0 .. s0 + g - 1 of the transform of x (8, n), n = 2^k,
+// One pass: stages s0 .. s0 + g - 1 of the transform of x (NL, n), n = 2^k,
 // into y (which may be x), with tiles of 2^tile_bits elements.
 extern "C" int kzg_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
                             int s0, int g, int tile_bits, const void* consts,
@@ -105,30 +145,14 @@ extern "C" int kzg_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
       tile_bits > NTT_MAX_TILE_BITS || g < 1 || g > tile_bits || s0 < 0 ||
       ((int64_t)1 << (s0 + g)) > n)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      k_ntt_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      64 << NTT_MAX_TILE_BITS);
-  if (attr != cudaSuccess) return (int)attr;
-  FieldConsts F;
-  memcpy(&F, consts, sizeof(F));
-  NttPass P = ntt_pass_geometry(n, s0, g, tile_bits);
-  int groups = P.ebits >= 2 ? 1 << (P.ebits - 2) : 1;
-  int threads = groups < NTT_THREADS ? groups : NTT_THREADS;
-  size_t smem = (size_t)64 << P.ebits;
-  k_ntt_pass<<<(unsigned)P.blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, P, F);
-  return (int)cudaGetLastError();
+  if (consts_limbs(consts) != 8) return KZG_BAD_LIMBS;
+  return launch_pass<8>(x, y, tw, n, s0, g, tile_bits, consts, stream);
 }
 
 extern "C" int kzg_fr_butterfly(const void* xl, const void* xu, const void* tw,
                                 const void* mask, void* out, int64_t n,
                                 const void* consts, void* stream) {
   if (n <= 0) return 0;
-  FieldConsts F;
-  memcpy(&F, consts, sizeof(F));
-  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  k_fr_butterfly<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)xl, (const uint32_t*)xu, (const uint32_t*)tw,
-      (const int32_t*)mask, (uint32_t*)out, n, F);
-  return (int)cudaGetLastError();
+  if (consts_limbs(consts) != 8) return KZG_BAD_LIMBS;
+  return launch_butterfly<8>(xl, xu, tw, mask, out, n, consts, stream);
 }

@@ -15,14 +15,14 @@ import random
 import torch
 
 from .fr import FieldBackend
-from .g1 import curve_ops
+from .g1 import curve_ops, generator
 from .limbs import ints_to_words, to_tensor
 
 K_BITS = 128
 
 
 def normalize_points(f: FieldBackend, pts: torch.Tensor) -> torch.Tensor:
-    """(3, 8, n) Jacobian -> the same points with Z = 1 (no identities)."""
+    """(3, L, n) Jacobian -> the same points with Z = 1 (no identities)."""
     zinv = f.batch_inv(pts[2].contiguous())
     zinv2 = f.mul(zinv, zinv)
     ax = f.mul(pts[0], zinv2)
@@ -32,8 +32,8 @@ def normalize_points(f: FieldBackend, pts: torch.Tensor) -> torch.Tensor:
 
 def random_point_basis(curve_type: str, size: int, seed: int,
                        device="cuda") -> tuple[torch.Tensor, list[int]]:
-    """(points (3, 8, size) with Z = 1 on ``device``, multipliers k_i)."""
-    from .. import constants as C
+    """(points (3, L, size) with Z = 1 on ``device``, multipliers k_i), G
+    the curve's generator."""
     from .host import curve as hc
     from .host.field import base_field
 
@@ -42,7 +42,8 @@ def random_point_basis(curve_type: str, size: int, seed: int,
           for _ in range(size)]
 
     Fp = base_field(curve_type)
-    P = (Fp(C.BN254_G1[0]), Fp(C.BN254_G1[1]), Fp(1))
+    gx, gy = generator(curve_type)
+    P = (Fp(gx), Fp(gy), Fp(1))
     bx, by = [], []
     for _ in range(K_BITS):
         a = hc.normalize(P)
@@ -51,7 +52,7 @@ def random_point_basis(curve_type: str, size: int, seed: int,
         P = hc.double(P)
     curve = curve_ops(curve_type, device)
     f = curve.f
-    bases = curve.from_affine_ints(bx, by)                 # (3, 8, K_BITS)
+    bases = curve.from_affine_ints(bx, by)                 # (3, L, K_BITS)
     kw = to_tensor(ints_to_words(ks), device)              # (8, size)
     acc = curve.identity((size,)).contiguous()
     for j in range(K_BITS):

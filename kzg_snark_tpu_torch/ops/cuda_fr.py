@@ -11,11 +11,18 @@ A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.  Plain versions also take CUDA
 tensors when called directly (the on-card comparison does so).
 
-Plain arithmetic: torch has no unsigned shifts on the CPU, so the plain
-versions widen the 32-bit limbs to int64.  Additions ripple carries over
-8 words; products split words into 16-bit halves (a 16 x 16-bit product
-and a column of 32 of them fit int64) and reduce with word-serial
-Montgomery steps of 16 bits.
+Every function takes L = ``fc.num_limbs`` words an element: (L, n)
+fields and (3, L, m) points, L = 8 or 12 (``ops/limbs.py``).
+
+Plain arithmetic: torch has no unsigned shifts on the CPU, so the digit
+arithmetic widens the 32-bit limbs to int64: additions ripple carries
+over L words; products split words into 2 L 16-bit halves (a column of
+at most 2 x 24 16 x 16-bit products, with its carries, stays below 2^41)
+and reduce with word-serial Montgomery steps of 16 bits.  CUDA tensors
+and CPU batches of more than ``INT_COLUMNS`` elements take it; smaller
+CPU batches take exact Python integers: the same values in a few torch
+ops where the digits take 100 to 180, which set the time of small
+batches (the bit-serial MSMs' curve formulas).
 """
 
 from __future__ import annotations
@@ -23,21 +30,22 @@ from __future__ import annotations
 import torch
 
 from ..utils.build import check, count_launch, cuda_lib
-from .limbs import NUM_LIMBS, FieldConsts
+from .limbs import FieldConsts
 
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
 
 # ---------------------------------------------------------------------------
-# Plain field arithmetic.  Inputs (8, ...) int32 broadcastable against each
-# other along the batch dims; outputs (8, *batch) int32.
+# Plain field arithmetic.  Inputs (L, ...) int32 broadcastable against each
+# other along the batch dims; outputs (L, *batch) int32.
 # ---------------------------------------------------------------------------
 
 
 def _flat_pair(a: torch.Tensor, b: torch.Tensor):
-    a, b = torch.broadcast_tensors(a, b)
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
-    return a.reshape(NUM_LIMBS, -1), b.reshape(NUM_LIMBS, -1), shape
+    return a.reshape(shape[0], -1), b.reshape(shape[0], -1), shape
 
 
 def _wide(a: torch.Tensor) -> torch.Tensor:
@@ -50,20 +58,51 @@ def _narrow(w: torch.Tensor) -> torch.Tensor:
 
 
 def _ripple32(s: torch.Tensor):
-    """Carry-normalize word sums along dim 1 of (K, 8, N) int64; returns
+    """Carry-normalize word sums along dim 1 of (K, L, N) int64; returns
     (words in [0, 2^32), signed carry out of the top word) per K."""
     words = []
     carry = torch.zeros_like(s[:, 0])
-    for i in range(NUM_LIMBS):
+    for i in range(s.shape[1]):
         v = s[:, i] + carry
         words.append(v & M32)
         carry = v >> 32
     return torch.stack(words, dim=1), carry
 
 
+INT_COLUMNS = 1 << 14
+
+
+def _by_ints(a: torch.Tensor) -> bool:
+    """Whether a flat (L, n) operand takes the Python-integer path."""
+    return a.device.type == "cpu" and 0 < a.shape[1] <= INT_COLUMNS
+
+
+def _int_op(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor, op: str,
+            n_add: int = 0) -> torch.Tensor:
+    """(L, n) a (op) b over Python ints: op "mul" (Montgomery), "add",
+    "sub", or "addsub" (columns [0, n_add) added, the rest subtracted)."""
+    n, nb, p = a.shape[1], 4 * fc.num_limbs, fc.modulus
+    buf = torch.cat([a, b], dim=1).t().contiguous().numpy().tobytes()
+    v = [int.from_bytes(buf[i:i + nb], "little")
+         for i in range(0, len(buf), nb)]
+    x, y = v[:n], v[n:]
+    if op == "mul":
+        r_inv = fc.r_inv
+        out = [u * w % p * r_inv % p for u, w in zip(x, y)]
+    else:
+        k = n if op == "add" else n_add if op == "addsub" else 0
+        out = [(u + w) % p for u, w in zip(x[:k], y[:k])] + \
+            [(u - w) % p for u, w in zip(x[k:], y[k:])]
+    data = b"".join(u.to_bytes(nb, "little") for u in out)
+    return torch.frombuffer(bytearray(data), dtype=torch.int32).reshape(
+        n, fc.num_limbs).t().contiguous()
+
+
 def add_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
     a, b, shape = _flat_pair(a, b)
+    if _by_ints(a):
+        return _int_op(fc, a, b, "add").reshape(shape)
     p = fc.tensors(a.device)["p32"]
     s = _wide(a) + _wide(b)
     words, carry = _ripple32(torch.stack([s, s - p]))
@@ -74,6 +113,8 @@ def add_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
 def sub_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
     a, b, shape = _flat_pair(a, b)
+    if _by_ints(a):
+        return _int_op(fc, a, b, "sub").reshape(shape)
     p = fc.tensors(a.device)["p32"]
     d = _wide(a) - _wide(b)
     words, carry = _ripple32(torch.stack([d, d + p]))
@@ -82,28 +123,31 @@ def sub_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
 
 
 def _split16(w: torch.Tensor) -> torch.Tensor:
-    """(8, N) int64 words -> (16, N) 16-bit limbs."""
-    return torch.stack([w & M16, w >> 16], dim=1).reshape(2 * NUM_LIMBS, -1)
+    """(L, N) int64 words -> (2 L, N) 16-bit limbs."""
+    return torch.stack([w & M16, w >> 16], dim=1).reshape(2 * w.shape[0], -1)
 
 
-_COL_INDEX: dict[str, torch.Tensor] = {}
+_COL_INDEX: dict[tuple[int, str], torch.Tensor] = {}
 
 
-def _col_index(device) -> torch.Tensor:
-    key = str(device)
+def _col_index(digits: int, device) -> torch.Tensor:
+    """Column i + j of the digit product i, j: (digits^2,)."""
+    key = (digits, str(device))
     if key not in _COL_INDEX:
-        i = torch.arange(16)
+        i = torch.arange(digits)
         _COL_INDEX[key] = (i[:, None] + i[None, :]).reshape(-1).to(device)
     return _COL_INDEX[key]
 
 
-_MUL_CHUNK = 1 << 15   # columns per pass: bounds the (16, 16, N) product
+_MUL_CHUNK = 1 << 15   # columns per pass: bounds the (2 L, 2 L, N) product
 
 
 def mul_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
     """Montgomery product a b R^-1 mod p (the K1 plain version)."""
     a, b, shape = _flat_pair(a, b)
+    if _by_ints(a):
+        return _int_op(fc, a, b, "mul").reshape(shape)
     if a.shape[1] > _MUL_CHUNK:
         return torch.cat([_mul_flat(fc, a[:, i:i + _MUL_CHUNK],
                                     b[:, i:i + _MUL_CHUNK])
@@ -116,21 +160,23 @@ def _mul_flat(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
     consts = fc.tensors(a.device)
     n = a.shape[1]
+    L = fc.num_limbs
+    D = 2 * L                               # 16-bit digits an element
     A = _split16(_wide(a))
     B = _split16(_wide(b))
-    prod = (A[:, None, :] * B[None, :, :]).reshape(256, n)
-    t = torch.zeros((33, n), dtype=torch.int64, device=a.device)
-    t.index_add_(0, _col_index(a.device), prod)
+    prod = (A[:, None, :] * B[None, :, :]).reshape(D * D, n)
+    t = torch.zeros((2 * D + 1, n), dtype=torch.int64, device=a.device)
+    t.index_add_(0, _col_index(D, a.device), prod)
     p16 = consts["p16"]
     n0 = fc.n0_16
     rows = t.unbind(0)
-    for i in range(16):
-        m = (rows[i] * n0) & M16            # t_i < 2^40: no overflow
-        t[i:i + 16].addcmul_(m, p16)
+    for i in range(D):
+        m = (rows[i] * n0) & M16            # t_i < 2^41: no overflow
+        t[i:i + D].addcmul_(m, p16)
         rows[i + 1].add_(rows[i] >> 16)
-    # Columns 16..31 hold the result (< 2p) in uncarried 16-bit digits
-    # below 2^39: pair them into 32-bit-weighted sums (< 2^56) and ripple.
-    hi = t[16:32].reshape(NUM_LIMBS, 2, n)
+    # Columns D..2D-1 hold the result (< 2p < R) in uncarried 16-bit digits
+    # below 2^41: pair them into 32-bit-weighted sums (< 2^58) and ripple.
+    hi = t[D:2 * D].reshape(L, 2, n)
     w = hi[:, 0] + (hi[:, 1] << 16)
     words, carry = _ripple32(torch.stack([w, w - consts["p32"]]))
     out = torch.where(carry[1] < 0, words[0], words[1])
@@ -139,10 +185,12 @@ def _mul_flat(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
 
 def addsub_plain(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor,
                  n_add: int) -> torch.Tensor:
-    """(8, N) columns [0, n_add) get a + b mod p, the rest a - b mod p: the
+    """(L, N) columns [0, n_add) get a + b mod p, the rest a - b mod p: the
     add_plain and sub_plain values, in one pass."""
-    p = fc.tensors(a.device)["p32"]
     n = a.shape[1]
+    if _by_ints(a):
+        return _int_op(fc, a, b, "addsub", n_add)
+    p = fc.tensors(a.device)["p32"]
     add = torch.arange(n, device=a.device) < n_add
     sign = torch.where(add, 1, -1)
     d = _wide(a) + _wide(b) * sign
@@ -186,14 +234,15 @@ class PlainField:
 
     def one_like(self, a):
         one = self.fc.tensors(a.device)["one"]
-        return one.reshape((NUM_LIMBS,) + (1,) * (a.dim() - 1)).expand(
+        return one.reshape((a.shape[0],) + (1,) * (a.dim() - 1)).expand(
             a.shape)
 
     @staticmethod
     def _side_by_side(pairs):
-        shapes = [torch.broadcast_shapes(a.shape, b.shape) for a, b in pairs]
+        shapes = [a.shape if a.shape == b.shape else
+                  torch.broadcast_shapes(a.shape, b.shape) for a, b in pairs]
         flat = lambda i: torch.cat(  # noqa: E731
-            [ab[i].expand(s).reshape(NUM_LIMBS, -1)
+            [ab[i].expand(s).reshape(s[0], -1)
              for ab, s in zip(pairs, shapes)], dim=1)
         return flat(0), flat(1), shapes
 
@@ -228,7 +277,7 @@ class PlainField:
 
 
 # ---------------------------------------------------------------------------
-# Plain curve formulas (ops/regcurve.py order).  Points are (3, 8, ...)
+# Plain curve formulas (ops/regcurve.py order).  Points are (3, L, ...)
 # int32; the identity is Z = 0.  Each step lists the independent ops of one
 # level of the formula.
 # ---------------------------------------------------------------------------
@@ -337,19 +386,19 @@ def add_mixed_formula(f, P, qx, qy):
 
 def g1_add_plain(fc: FieldConsts, p: torch.Tensor, q: torch.Tensor
                  ) -> torch.Tensor:
-    """K6 plain version: complete Jacobian add of (3, 8, ...) batches."""
+    """K6 plain version: complete Jacobian add of (3, L, ...) batches."""
     return add_formula(PlainField(fc), p, q)
 
 
 def g1_double_plain(fc: FieldConsts, p: torch.Tensor) -> torch.Tensor:
-    """K7 plain version: Jacobian doubling of a (3, 8, ...) batch."""
+    """K7 plain version: Jacobian doubling of a (3, L, ...) batch."""
     return double_formula(PlainField(fc), p)
 
 
 def g1_add_mixed_plain(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
                        qy: torch.Tensor) -> torch.Tensor:
-    """K9 plain version: complete p + (qx, qy, 1) on a (3, 8, m) batch;
-    qx, qy (8, qn) with qn dividing m, point i taking column i % qn."""
+    """K9 plain version: complete p + (qx, qy, 1) on a (3, L, m) batch;
+    qx, qy (L, qn) with qn dividing m, point i taking column i % qn."""
     reps = p.shape[2] // qx.shape[1]
     return add_mixed_formula(PlainField(fc), p, qx.repeat(1, reps),
                              qy.repeat(1, reps))
@@ -386,21 +435,21 @@ _EWISE_PLAIN = {"fr_mul": mul_plain, "fr_add": add_plain,
 
 def _ewise(name: str, fc: FieldConsts, a: torch.Tensor, b: torch.Tensor
            ) -> torch.Tensor:
-    """(8, n) op (8, n); either operand may be (8, 1) and broadcast."""
+    """(L, n) op (L, n); either operand may be (L, 1) and broadcast."""
     if _on_cpu(a, b):
         return _EWISE_PLAIN[name](fc, a, b)
     _require_cuda(name, a, b)
-    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != NUM_LIMBS \
-            or b.shape[0] != NUM_LIMBS:
-        raise ValueError(f"{name}: expected (8, n) operands, got "
+    L = fc.num_limbs
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != L or b.shape[0] != L:
+        raise ValueError(f"{name}: expected ({L}, n) operands, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     n = max(a.shape[1], b.shape[1])
     if a.shape[1] not in (1, n) or b.shape[1] not in (1, n):
         raise ValueError(f"{name}: cannot broadcast {tuple(a.shape)} "
                          f"with {tuple(b.shape)}")
-    out = torch.empty((NUM_LIMBS, n), dtype=torch.int32, device=a.device)
+    out = torch.empty((L, n), dtype=torch.int32, device=a.device)
     fn = getattr(cuda_lib(), "kzg_" + name)
-    count_launch(name, width=n)
+    count_launch(name, width=n, limbs=L)
     check(fn(a.data_ptr(), a.shape[1], int(a.shape[1] != 1),
              b.data_ptr(), b.shape[1], int(b.shape[1] != 1),
              out.data_ptr(), n, fc.ptr, _stream(a)), name)
@@ -420,35 +469,36 @@ def fr_sub(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ewise("fr_sub", fc, a, b)
 
 
-def _points_check(name: str, *pts: torch.Tensor) -> int:
+def _points_check(name: str, fc: FieldConsts, *pts: torch.Tensor) -> int:
     _require_cuda(name, *pts)
     shape = pts[0].shape
+    L = fc.num_limbs
     for p in pts:
-        if p.dim() != 3 or p.shape[:2] != (3, NUM_LIMBS) or p.shape != shape:
-            raise ValueError(f"{name}: expected equal (3, 8, m) point "
+        if p.dim() != 3 or p.shape[:2] != (3, L) or p.shape != shape:
+            raise ValueError(f"{name}: expected equal (3, {L}, m) point "
                              f"batches, got {[tuple(x.shape) for x in pts]}")
     return shape[2]
 
 
 def g1_add(fc: FieldConsts, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """K6: complete Jacobian add of two (3, 8, m) batches."""
+    """K6: complete Jacobian add of two (3, L, m) batches."""
     if _on_cpu(p, q):
         return g1_add_plain(fc, p, q)
-    m = _points_check("g1_add", p, q)
+    m = _points_check("g1_add", fc, p, q)
     out = torch.empty_like(p)
-    count_launch("g1_add", width=m)
+    count_launch("g1_add", width=m, limbs=fc.num_limbs)
     check(cuda_lib().kzg_g1_add(p.data_ptr(), q.data_ptr(), out.data_ptr(),
                                 m, fc.ptr, _stream(p)), "g1_add")
     return out
 
 
 def g1_double(fc: FieldConsts, p: torch.Tensor) -> torch.Tensor:
-    """K7: Jacobian doubling of a (3, 8, m) batch."""
+    """K7: Jacobian doubling of a (3, L, m) batch."""
     if _on_cpu(p):
         return g1_double_plain(fc, p)
-    m = _points_check("g1_double", p)
+    m = _points_check("g1_double", fc, p)
     out = torch.empty_like(p)
-    count_launch("g1_double", width=m)
+    count_launch("g1_double", width=m, limbs=fc.num_limbs)
     check(cuda_lib().kzg_g1_double(p.data_ptr(), out.data_ptr(), m, fc.ptr,
                                    _stream(p)), "g1_double")
     return out
@@ -456,19 +506,20 @@ def g1_double(fc: FieldConsts, p: torch.Tensor) -> torch.Tensor:
 
 def g1_add_mixed(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
                  qy: torch.Tensor) -> torch.Tensor:
-    """K9: complete p + (qx, qy, 1) of a (3, 8, m) batch and (8, qn)
+    """K9: complete p + (qx, qy, 1) of a (3, L, m) batch and (L, qn)
     affine planes, qn dividing m; point i takes column i % qn."""
     if _on_cpu(p, qx, qy):
         return g1_add_mixed_plain(fc, p, qx, qy)
-    m = _points_check("g1_add_mixed", p)
+    m = _points_check("g1_add_mixed", fc, p)
     _require_cuda("g1_add_mixed", p, qx, qy)
     qn = qx.shape[-1]
-    if qx.shape != (NUM_LIMBS, qn) or qy.shape != qx.shape or qn < 1 \
+    if qx.shape != (fc.num_limbs, qn) or qy.shape != qx.shape or qn < 1 \
             or m % qn:
         raise ValueError(f"g1_add_mixed: q planes {tuple(qx.shape)} / "
                          f"{tuple(qy.shape)} do not tile {m} points")
     out = torch.empty_like(p)
-    count_launch("g1_add_mixed", width=m)
+    count_launch("g1_add_mixed", width=m,
+                 limbs=fc.num_limbs)
     check(cuda_lib().kzg_g1_add_mixed(p.data_ptr(), qx.data_ptr(),
                                       qy.data_ptr(), qn, out.data_ptr(), m,
                                       fc.ptr, _stream(p)), "g1_add_mixed")

@@ -1,9 +1,10 @@
 """Batched prime-field arithmetic on PyTorch tensors.
 
 Counterpart of ``kzg_snark_tpu/ops/fr.py`` ``FieldBackend``: the same ops
-with the same semantics over ``(8, ...)`` int32 limb tensors (see
-``ops/limbs.py``), Montgomery form with R = 2^256, canonical values in and
-out.  Scalars are ``(8, 1)`` columns that broadcast over ``(8, n)``.
+with the same semantics over ``(L, ...)`` int32 limb tensors (see
+``ops/limbs.py``; L = 8 for both curves' Fr and BN254 Fq, 12 for BLS12-381
+Fq), Montgomery form with R = 2^(32 L), canonical values in and out.
+Scalars are ``(L, 1)`` columns that broadcast over ``(L, n)``.
 
 Elementwise mul/square/add/sub/neg go through the K1 wrappers of
 ``ops/cuda_fr.py``; powers, inverses, scans and reductions through
@@ -17,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import cuda_fr, scan
-from .limbs import (NUM_LIMBS, FieldConsts, ints_to_words, to_tensor,
-                    to_words, words_to_ints)
+from .limbs import (FieldConsts, ints_to_words, to_tensor, to_words,
+                    words_to_ints)
 
 
 def canonical_device(device) -> torch.device:
@@ -48,11 +49,11 @@ class FieldBackend:
     def _init(self, modulus: int, device: torch.device) -> None:
         self.modulus = modulus
         self.device = device
-        self.num_limbs = NUM_LIMBS
         self.consts = FieldConsts(modulus)
         fc = self.consts
-        col = lambda v: to_tensor(ints_to_words([v]), device)   # noqa: E731
-        self.one_mont = col(fc.one_mont)            # (8, 1)
+        self.num_limbs = L = fc.num_limbs
+        col = lambda v: to_tensor(ints_to_words([v], L), device)  # noqa: E731
+        self.one_mont = col(fc.one_mont)            # (L, 1)
         self.r2_limbs = col(fc.r2)
         self.one_canonical = col(1)                 # from_mont multiplier
         self.zero_limbs = col(0)
@@ -61,44 +62,45 @@ class FieldBackend:
     # Host <-> device conversion (canonical ints at the boundary).
     # ------------------------------------------------------------------
     def from_ints(self, values) -> torch.Tensor:
-        """Python ints -> Montgomery limb tensor (8, N) on the device."""
+        """Python ints -> Montgomery limb tensor (L, N) on the device."""
         p = self.modulus
-        raw = to_tensor(ints_to_words([int(v) % p for v in values]),
-                        self.device)
+        raw = to_tensor(ints_to_words([int(v) % p for v in values],
+                                      self.num_limbs), self.device)
         return self.to_mont(raw)
 
     def to_ints(self, arr: torch.Tensor) -> list[int]:
-        """Montgomery limb tensor (8, ...) -> flat list of canonical ints."""
-        flat = arr.reshape(NUM_LIMBS, -1)
+        """Montgomery limb tensor (L, ...) -> flat list of canonical ints."""
+        flat = arr.reshape(self.num_limbs, -1)
         return words_to_ints(to_words(self.from_mont(flat)))
 
     def scalar(self, value: int) -> torch.Tensor:
-        """One element in Montgomery form, shape (8, 1)."""
+        """One element in Montgomery form, shape (L, 1)."""
         return self.from_ints([value])
 
     def full(self, col: torch.Tensor, count: int) -> torch.Tensor:
-        """An (8, 1) column repeated to (8, count)."""
-        return col.expand(NUM_LIMBS, count).contiguous()
+        """An (L, 1) column repeated to (L, count)."""
+        return col.expand(self.num_limbs, count).contiguous()
 
     # ------------------------------------------------------------------
     # Elementwise ring ops (K1 and its add/sub entry points).
     # ------------------------------------------------------------------
     def _ewise(self, op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Apply an (8, n)-shaped wrapper to any broadcastable (8, ...)."""
+        """Apply an (L, n)-shaped wrapper to any broadcastable (L, ...)."""
         if a.dim() == 2 and b.dim() == 2 and (
                 a.shape == b.shape or 1 in (a.shape[1], b.shape[1])):
             return op(self.consts, a.contiguous(), b.contiguous())
+        L = self.num_limbs
         shape = torch.broadcast_shapes(a.shape, b.shape)
-        if a.shape == shape and b.numel() == NUM_LIMBS:
-            out = op(self.consts, a.reshape(NUM_LIMBS, -1).contiguous(),
-                     b.reshape(NUM_LIMBS, 1).contiguous())
-        elif b.shape == shape and a.numel() == NUM_LIMBS:
-            out = op(self.consts, a.reshape(NUM_LIMBS, 1).contiguous(),
-                     b.reshape(NUM_LIMBS, -1).contiguous())
+        if a.shape == shape and b.numel() == L:
+            out = op(self.consts, a.reshape(L, -1).contiguous(),
+                     b.reshape(L, 1).contiguous())
+        elif b.shape == shape and a.numel() == L:
+            out = op(self.consts, a.reshape(L, 1).contiguous(),
+                     b.reshape(L, -1).contiguous())
         else:
             out = op(self.consts,
-                     a.expand(shape).reshape(NUM_LIMBS, -1).contiguous(),
-                     b.expand(shape).reshape(NUM_LIMBS, -1).contiguous())
+                     a.expand(shape).reshape(L, -1).contiguous(),
+                     b.expand(shape).reshape(L, -1).contiguous())
         return out.reshape(shape)
 
     def mul(self, a, b):
@@ -143,7 +145,7 @@ class FieldBackend:
         """a^e for a static exponent; a^0 = 1 even for a = 0."""
         if exponent < 0:
             raise ValueError("negative exponents: use inv() then pow_const")
-        flat = a.reshape(NUM_LIMBS, -1).contiguous()
+        flat = a.reshape(self.num_limbs, -1).contiguous()
         return scan.fr_pow(self.consts, flat, exponent).reshape(a.shape)
 
     def inv(self, a):
@@ -151,7 +153,7 @@ class FieldBackend:
         return self.pow_const(a, self.modulus - 2)
 
     def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Montgomery-trick inversion of an (8, N) batch: exclusive prefix
+        """Montgomery-trick inversion of an (L, N) batch: exclusive prefix
         and suffix products, one Fermat inversion of the total.  Zero
         entries map to zero."""
         zero = self.is_zero(a)
@@ -162,20 +164,20 @@ class FieldBackend:
         return torch.where(zero[None], torch.zeros_like(out), out)
 
     def exclusive_prefix_prod(self, a: torch.Tensor) -> torch.Tensor:
-        """out[j] = prod_{i<j} a[i] for an (8, N); out[0] = 1.  ``a`` may
+        """out[j] = prod_{i<j} a[i] for an (L, N); out[0] = 1.  ``a`` may
         repeat one column (``expand``): the kernel reads it with step 0."""
         return scan.fr_scan(self.consts, a, scan.MUL)[0]
 
     def sum_reduce(self, a: torch.Tensor) -> torch.Tensor:
-        """Sum an (8, N) batch along the last axis -> (8, 1)."""
+        """Sum an (L, N) batch along the last axis -> (L, 1)."""
         return scan.fr_scan(self.consts, a, scan.ADD, want_scan=False)[1]
 
     def suffix_sums_exclusive(self, a: torch.Tensor) -> torch.Tensor:
-        """out[j] = sum_{i>j} a[i] for an (8, N)."""
+        """out[j] = sum_{i>j} a[i] for an (L, N)."""
         return scan.fr_scan(self.consts, a, scan.ADD, reverse=True)[0]
 
     def powers_of(self, c: int, count: int) -> torch.Tensor:
-        """[1, c, ..., c^(count-1)] (8, count) Montgomery, by doubling
+        """[1, c, ..., c^(count-1)] (L, count) Montgomery, by doubling
         concatenation (log2(count) muls)."""
         c = c % self.modulus
         table = self.one_mont
@@ -187,15 +189,21 @@ class FieldBackend:
         return table[:, :count].contiguous()
 
 
-def fr_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
+def _moduli(curve_type: str) -> tuple[int, int]:
+    """(r, p): the curve's scalar and base field moduli."""
     from .. import constants as C
-    if curve_type != "bn254":
-        raise ValueError("the port supports bn254 only so far")
-    return FieldBackend(C.BN254_R, device)
+    if curve_type == "bn254":
+        return C.BN254_R, C.BN254_P
+    if curve_type == "bls12_381":
+        return C.BLS12_381_R, C.BLS12_381_P
+    raise ValueError(f"unsupported curve type: {curve_type}")
+
+
+def fr_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
+    """The scalar field: 8 words on both curves."""
+    return FieldBackend(_moduli(curve_type)[0], device)
 
 
 def fq_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
-    from .. import constants as C
-    if curve_type != "bn254":
-        raise ValueError("the port supports bn254 only so far")
-    return FieldBackend(C.BN254_P, device)
+    """The base field: 8 words at BN254, 12 at BLS12-381."""
+    return FieldBackend(_moduli(curve_type)[1], device)

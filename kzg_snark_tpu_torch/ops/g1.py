@@ -1,8 +1,9 @@
 """Batched short-Weierstrass (a = 0) curve arithmetic on PyTorch tensors.
 
 Counterpart of ``kzg_snark_tpu/ops/g1.py`` ``CurveOps``.  A batch of points
-is an int32 tensor of shape (3, 8, ...): Jacobian (X, Y, Z) over Fq limbs in
-Montgomery form, the identity encoded as Z = 0.  ``add`` and ``double``
+is an int32 tensor of shape (3, L, ...): Jacobian (X, Y, Z) over the L Fq
+limbs in Montgomery form (L = 8 at BN254, 12 at BLS12-381), the identity
+encoded as Z = 0.  ``add`` and ``double``
 dispatch as ``g1.py:77-94`` does: to the K6 / K7 kernels for CUDA tensors
 and to their plain versions for CPU tensors.  The formulas are those of
 ``ops/regcurve.py``, so every representative equals the JAX package's.
@@ -18,7 +19,6 @@ import torch
 
 from . import cuda_fr
 from .fr import FieldBackend, fq_backend
-from .limbs import NUM_LIMBS
 
 
 class CurveOps:
@@ -26,26 +26,28 @@ class CurveOps:
 
     def __init__(self, backend: FieldBackend):
         self.f = backend
+        self.num_limbs = backend.num_limbs
 
     # -- constructors ---------------------------------------------------
     def _ones(self, batch_shape) -> torch.Tensor:
-        col = self.f.one_mont.reshape((NUM_LIMBS,) + (1,) * len(batch_shape))
-        return col.expand((NUM_LIMBS,) + tuple(batch_shape))
+        L = self.num_limbs
+        col = self.f.one_mont.reshape((L,) + (1,) * len(batch_shape))
+        return col.expand((L,) + tuple(batch_shape))
 
     def identity(self, batch_shape=(1,)) -> torch.Tensor:
         x = self._ones(batch_shape)
         return torch.stack([x, x, torch.zeros_like(x)])
 
     def from_affine_ints(self, xs, ys) -> torch.Tensor:
-        """Host ints -> (3, 8, N) Jacobian with Z = 1."""
+        """Host ints -> (3, L, N) Jacobian with Z = 1."""
         x = self.f.from_ints(xs)
         y = self.f.from_ints(ys)
         return torch.stack([x, y, self._ones(x.shape[1:])])
 
     def to_affine_ints(self, pts: torch.Tensor) -> list:
-        """(3, 8, ...) -> list of (x, y) int tuples, None for the identity."""
+        """(3, L, ...) -> list of (x, y) int tuples, None for the identity."""
         f = self.f
-        flat = pts.reshape(3, NUM_LIMBS, -1)
+        flat = pts.reshape(3, self.num_limbs, -1)
         X, Y, Z = flat[0], flat[1], flat[2]
         zinv = f.inv(Z)
         zinv2 = f.mul(zinv, zinv)
@@ -56,7 +58,7 @@ class CurveOps:
 
     # -- group law (K6 / K7) ----------------------------------------------
     def _flat(self, pts: torch.Tensor) -> torch.Tensor:
-        return pts.reshape(3, NUM_LIMBS, -1).contiguous()
+        return pts.reshape(3, self.num_limbs, -1).contiguous()
 
     def add(self, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """Complete Jacobian add; batches broadcast against each other."""
@@ -75,23 +77,24 @@ class CurveOps:
         batch.  A q that varies only along p's trailing batch dims (one
         point, or one per lane) is passed as a small table with a column
         period, never expanded."""
+        L = self.num_limbs
         batch = p.shape[2:]
         qb = list(qx.shape[1:])
         while qb and qb[0] == 1:
             qb.pop(0)
         if tuple(qb) == tuple(batch[len(batch) - len(qb):]):
-            qx = qx.reshape(NUM_LIMBS, -1)
-            qy = qy.reshape(NUM_LIMBS, -1)
+            qx = qx.reshape(L, -1)
+            qy = qy.reshape(L, -1)
         else:
-            qx = qx.expand((NUM_LIMBS,) + batch).reshape(NUM_LIMBS, -1)
-            qy = qy.expand((NUM_LIMBS,) + batch).reshape(NUM_LIMBS, -1)
+            qx = qx.expand((L,) + batch).reshape(L, -1)
+            qy = qy.expand((L,) + batch).reshape(L, -1)
         out = cuda_fr.g1_add_mixed(self.f.consts, self._flat(p),
                                    qx.contiguous(), qy.contiguous())
         return out.reshape(p.shape)
 
     # -- reductions -----------------------------------------------------
     def tree_sum(self, pts: torch.Tensor) -> torch.Tensor:
-        """Sum a (3, 8, ..., N) batch along the last axis -> (3, 8, ..., 1)
+        """Sum a (3, L, ..., N) batch along the last axis -> (3, L, ..., 1)
         by a padded halving tree."""
         n = pts.shape[-1]
         while n > 1:
@@ -107,3 +110,9 @@ class CurveOps:
 
 def curve_ops(curve_type: str = "bn254", device="cuda") -> CurveOps:
     return CurveOps(fq_backend(curve_type, device))
+
+
+def generator(curve_type: str) -> tuple[int, int]:
+    """The curve's G1 generator, affine (x, y)."""
+    from .. import constants as C
+    return C.BN254_G1 if curve_type == "bn254" else C.BLS12_381_G1

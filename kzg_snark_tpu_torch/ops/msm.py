@@ -15,6 +15,11 @@ the number of points n as the JAX ``MsmContext`` does:
 ``commit`` pads the SRS slice to a power of two (``DeviceSRS.slice_pow2``)
 as the JAX ``commit`` does, so a commit takes the same route on the same
 length in both packages.
+
+Points are (3, L, n) over the curve's base field (L = 8 at BN254, 12 at
+BLS12-381); scalars are (8, n) canonical Fr limbs on both curves.
+``complete=None`` reads ``KZG_TPU_COMPLETE_ADD`` at call time, as the JAX
+``FusedMsm._resolve_complete`` does (``ops/msm_kernel.resolve_complete``).
 """
 
 from __future__ import annotations
@@ -23,22 +28,21 @@ import functools
 
 import torch
 
-from .. import constants as C
 from . import cuda_fr
 from .fr import canonical_device, fr_backend
-from .g1 import CurveOps
-from .limbs import NUM_LIMBS, ints_to_words, to_tensor
+from .g1 import CurveOps, generator
+from .limbs import SCALAR_LIMBS, ints_to_words, to_tensor
 from .msm_kernel import fused_msm
 
 SMALL_THRESHOLD = 256
 FUSED_THRESHOLD = 2048
 SCAN_WINDOW_BITS = 8
-SCALAR_BITS = 32 * NUM_LIMBS          # bit rows of the bit-serial route
+SCALAR_BITS = 32 * SCALAR_LIMBS       # bit rows of the bit-serial route
 
 
 def halve_sum_last(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
-    """Tree sum along the last (power-of-two) axis: (3, 8, ..., n) ->
-    (3, 8, ...)."""
+    """Tree sum along the last (power-of-two) axis: (3, L, ..., n) ->
+    (3, L, ...)."""
     n = pts.shape[-1]
     while n > 1:
         half = n // 2
@@ -61,8 +65,8 @@ def suffix_ladder(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
 
 def _small_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor
                ) -> torch.Tensor:
-    """Bit-serial double-and-add: points (3, 8, n), scalars (k, 8, n)
-    canonical -> (3, 8, k).  Each bit row is one add of width k n (K6) and
+    """Bit-serial double-and-add: points (3, L, n), scalars (k, 8, n)
+    canonical -> (3, L, k).  Each bit row is one add of width k n (K6) and
     one doubling of the n bases (K7); then a halving tree per set."""
     k, _, n = scalars.shape
     words = cuda_fr._wide(scalars)                         # (k, 8, n)
@@ -87,23 +91,23 @@ def _choose_lanes(n: int) -> int:
 
 def _scan_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor,
               gen: torch.Tensor) -> torch.Tensor:
-    """Scan Pippenger of one scalar set: points (3, 8, n) with Z = 1,
-    scalars (8, n) canonical -> (3, 8, 1)."""
+    """Scan Pippenger of one scalar set: points (3, L, n) with Z = 1,
+    scalars (8, n) canonical -> (3, L, 1)."""
     c = SCAN_WINDOW_BITS
-    n = points.shape[-1]
+    L, n = points.shape[1], points.shape[-1]
     lanes = _choose_lanes(n)
     steps = -(-n // lanes)
     pad = steps * lanes - n
     if pad:       # the generator with digit 0: lands in the dropped bucket
-        points = torch.cat([points, gen.expand(3, NUM_LIMBS, pad)], dim=-1)
-    pts = points.reshape(3, NUM_LIMBS, steps, lanes)
+        points = torch.cat([points, gen.expand(3, L, pad)], dim=-1)
+    pts = points.reshape(3, L, steps, lanes)
     words = cuda_fr._wide(scalars)
     if pad:
         words = torch.cat([words, torch.zeros_like(words[:, :pad])], dim=1)
     per_word = 32 // c
     dig = torch.stack([(words[w // per_word] >> (c * (w % per_word)))
                        & ((1 << c) - 1)
-                       for w in range(NUM_LIMBS * per_word)])   # (W, n)
+                       for w in range(SCALAR_LIMBS * per_word)])  # (W, n)
     W, B = dig.shape[0], 1 << c
     dig = dig.reshape(W, steps, lanes)
 
@@ -112,17 +116,17 @@ def _scan_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor,
     lane = torch.arange(lanes, device=dig.device)[None, :]
     for s in range(steps):
         flat = ((w_base + dig[:, s, :]) * lanes + lane).reshape(-1)
-        cur = buckets[:, :, flat].reshape(3, NUM_LIMBS, W, lanes)
+        cur = buckets[:, :, flat].reshape(3, L, W, lanes)
         new = curve.add_mixed(cur, pts[0, :, s][:, None, :],
                               pts[1, :, s][:, None, :])
-        buckets[:, :, flat] = new.reshape(3, NUM_LIMBS, W * lanes)
-    buckets = buckets.reshape(3, NUM_LIMBS, W, B, lanes)
+        buckets[:, :, flat] = new.reshape(3, L, W * lanes)
+    buckets = buckets.reshape(3, L, W, B, lanes)
     buckets[2, :, :, 0, :] = 0                   # drop bucket 0
 
-    merged = halve_sum_last(curve, buckets)               # (3, 8, W, B)
+    merged = halve_sum_last(curve, buckets)               # (3, L, W, B)
     suffix = suffix_ladder(curve, merged)
     suffix[2, :, :, 0] = 0                       # exclude the j = 0 term
-    window_sums = halve_sum_last(curve, suffix)           # (3, 8, W)
+    window_sums = halve_sum_last(curve, suffix)           # (3, L, W)
 
     acc = curve.identity((1,)).contiguous()
     for w in range(W - 1, -1, -1):
@@ -141,8 +145,8 @@ class MsmContext:
         self.fused = fused_msm(curve_type, self.device)
         self.curve = self.fused.curve
         self.scalar_backend = fr_backend(curve_type, self.device)
-        self._gen = self.curve.from_affine_ints([C.BN254_G1[0]],
-                                                [C.BN254_G1[1]])
+        gx, gy = generator(curve_type)
+        self._gen = self.curve.from_affine_ints([gx], [gy])
 
     @staticmethod
     def route(n: int) -> str:
@@ -154,16 +158,18 @@ class MsmContext:
         return "scan"
 
     def msm(self, points: torch.Tensor, scalars: torch.Tensor,
-            complete: bool = False) -> torch.Tensor:
-        """sum_i scalars[i] points[i] -> (3, 8, 1) Jacobian.
+            complete: bool | None = None) -> torch.Tensor:
+        """sum_i scalars[i] points[i] -> (3, L, 1) Jacobian.
 
-        points: (3, 8, N) with Z = 1 (affine, never the identity).
+        points: (3, L, N) with Z = 1 (affine, never the identity).
         scalars: (8, N) canonical (non-Montgomery) limbs, or (k, 8, N)
-            for k MSMs over the same points -> (3, 8, k).
-        complete: the bucket route's default incomplete add is sound only
-            for a duplicate-free, unstructured basis (SRS powers of a
-            random tau, ``random_point_basis``); pass True for structured
-            bases.  The other routes always use complete adds.
+            for k MSMs over the same points -> (3, L, k).
+        complete: the bucket route's incomplete add (None with
+            KZG_TPU_COMPLETE_ADD unset) is sound only for a
+            duplicate-free, unstructured basis (SRS powers of a random
+            tau, ``random_point_basis``); pass True, or set the variable,
+            for structured bases.  The other routes always use complete
+            adds.
         """
         route = self.route(points.shape[-1])
         if route == "bucket":

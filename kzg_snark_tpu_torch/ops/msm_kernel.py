@@ -20,14 +20,19 @@ and combine order, so the two give the same Jacobian representatives.  A
 wrapper takes the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.
 
-``complete=False`` (the default) uses the incomplete mixed add in the
-accumulate, sound for duplicate-free unstructured bases (SRS powers,
-``random_point_basis``); pass ``complete=True`` for structured bases such
-as [(i+1) G].  The reduction always uses complete adds.
+``complete=False`` uses the incomplete mixed add in the accumulate, sound
+for duplicate-free unstructured bases (SRS powers, ``random_point_basis``);
+pass ``complete=True`` for structured bases such as [(i+1) G].  The
+default, None, reads ``KZG_TPU_COMPLETE_ADD`` at call time
+(``resolve_complete``).  The reduction always uses complete adds.
+
+Points are (3, L, n) over the base field, L = ``fc.num_limbs`` (8 at
+BN254, 12 at BLS12-381); scalars (8, n) Fr limbs on both curves.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -36,7 +41,7 @@ from ..utils.build import check, count_launch, cuda_lib
 from . import cuda_fr
 from .fr import canonical_device, fr_backend
 from .g1 import curve_ops
-from .limbs import NUM_LIMBS, FieldConsts
+from .limbs import FieldConsts
 
 MAX_WINDOW_BITS = 16        # digit magnitudes fit the 16 bits below the sign
 CHUNK = 16                  # most entries a chunk (one accumulate thread)
@@ -53,6 +58,15 @@ SIGN_SHIFT = 16
 # the table, one more bit for each doubling of n.
 WINDOW_BITS_BY_LOG_N = {11: 9, 12: 10, 13: 10, 14: 10, 15: 10, 16: 10,
                         17: 12, 18: 12}
+
+
+def resolve_complete(complete: bool | None) -> bool:
+    """An explicit bool wins; None reads KZG_TPU_COMPLETE_ADD now ("1",
+    "true" or "on" mean complete), never at construction: the contexts
+    are cached (the JAX ``FusedMsm._resolve_complete``)."""
+    if complete is not None:
+        return complete
+    return os.environ.get("KZG_TPU_COMPLETE_ADD", "0") in ("1", "true", "on")
 
 
 def window_bits(n: int) -> int:
@@ -170,9 +184,9 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
 
 
 def point_table(points: torch.Tensor) -> torch.Tensor:
-    """(3, 8, n) with Z = 1 -> (n, 16) point-major x, y limbs."""
+    """(3, L, n) with Z = 1 -> (n, 2 L) point-major x, y limbs."""
     n = points.shape[-1]
-    return points[:2].reshape(2 * NUM_LIMBS, n).t().contiguous()
+    return points[:2].reshape(2 * points.shape[1], n).t().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +195,12 @@ def point_table(points: torch.Tensor) -> torch.Tensor:
 
 
 def _load_entries(f, xy: torch.Tensor, ent: torch.Tensor):
-    """Entries (m,) -> affine planes (8, m), y negated for a negative
+    """Entries (m,) -> affine planes (L, m), y negated for a negative
     digit."""
     e = ent.to(torch.int64)
     pt = xy[e >> 1]
-    x, y = pt[:, :NUM_LIMBS].t(), pt[:, NUM_LIMBS:].t()
+    L = xy.shape[1] // 2
+    x, y = pt[:, :L].t(), pt[:, L:].t()
     return x, torch.where((e & 1).bool()[None], f.neg(y), y)
 
 
@@ -216,21 +231,21 @@ def msm_accumulate_plain(fc: FieldConsts, xy: torch.Tensor,
 
 def msm_accumulate(fc: FieldConsts, xy: torch.Tensor, entries: torch.Tensor,
                    chunk_off: torch.Tensor, complete: bool) -> torch.Tensor:
-    """K8: xy (n, 16) points, sorted entries (E,), chunk offsets (C + 1,)
-    -> chunk partials (3, 8, C) Jacobian."""
+    """K8: xy (n, 2 L) points, sorted entries (E,), chunk offsets (C + 1,)
+    -> chunk partials (3, L, C) Jacobian."""
     if cuda_fr._on_cpu(xy, entries, chunk_off):
         return msm_accumulate_plain(fc, xy, entries, chunk_off, complete)
     cuda_fr._require_cuda("msm_accumulate", xy, entries, chunk_off)
-    if xy.dim() != 2 or xy.shape[1] != 2 * NUM_LIMBS or entries.dim() != 1 \
+    L = fc.num_limbs
+    if xy.dim() != 2 or xy.shape[1] != 2 * L or entries.dim() != 1 \
             or chunk_off.dim() != 1 or chunk_off.numel() < 1:
         raise ValueError(
             f"msm_accumulate: points {tuple(xy.shape)}, entries "
             f"{tuple(entries.shape)}, chunk offsets {tuple(chunk_off.shape)}")
     chunks = chunk_off.numel() - 1
-    out = torch.empty((3, NUM_LIMBS, chunks), dtype=torch.int32,
-                      device=xy.device)
+    out = torch.empty((3, L, chunks), dtype=torch.int32, device=xy.device)
     if chunks:
-        count_launch("msm_accumulate")
+        count_launch("msm_accumulate", limbs=L)
         check(cuda_lib().kzg_msm_accumulate(
             xy.data_ptr(), entries.data_ptr(), chunk_off.data_ptr(), chunks,
             out.data_ptr(), int(bool(complete)), fc.ptr,
@@ -250,8 +265,9 @@ def reduce_shape(window_threads: int) -> tuple[int, int]:
 
 
 def _identity(f, shape, dev) -> torch.Tensor:
-    one = f.fc.tensors(dev)["one"].reshape((NUM_LIMBS,) + (1,) * len(shape))
-    one = one.expand((NUM_LIMBS,) + tuple(shape))
+    L = f.fc.num_limbs
+    one = f.fc.tensors(dev)["one"].reshape((L,) + (1,) * len(shape))
+    one = one.expand((L,) + tuple(shape))
     return torch.stack([one, one, torch.zeros_like(one)])
 
 
@@ -265,7 +281,7 @@ def window_sums_plain(fc: FieldConsts, partials: torch.Tensor,
                       window_threads: int) -> torch.Tensor:
     """Plain version of the window-sum launch (``msm_window_piece`` and the
     block tree), every thread of every window a lane -> block partials
-    (3, 8, windows * blocks a window)."""
+    (3, L, windows * blocks a window)."""
     f = cuda_fr.PlainField(fc)
     add = cuda_fr.add_formula
     dev = partials.device
@@ -313,7 +329,7 @@ def window_sums_plain(fc: FieldConsts, partials: torch.Tensor,
         acc = torch.where(take[None, None], add(f, acc, R), acc)
     V = add(f, Wt, acc)
     block, _ = reduce_shape(tpw)
-    V = V.reshape(3, NUM_LIMBS, -1, block)
+    V = V.reshape(3, fc.num_limbs, -1, block)
     while V.shape[-1] > 1:
         s = V.shape[-1] // 2
         V = add(f, V[..., :s], V[..., s:])
@@ -323,10 +339,10 @@ def window_sums_plain(fc: FieldConsts, partials: torch.Tensor,
 def horner_plain(fc: FieldConsts, wparts: torch.Tensor, sets: int,
                  windows: int, c: int) -> torch.Tensor:
     """Plain version of the Horner launch: window totals from the block
-    partials (3, 8, sets * windows * blocks) in order, then
-    acc = 2^c acc + S_w from the top window -> (3, 8, sets)."""
+    partials (3, L, sets * windows * blocks) in order, then
+    acc = 2^c acc + S_w from the top window -> (3, L, sets)."""
     f = cuda_fr.PlainField(fc)
-    parts = wparts.reshape(3, NUM_LIMBS, sets, windows, -1)
+    parts = wparts.reshape(3, fc.num_limbs, sets, windows, -1)
     S = parts[..., 0]
     for j in range(1, parts.shape[-1]):
         S = cuda_fr.add_formula(f, S, parts[..., j])
@@ -341,7 +357,7 @@ def horner_plain(fc: FieldConsts, wparts: torch.Tensor, sets: int,
 def reduce_window_sums(fc: FieldConsts, partials: torch.Tensor,
                        bco: torch.Tensor, windows: int, c: int,
                        window_threads: int) -> torch.Tensor:
-    """First launch of ``msm_reduce``: chunk partials (3, 8, C) and bucket
+    """First launch of ``msm_reduce``: chunk partials (3, L, C) and bucket
     chunk offsets (windows * 2^(c-1) + 1,) -> block partials."""
     if cuda_fr._on_cpu(partials, bco):
         return window_sums_plain(fc, partials, bco, windows, c,
@@ -349,7 +365,7 @@ def reduce_window_sums(fc: FieldConsts, partials: torch.Tensor,
     cuda_fr._require_cuda("msm_reduce", partials, bco)
     half = 1 << (c - 1)
     block, blocks = reduce_shape(window_threads)
-    if partials.dim() != 3 or partials.shape[:2] != (3, NUM_LIMBS) \
+    if partials.dim() != 3 or partials.shape[:2] != (3, fc.num_limbs) \
             or bco.shape != (windows * half + 1,) \
             or window_threads & (window_threads - 1) \
             or not 1 <= window_threads <= MAX_WINDOW_THREADS:
@@ -357,9 +373,9 @@ def reduce_window_sums(fc: FieldConsts, partials: torch.Tensor,
             f"msm_reduce: partials {tuple(partials.shape)}, bucket offsets "
             f"{tuple(bco.shape)} for {windows} windows of c = {c}, "
             f"{window_threads} threads a window")
-    out = torch.empty((3, NUM_LIMBS, windows * blocks), dtype=torch.int32,
-                      device=partials.device)
-    count_launch("msm_reduce")
+    out = torch.empty((3, fc.num_limbs, windows * blocks),
+                      dtype=torch.int32, device=partials.device)
+    count_launch("msm_reduce", limbs=fc.num_limbs)
     check(cuda_lib().kzg_msm_window_sums(
         partials.data_ptr(), partials.shape[-1], bco.data_ptr(), windows,
         half, c, window_threads, out.data_ptr(), fc.ptr,
@@ -369,19 +385,19 @@ def reduce_window_sums(fc: FieldConsts, partials: torch.Tensor,
 
 def reduce_horner(fc: FieldConsts, wparts: torch.Tensor, sets: int,
                   windows: int, c: int) -> torch.Tensor:
-    """Second launch of ``msm_reduce``: block partials (3, 8, sets * W *
-    blocks) -> the MSM results (3, 8, sets)."""
+    """Second launch of ``msm_reduce``: block partials (3, L, sets * W *
+    blocks) -> the MSM results (3, L, sets)."""
     if cuda_fr._on_cpu(wparts):
         return horner_plain(fc, wparts, sets, windows, c)
     cuda_fr._require_cuda("msm_reduce", wparts)
-    if wparts.dim() != 3 or wparts.shape[:2] != (3, NUM_LIMBS) \
+    if wparts.dim() != 3 or wparts.shape[:2] != (3, fc.num_limbs) \
             or wparts.shape[-1] % (sets * windows) or windows > 32:
         raise ValueError(f"msm_reduce: block partials "
                          f"{tuple(wparts.shape)} for {sets} sets of "
                          f"{windows} windows")
-    out = torch.empty((3, NUM_LIMBS, sets), dtype=torch.int32,
+    out = torch.empty((3, fc.num_limbs, sets), dtype=torch.int32,
                       device=wparts.device)
-    count_launch("msm_reduce")
+    count_launch("msm_reduce", limbs=fc.num_limbs)
     check(cuda_lib().kzg_msm_horner(
         wparts.data_ptr(), sets, windows,
         wparts.shape[-1] // (sets * windows), c, out.data_ptr(), fc.ptr,
@@ -400,8 +416,8 @@ def msm_reduce_plain(fc: FieldConsts, partials: torch.Tensor,
 def msm_reduce(fc: FieldConsts, partials: torch.Tensor, bco: torch.Tensor,
                sets: int, windows: int, c: int, window_threads: int
                ) -> torch.Tensor:
-    """Chunk partials (3, 8, C) and bucket chunk offsets -> the MSM results
-    (3, 8, sets): two launches, window sums then Horner."""
+    """Chunk partials (3, L, C) and bucket chunk offsets -> the MSM results
+    (3, L, sets): two launches, window sums then Horner."""
     wparts = reduce_window_sums(fc, partials, bco, sets * windows, c,
                                 window_threads)
     return reduce_horner(fc, wparts, sets, windows, c)
@@ -426,19 +442,20 @@ class FusedMsm:
         return sets.shape[0], c, dig.shape[1], bucket_schedule(dig, c)
 
     def msm(self, points: torch.Tensor, scalars: torch.Tensor,
-            complete: bool = False) -> torch.Tensor:
-        """sum_i scalars[i] points[i] -> (3, 8, 1); scalars (k, 8, n)
-        give (3, 8, k)."""
+            complete: bool | None = None) -> torch.Tensor:
+        """sum_i scalars[i] points[i] -> (3, L, 1); scalars (k, 8, n)
+        give (3, L, k).  ``complete``: see ``resolve_complete``."""
         k, c, W, sched = self.schedule(scalars, points.shape[-1])
         fc = self.curve.f.consts
         partials = msm_accumulate(fc, point_table(points), sched.entries,
-                                  sched.chunk_off, complete)
+                                  sched.chunk_off,
+                                  resolve_complete(complete))
         return msm_reduce(fc, partials, sched.bucket_chunks, k, W, c,
                           sched.window_threads)
 
     def msm_many(self, points: torch.Tensor, scalars: torch.Tensor,
-                 complete: bool = False) -> torch.Tensor:
-        """K MSMs over one point set: scalars (k, 8, n) -> (3, 8, k)."""
+                 complete: bool | None = None) -> torch.Tensor:
+        """K MSMs over one point set: scalars (k, 8, n) -> (3, L, k)."""
         return self.msm(points, scalars, complete)
 
 

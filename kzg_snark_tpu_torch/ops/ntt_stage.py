@@ -23,16 +23,16 @@ import torch
 
 from ..utils.build import check, count_launch, cuda_lib
 from . import cuda_fr
-from .limbs import NUM_LIMBS, FieldConsts
+from .limbs import FieldConsts
 
 
 def radix2_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
                  span: int) -> torch.Tensor:
-    """One stage of span ``span`` on (8, n); tw is the (8, n/2) table."""
+    """One stage of span ``span`` on (L, n); tw is the (L, n/2) table."""
     f = cuda_fr.PlainField(fc)
     L, n = x.shape
     stride = n // (2 * span)
-    w = tw[:, 0:span * stride:stride]                       # (8, span)
+    w = tw[:, 0:span * stride:stride]                       # (L, span)
     v = x.reshape(L, n // (2 * span), 2, span)
     prod = f.mul(v[:, :, 1], w[:, None, :])
     lo = v[:, :, 0]
@@ -42,7 +42,7 @@ def radix2_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
 
 def ntt_pass_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
                    s0: int, g: int) -> torch.Tensor:
-    """Stages s0 .. s0 + g - 1 (spans 2^s0 .. 2^(s0+g-1)) on (8, n)."""
+    """Stages s0 .. s0 + g - 1 (spans 2^s0 .. 2^(s0+g-1)) on (L, n)."""
     for s in range(s0, s0 + g):
         x = radix2_plain(fc, x, tw, 1 << s)
     return x
@@ -64,8 +64,8 @@ def pass_plan(n: int, t: int) -> list[tuple[int, int]]:
 def ntt_pass(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor, s0: int,
              g: int, t: int, out: torch.Tensor | None = None
              ) -> torch.Tensor:
-    """One launch: stages s0 .. s0 + g - 1 of the transform of x (8, n)
-    against tw (8, n/2), tiles of 2^t elements (g <= t <= 11), into ``out``
+    """One launch: stages s0 .. s0 + g - 1 of the transform of x (L, n)
+    against tw (L, n/2), tiles of 2^t elements (g <= t <= 11), into ``out``
     (a new tensor if None; may be x itself)."""
     if cuda_fr._on_cpu(x, tw):
         y = ntt_pass_plain(fc, x, tw, s0, g)
@@ -73,15 +73,16 @@ def ntt_pass(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor, s0: int,
     out = torch.empty_like(x) if out is None else out
     cuda_fr._require_cuda("ntt_pass", x, tw, out)
     L, n = x.shape
-    if L != NUM_LIMBS or n < 2 or n & (n - 1) \
-            or tw.shape != (NUM_LIMBS, n // 2) or out.shape != x.shape:
-        raise ValueError(f"ntt_pass: expected x and out (8, 2^k), k >= 1, "
-                         f"and tw (8, n/2), got {tuple(x.shape)}, "
+    if L != fc.num_limbs or n < 2 or n & (n - 1) \
+            or tw.shape != (L, n // 2) or out.shape != x.shape:
+        raise ValueError(f"ntt_pass: expected x and out ({fc.num_limbs}, "
+                         f"2^k), k >= 1, and tw (L, n/2), got "
+                         f"{tuple(x.shape)}, "
                          f"{tuple(out.shape)}, {tuple(tw.shape)}")
     if s0 < 0 or not 1 <= g <= t or 1 << (s0 + g) > n:
         raise ValueError(f"ntt_pass: bad stages {s0}..{s0 + g - 1} for "
                          f"n = {n}, tile 2^{t}")
-    count_launch("ntt_pass", width=n)
+    count_launch("ntt_pass", width=n, limbs=L)
     check(cuda_lib().kzg_ntt_pass(x.data_ptr(), out.data_ptr(),
                                   tw.data_ptr(), n, s0, g, t, fc.ptr,
                                   cuda_fr._stream(x)), "ntt_pass")
@@ -90,7 +91,7 @@ def ntt_pass(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor, s0: int,
 
 def butterfly_plain(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
                     tw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """K10 plain version over (8, n); mask (n,) int32, nonzero = upper."""
+    """K10 plain version over (L, n); mask (n,) int32, nonzero = upper."""
     f = cuda_fr.PlainField(fc)
     prod = f.mul(xu, tw)
     return torch.where((mask != 0)[None], f.sub(xl, prod), f.add(xl, prod))
@@ -98,19 +99,19 @@ def butterfly_plain(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
 
 def fr_butterfly(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
                  tw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """K10: mask ? xl - tw xu : xl + tw xu over (8, n), mask (n,) int32."""
+    """K10: mask ? xl - tw xu : xl + tw xu over (L, n), mask (n,) int32."""
     if cuda_fr._on_cpu(xl, xu, tw, mask):
         return butterfly_plain(fc, xl, xu, tw, mask)
     cuda_fr._require_cuda("fr_butterfly", xl, xu, tw, mask)
     n = xl.shape[-1]
-    if xl.shape != (NUM_LIMBS, n) or xu.shape != xl.shape \
+    if xl.shape != (fc.num_limbs, n) or xu.shape != xl.shape \
             or tw.shape != xl.shape or mask.shape != (n,):
-        raise ValueError(f"fr_butterfly: expected (8, n) operands and an "
+        raise ValueError(f"fr_butterfly: expected (L, n) operands and an "
                          f"(n,) mask, got {tuple(xl.shape)}, "
                          f"{tuple(xu.shape)}, {tuple(tw.shape)}, "
                          f"{tuple(mask.shape)}")
     out = torch.empty_like(xl)
-    count_launch("fr_butterfly")
+    count_launch("fr_butterfly", limbs=fc.num_limbs)
     check(cuda_lib().kzg_fr_butterfly(xl.data_ptr(), xu.data_ptr(),
                                       tw.data_ptr(), mask.data_ptr(),
                                       out.data_ptr(), n, fc.ptr,
@@ -120,7 +121,7 @@ def fr_butterfly(fc: FieldConsts, xl: torch.Tensor, xu: torch.Tensor,
 
 def staged_transform(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor
                      ) -> torch.Tensor:
-    """Bit-reversed (8, n) input -> natural-order transform (8, n): the
+    """Bit-reversed (L, n) input -> natural-order transform (L, n): the
     plain stages on the CPU, else the passes of ``pass_plan`` with the
     library's tile, the first out of place, the rest in place."""
     n = x.shape[1]

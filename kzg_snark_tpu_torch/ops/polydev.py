@@ -20,7 +20,6 @@ from __future__ import annotations
 import torch
 
 from .fr import FieldBackend, canonical_device, fr_backend
-from .limbs import NUM_LIMBS
 from .ntt import ntt_context
 
 SPLIT_BITS = 253            # lo = W mod 2^253 is below r (and p)
@@ -143,18 +142,19 @@ class PolyDev:
         if m >= 1 << 30:
             raise ValueError("segment_sum_mod: at most 2^30 values")
         words = values.to(torch.int64) & 0xFFFFFFFF
-        acc = torch.zeros((NUM_LIMBS, num_segments), dtype=torch.int64,
+        L = be.num_limbs
+        acc = torch.zeros((L, num_segments), dtype=torch.int64,
                           device=values.device)
         acc.index_add_(1, seg_ids.to(device=values.device, dtype=torch.int64),
                        words)
         # Carry into 32-bit words; the top word's overflow stays in carry.
         out = []
         carry = torch.zeros_like(acc[0])
-        for k in range(NUM_LIMBS):
+        for k in range(L):
             v = acc[k] + carry
             out.append(v & 0xFFFFFFFF)
             carry = v >> 32
-        top = 32 * NUM_LIMBS - SPLIT_BITS           # bits of word 7 above lo
+        top = 32 * L - SPLIT_BITS           # bits of the top word above lo
         lo_top = out[-1] & ((1 << (32 - top)) - 1)
         hi = (out[-1] >> (32 - top)) | (carry << top)
         lo = torch.stack(out[:-1] + [lo_top])

@@ -2,14 +2,17 @@
 
 Wrappers of ``csrc/fr_scan_kernels.cu``, with their plain versions:
 
-* ``fr_scan``: the exclusive scan of an (8, n) Montgomery array under the
+* ``fr_scan``: the exclusive scan of an (L, n) Montgomery array under the
   field product (identity R mod p) or sum (identity 0), forward or reverse,
   and its total: the JAX package's ``lax.scan`` chains of
   ``kzg_snark_tpu/ops/fr.py`` (``exclusive_prefix_prod``, ``batch_inv``'s
   lane chains, ``suffix_sums_exclusive``, ``sum_reduce``) as three launches
   whatever n (two for a total alone);
-* ``fr_pow``: a^e for every element and one exponent e < 2^256 (the JAX
+* ``fr_pow``: a^e for every element and one exponent e < 2^(32 L) (the JAX
   ``pow_const`` scan), one launch.
+
+L = ``fc.num_limbs``: 8 for both curves' Fr and BN254 Fq, 12 for
+BLS12-381 Fq.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernels or raises.  The plain versions take CUDA tensors too
@@ -24,7 +27,7 @@ import torch
 
 from ..utils.build import check, count_launch, cuda_lib
 from .cuda_fr import _on_cpu, _require_cuda, _stream, add_plain, mul_plain
-from .limbs import NUM_LIMBS, FieldConsts, ints_to_words
+from .limbs import FieldConsts, ints_to_words
 
 MUL, ADD = 0, 1                 # SCAN_OP_MUL, SCAN_OP_ADD of csrc/scan.cuh
 
@@ -42,7 +45,7 @@ def _identity(fc: FieldConsts, op: int, device) -> torch.Tensor:
 
 def fr_scan_plain(fc: FieldConsts, a: torch.Tensor, op: int,
                   reverse: bool = False):
-    """(exclusive scan (8, n), total (8, 1)) of an (8, n) array by a
+    """(exclusive scan (L, n), total (L, 1)) of an (L, n) array by a
     Hillis-Steele ladder: log2 n full-width products or sums."""
     combine = mul_plain if op == MUL else add_plain
     n = a.shape[1]
@@ -75,17 +78,17 @@ def fr_pow_plain(fc: FieldConsts, a: torch.Tensor, exponent: int
     return result
 
 
-def _scan_operand(a: torch.Tensor) -> tuple[int, int, int]:
-    """(ld, inc, n) of an (8, n) operand whose columns are dense (step 1)
+def _scan_operand(fc: FieldConsts, a: torch.Tensor) -> tuple[int, int, int]:
+    """(ld, inc, n) of an (L, n) operand whose columns are dense (step 1)
     or one column repeated (step 0, as ``expand`` makes)."""
     if a.device.type != "cuda":
         raise ValueError(f"fr_scan: operand must be on a CUDA device, got "
                          f"{a.device}")
     if a.dtype != torch.int32:
         raise TypeError(f"fr_scan: expected int32 limbs, got {a.dtype}")
-    if a.dim() != 2 or a.shape[0] != NUM_LIMBS or a.shape[1] < 1:
-        raise ValueError(f"fr_scan: expected an (8, n >= 1) operand, got "
-                         f"{tuple(a.shape)}")
+    if a.dim() != 2 or a.shape[0] != fc.num_limbs or a.shape[1] < 1:
+        raise ValueError(f"fr_scan: expected an ({fc.num_limbs}, n >= 1) "
+                         f"operand, got {tuple(a.shape)}")
     n = a.shape[1]
     inc = 0 if n == 1 else a.stride(1)
     if inc not in (0, 1):
@@ -95,20 +98,21 @@ def _scan_operand(a: torch.Tensor) -> tuple[int, int, int]:
 
 def fr_scan(fc: FieldConsts, a: torch.Tensor, op: int, reverse: bool = False,
             want_scan: bool = True):
-    """(exclusive scan (8, n) or None, total (8, 1)) of ``a`` under ``op``
+    """(exclusive scan (L, n) or None, total (L, 1)) of ``a`` under ``op``
     (MUL or ADD), in column order or (``reverse``) from the last column.
     ``want_scan=False`` computes the total alone."""
     if _on_cpu(a):
         out, total = fr_scan_plain(fc, a, op, reverse)
         return (out if want_scan else None), total
-    ld, inc, n = _scan_operand(a)
+    ld, inc, n = _scan_operand(fc, a)
     dev = a.device
-    out = torch.empty((NUM_LIMBS, n), dtype=torch.int32, device=dev) \
+    L = fc.num_limbs
+    out = torch.empty((L, n), dtype=torch.int32, device=dev) \
         if want_scan else None
-    total = torch.empty((NUM_LIMBS, 1), dtype=torch.int32, device=dev)
-    scratch = torch.empty((NUM_LIMBS, -(-n // tile())), dtype=torch.int32,
+    total = torch.empty((L, 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty((L, -(-n // tile())), dtype=torch.int32,
                           device=dev)
-    count_launch("fr_scan", 3 if want_scan else 2, width=n)
+    count_launch("fr_scan", 3 if want_scan else 2, width=n, limbs=L)
     check(cuda_lib().kzg_fr_scan(
         a.data_ptr(), ld, inc, n, op, int(reverse),
         out.data_ptr() if want_scan else None, total.data_ptr(),
@@ -117,20 +121,21 @@ def fr_scan(fc: FieldConsts, a: torch.Tensor, op: int, reverse: bool = False,
 
 
 def fr_pow(fc: FieldConsts, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^e for every column of an (8, n) array; 0 <= e < 2^256."""
-    if not 0 <= exponent < 1 << 256:
-        raise ValueError("fr_pow: the exponent must lie in [0, 2^256)")
+    """a^e for every column of an (L, n) array; 0 <= e < 2^(32 L)."""
+    L = fc.num_limbs
+    if not 0 <= exponent < 1 << (32 * L):
+        raise ValueError(f"fr_pow: the exponent must lie in [0, 2^{32 * L})")
     if _on_cpu(a):
         return fr_pow_plain(fc, a, exponent)
     _require_cuda("fr_pow", a)
-    if a.dim() != 2 or a.shape[0] != NUM_LIMBS:
-        raise ValueError(f"fr_pow: expected an (8, n) operand, got "
+    if a.dim() != 2 or a.shape[0] != L:
+        raise ValueError(f"fr_pow: expected an ({L}, n) operand, got "
                          f"{tuple(a.shape)}")
     n = a.shape[1]
-    words = (ctypes.c_uint32 * NUM_LIMBS)(
-        *[int(w) for w in ints_to_words([exponent])[:, 0]])
+    words = (ctypes.c_uint32 * L)(
+        *[int(w) for w in ints_to_words([exponent], L)[:, 0]])
     out = torch.empty_like(a)
-    count_launch("fr_pow", width=n)
+    count_launch("fr_pow", width=n, limbs=L)
     check(cuda_lib().kzg_fr_pow(a.data_ptr(), n, ctypes.addressof(words),
                                 exponent.bit_length(), out.data_ptr(),
                                 fc.ptr, _stream(a)), "fr_pow")

@@ -1,7 +1,8 @@
 """Structured reference string on the device.
 
 Counterpart of ``kzg_snark_tpu/ops/srs.py``: ``DeviceSRS`` holds
-[G1, tau G1, ..., tau^d G1] as a (3, 8, d+1) tensor with Z = 1, and
+[G1, tau G1, ..., tau^d G1] as a (3, L, d+1) tensor with Z = 1 (L = 8 at
+BN254, 12 at BLS12-381), and
 ``setup_g1_powers`` builds it by a windowed fixed-base method: a table
 T[j, v] = v 2^(c j) G of W x 2^c points (``g1_fixed_base_table``, one
 launch of ``csrc/srs_kernels.cu``: K7 and K6 as this build uses them),
@@ -20,12 +21,12 @@ from ..utils.build import check, count_launch, cuda_lib
 from . import cuda_fr
 from .benchpoints import normalize_points
 from .fr import canonical_device
-from .limbs import NUM_LIMBS, FieldConsts, ints_to_words
+from .limbs import SCALAR_LIMBS, FieldConsts, ints_to_words
 from .msm import msm_context
 
 
 class DeviceSRS:
-    """Device-resident [G1, tau G1, ..., tau^d G1] (3, 8, d+1), Z = 1."""
+    """Device-resident [G1, tau G1, ..., tau^d G1] (3, L, d+1), Z = 1."""
 
     def __init__(self, curve_type: str, points: torch.Tensor):
         self.curve_type = curve_type
@@ -60,8 +61,8 @@ class DeviceSRS:
 
 def fixed_base_table_plain(fc: FieldConsts, base: torch.Tensor,
                            window_bits: int, windows: int) -> torch.Tensor:
-    """T[:, :, j, v] = v 2^(c j) base for j < W, v < 2^c: (3, 8, W, 2^c),
-    base (3, 8, 1).
+    """T[:, :, j, v] = v 2^(c j) base for j < W, v < 2^c: (3, L, W, 2^c),
+    base (3, L, 1).
 
     Window bases by c doublings each; the rows by doubling concatenation,
     T[:, v + 2^k] = T[:, v] + T[:, 2^k] (the K7 and K6 plain versions)."""
@@ -71,8 +72,8 @@ def fixed_base_table_plain(fc: FieldConsts, base: torch.Tensor,
         for _ in range(window_bits):
             b = cuda_fr.g1_double_plain(fc, b)
         bases.append(b)
-    bases = torch.cat(bases, dim=-1)                        # (3, 8, W)
-    one = fc.tensors(base.device)["one"].expand(NUM_LIMBS, windows)
+    bases = torch.cat(bases, dim=-1)                        # (3, L, W)
+    one = fc.tensors(base.device)["one"].expand(fc.num_limbs, windows)
     ident = torch.stack([one, one, torch.zeros_like(one)])
     rows = torch.stack([ident, bases], dim=-1)
     while rows.shape[-1] < (1 << window_bits):
@@ -86,18 +87,19 @@ def fixed_base_table_plain(fc: FieldConsts, base: torch.Tensor,
 
 def g1_fixed_base_table(fc: FieldConsts, base: torch.Tensor,
                         window_bits: int, windows: int) -> torch.Tensor:
-    """The fixed-base table (3, 8, W, 2^c) of base (3, 8, 1) in one launch
+    """The fixed-base table (3, L, W, 2^c) of base (3, L, 1) in one launch
     (``csrc/srs_kernels.cu``), equal word for word to
     ``fixed_base_table_plain``, which CPU tensors take."""
     if cuda_fr._on_cpu(base):
         return fixed_base_table_plain(fc, base, window_bits, windows)
     cuda_fr._require_cuda("g1_fixed_base_table", base)
-    if base.shape != (3, NUM_LIMBS, 1):
-        raise ValueError(f"g1_fixed_base_table: expected a (3, 8, 1) base, "
-                         f"got {tuple(base.shape)}")
-    table = torch.empty((3, NUM_LIMBS, windows, 1 << window_bits),
+    L = fc.num_limbs
+    if base.shape != (3, L, 1):
+        raise ValueError(f"g1_fixed_base_table: expected a (3, {L}, 1) "
+                         f"base, got {tuple(base.shape)}")
+    table = torch.empty((3, L, windows, 1 << window_bits),
                         dtype=torch.int32, device=base.device)
-    count_launch("g1_fixed_base_table")
+    count_launch("g1_fixed_base_table", limbs=L)
     check(cuda_lib().kzg_g1_fixed_base_table(
         base.data_ptr(), table.data_ptr(), windows, window_bits, fc.ptr,
         cuda_fr._stream(base)), "g1_fixed_base_table")
@@ -121,23 +123,23 @@ def setup_g1_powers(kzg, tau: int, max_degree: int, window_bits: int = 8,
 
     c = window_bits
     windows = -(-r.bit_length() // c)
-    words = ints_to_words(powers).astype(np.uint64)        # (8, n)
+    words = ints_to_words(powers).astype(np.uint64)        # (8, n) scalars
     dig = np.zeros((windows, n), dtype=np.int64)
     for j in range(windows):
         bit = c * j
         li, sh = bit >> 5, bit & 31
         v = words[li] >> np.uint64(sh)
-        if sh + c > 32 and li + 1 < NUM_LIMBS:
+        if sh + c > 32 and li + 1 < SCALAR_LIMBS:
             v = v | (words[li + 1] << np.uint64(32 - sh))
         dig[j] = (v & np.uint64((1 << c) - 1)).astype(np.int64)
 
     g1 = kzg.G1
     base = curve.from_affine_ints([int(g1[0])], [int(g1[1])])
     table = g1_fixed_base_table(curve.f.consts, base.contiguous(), c,
-                                windows)                  # (3, 8, W, 2^c)
+                                windows)                  # (3, L, W, 2^c)
     digits = torch.from_numpy(dig).to(ctx.device)
     acc_pts = curve.identity((n,)).contiguous()
     for j in range(windows):
-        picked = table[:, :, j, :][:, :, digits[j]]        # (3, 8, n)
+        picked = table[:, :, j, :][:, :, digits[j]]        # (3, L, n)
         acc_pts = curve.add(acc_pts, picked)
     return DeviceSRS(kzg.curve_type, normalize_points(curve.f, acc_pts))

@@ -3,8 +3,12 @@
 ``cuda_lib()`` compiles every ``kzg_snark_tpu_torch/csrc/*.cu`` into
 ``.build/torch_kernels/<hash>/libkzg_torch.so`` (plain C entry points,
 loaded with ctypes) the first time a kernel is launched: one ``nvcc -c``
-per source, all started together, then one link.  The hash covers the
-sources and the flags, so an edited source builds anew.  An ``fcntl`` lock
+per source, all started together, then one link.  Each source holds its
+kernels at both limb counts (8 and 12 words; ``csrc/field.cuh``).  The
+hash covers the sources and the flags, so an edited source builds anew.
+The compilers' messages (``-Xptxas -v``: registers, stack and spills of
+every kernel instantiation) go to ``build.log`` beside the library
+(``kernel_resources`` reads them).  An ``fcntl`` lock
 lets several processes (pytest workers) share one build.  There is no
 fallback: without ``nvcc`` or with a failing build it raises.
 
@@ -12,8 +16,9 @@ fallback: without ``nvcc`` or with a failing build it raises.
 thread bodies on the CPU, which the tests compare with the plain versions.
 
 Every kernel wrapper calls :func:`count_launch` where it launches, so a run
-can show which kernels its main path went through, and over how many
-elements or points (:func:`launch_widths`).
+can show which kernels its main path went through, over how many elements
+or points (:func:`launch_widths`) and at which limb count
+(:func:`launch_limbs`).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import fcntl
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,7 +39,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), ".build")
 
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                          "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
@@ -84,6 +91,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 LAUNCHES: collections.Counter = collections.Counter()
 # (name, width class) -> launches, for wrappers that give their width.
 LAUNCH_WIDTHS: collections.Counter = collections.Counter()
+# (name, limb count) -> launches.
+LAUNCH_LIMBS: collections.Counter = collections.Counter()
 
 
 def _width_class(width: int) -> str:
@@ -91,18 +100,21 @@ def _width_class(width: int) -> str:
         else "257..2^14-1"
 
 
-def count_launch(name: str, launches: int = 1, width: int | None = None
-                 ) -> None:
+def count_launch(name: str, launches: int = 1, width: int | None = None,
+                 limbs: int | None = None) -> None:
     """Count ``launches`` kernel launches of ``name``, over ``width``
-    elements or points if given."""
+    elements or points and at ``limbs`` words an element if given."""
     LAUNCHES[name] += launches
     if width is not None:
         LAUNCH_WIDTHS[name, _width_class(width)] += launches
+    if limbs is not None:
+        LAUNCH_LIMBS[name, limbs] += launches
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
     LAUNCH_WIDTHS.clear()
+    LAUNCH_LIMBS.clear()
 
 
 def launch_counts() -> dict[str, int]:
@@ -114,6 +126,14 @@ def launch_widths() -> dict[str, dict[str, int]]:
     out: dict[str, dict[str, int]] = {}
     for (name, cls), k in sorted(LAUNCH_WIDTHS.items()):
         out.setdefault(name, {})[cls] = k
+    return out
+
+
+def launch_limbs() -> dict[str, dict[int, int]]:
+    """{name: {limb count: launches}} since the last reset."""
+    out: dict[str, dict[int, int]] = {}
+    for (name, limbs), k in sorted(LAUNCH_LIMBS.items()):
+        out.setdefault(name, {})[limbs] = k
     return out
 
 
@@ -134,19 +154,21 @@ def _digest(files: list[str], flags: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmds: list[list[str]]) -> None:
+def _run(cmds: list[list[str]]) -> list[str]:
     """Run the commands side by side; raise with the first failure's
-    compiler output."""
+    compiler output, else return each command's messages."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
              for cmd in cmds]
-    failed = []
+    failed, logs = [], []
     for cmd, proc in procs:
-        _, err = proc.communicate()
+        out, err = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}{err}")
         if proc.returncode != 0:
             failed.append(f"kernel build failed ({' '.join(cmd)}):\n{err}")
     if failed:
         raise RuntimeError(failed[0])
+    return logs
 
 
 def _build(kind: str, lib_name: str, sources: list[str], flags: list[str],
@@ -165,8 +187,11 @@ def _build(kind: str, lib_name: str, sources: list[str], flags: list[str],
         if os.path.exists(lib):
             return lib
         tmp = lib + f".tmp{os.getpid()}"
+        logs = []
         for batch in steps(out_dir, tmp):
-            _run(batch)
+            logs += _run(batch)
+        with open(os.path.join(out_dir, "build.log"), "w") as fh:
+            fh.write("\n".join(logs))
         os.replace(tmp, lib)
     return lib
 
@@ -210,6 +235,37 @@ def build_cuda() -> str:
 
     return _build("torch_kernels", "libkzg_torch.so", sources, NVCC_FLAGS,
                   steps)
+
+
+def kernel_resources(lib_path: str) -> dict[str, dict[str, int]]:
+    """{kernel instantiation: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from the ``-Xptxas -v`` messages of the build of
+    ``lib_path``, names demangled when ``c++filt`` is there."""
+    with open(os.path.join(os.path.dirname(lib_path), "build.log")) as fh:
+        lines = fh.read().splitlines()
+    found: dict[str, dict[str, int]] = {}
+    name = None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            found[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            found[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name]["registers"] = int(m.group(1))
+    if found and shutil.which("c++filt"):
+        names = list(found)
+        out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                             capture_output=True, check=True).stdout
+        found = dict(zip(out.splitlines(), found.values()))
+    return found
 
 
 def cuda_lib() -> ctypes.CDLL:

@@ -7,7 +7,8 @@ operands and raises).  With a card (tests marked ``cuda``, skipped where
 its plain version on small numpy-seeded inputs and counts its launch
 (K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
 bucket route's msm_accumulate and msm_reduce, and the chains' fr_scan and
-fr_pow).
+fr_pow), at BN254 and at BLS12-381 (Fr in 8 words, Fq in the kernels'
+12-word instantiation).
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -25,10 +26,12 @@ from kzg_snark_tpu_torch.ops.srs import g1_fixed_base_table
 from kzg_snark_tpu_torch.utils.build import LAUNCHES
 
 
-def words(n, seed, device="cpu"):
-    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(8, n),
+def words(n, seed, device="cpu", limbs=8):
+    """(limbs, n) random words below 2^253 (8 limbs: under both curves' r
+    and BN254's p) or 2^380 (12 limbs: under BLS12-381's p)."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(limbs, n),
                                              dtype=np.uint64)
-    w[7] &= (1 << 29) - 1
+    w[-1] &= (1 << (29 if limbs == 8 else 28)) - 1
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
 
 
@@ -278,3 +281,116 @@ def test_pow_kernel_matches_plain(cuda):
                 assert torch.equal(scan.fr_pow(be.consts, x, e), want), \
                     (width, e)
                 assert LAUNCHES["fr_pow"] == before + 1
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.cuda
+def test_bls_field_and_chain_kernels_match_plain(cuda, field):
+    """K1 (fr_mul, fr_add, fr_sub, a broadcast operand too), fr_scan (both
+    operations, both directions, widths across tiles) and fr_pow (e = p -
+    2, zero entries) at BLS12-381 Fr (8 words) and Fq (12 words)."""
+    be = (fr_backend if field == "fr" else fq_backend)("bls12_381", cuda)
+    fc = be.consts
+    assert fc.num_limbs == (8 if field == "fr" else 12)
+    a = words(1000, 21, cuda, fc.num_limbs)
+    b = words(1000, 22, cuda, fc.num_limbs)
+    for k, p in [(cuda_fr.fr_mul, cuda_fr.mul_plain),
+                 (cuda_fr.fr_add, cuda_fr.add_plain),
+                 (cuda_fr.fr_sub, cuda_fr.sub_plain)]:
+        assert torch.equal(k(fc, a, b), p(fc, a, b))
+        assert torch.equal(k(fc, a, b[:, :1].contiguous()),
+                           p(fc, a, b[:, :1]))
+    tile = scan.tile()
+    for op in (scan.MUL, scan.ADD):
+        for n in (1, tile + 1, 1000):
+            for reverse in (False, True):
+                got = scan.fr_scan(fc, a[:, :n], op, reverse)
+                want = scan.fr_scan_plain(fc, a[:, :n], op, reverse)
+                assert torch.equal(got[0], want[0]), (op, n, reverse)
+                assert torch.equal(got[1], want[1]), (op, n, reverse)
+    x = a[:, :64].contiguous()
+    x[:, ::9] = 0
+    before = LAUNCHES["fr_pow"]
+    assert torch.equal(scan.fr_pow(fc, x, be.modulus - 2),
+                       scan.fr_pow_plain(fc, x, be.modulus - 2))
+    assert LAUNCHES["fr_pow"] == before + 1
+
+
+@pytest.mark.cuda
+def test_bls_curve_ntt_and_table_kernels_match_plain(cuda):
+    """K6, K7 and K9 at 12 words (identity, P = q and P = -q lanes in
+    K9), the SRS table at c = 8, W = 32 of BLS12-381's generator, and
+    ntt_pass over BLS12-381 Fr at 2^11 (two passes)."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import (ntt_pass_plain, pass_plan,
+                                                   tile_bits)
+    from kzg_snark_tpu_torch.ops.srs import fixed_base_table_plain
+
+    fb = fq_backend("bls12_381", cuda)
+    fq = fb.consts
+    pts, _ = random_point_basis("bls12_381", 256, seed=3, device=cuda)
+    assert pts.shape == (3, 12, 256)
+    q = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
+    assert torch.equal(cuda_fr.g1_add(fq, pts, q),
+                       cuda_fr.g1_add_plain(fq, pts, q))
+    assert torch.equal(cuda_fr.g1_double(fq, q),
+                       cuda_fr.g1_double_plain(fq, q))
+    acc = q.clone()
+    acc[2, :, :4] = 0
+    acc[:, :, 4:8] = pts[:, :, 4:8]
+    acc[1, :, 8:12] = fb.neg(pts[1, :, 8:12].contiguous())
+    acc[0, :, 8:12] = pts[0, :, 8:12]
+    acc[2, :, 8:12] = pts[2, :, 8:12]
+    acc = acc.contiguous()
+    for qn in (256, 1):
+        qx, qy = pts[0, :, :qn].contiguous(), pts[1, :, :qn].contiguous()
+        assert torch.equal(cuda_fr.g1_add_mixed(fq, acc, qx, qy),
+                           cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy))
+    g1 = C.BLS12_381_G1
+    base = curve_ops("bls12_381", cuda).from_affine_ints(
+        [g1[0]], [g1[1]]).contiguous()
+    assert torch.equal(g1_fixed_base_table(fq, base, 8, 32),
+                       fixed_base_table_plain(fq, base, 8, 32))
+    T = tile_bits()
+    n = 2 << T
+    ctx = ntt_context("bls12_381", n, cuda)
+    fr = ctx.backend.consts
+    y = x = words(n, 23, cuda)
+    for s0, g in pass_plan(n, T):
+        got = ntt_pass(fr, y, ctx.tw_fwd, s0, g, T)
+        y = ntt_pass_plain(fr, y, ctx.tw_fwd, s0, g)
+        assert torch.equal(got, y), (s0, g)
+    assert not torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_bls_bucket_kernels_match_plain(cuda):
+    """msm_accumulate (both adds) and msm_reduce at 12 words, 2^12 points,
+    k = 2 sets of 255-bit scalars (W = ceil(256 / c) windows)."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+
+    n = 1 << 12
+    fq = fq_backend("bls12_381", cuda).consts
+    pts, _ = random_point_basis("bls12_381", n, seed=4, device=cuda)
+    sets = torch.stack([words(n, 24), words(1, 25).expand(8, n)]).to(cuda)
+    sets[0, :, :3] = torch.from_numpy(np.array(
+        [[(v >> (32 * k)) & 0xFFFFFFFF for v in (0, 1, C.BLS12_381_R - 1)]
+         for k in range(8)], dtype=np.uint32).view(np.int32)).to(cuda)
+    c = mk.window_bits(n)
+    dig = mk.signed_digits(sets, C.BLS12_381_R.bit_length(), c)
+    W = dig.shape[1]
+    assert W == -(-256 // c)
+    s = mk.bucket_schedule(dig, c)
+    xy = mk.point_table(pts)
+    for complete in (False, True):
+        part = mk.msm_accumulate(fq, xy, s.entries, s.chunk_off, complete)
+        assert torch.equal(part, mk.msm_accumulate_plain(
+            fq, xy, s.entries, s.chunk_off, complete))
+    got = mk.msm_reduce(fq, part, s.bucket_chunks, 2, W, c,
+                        s.window_threads)
+    assert torch.equal(got, mk.msm_reduce_plain(
+        fq, part, s.bucket_chunks, 2, W, c, s.window_threads))

@@ -4,7 +4,9 @@ plain PyTorch versions.
 ``csrc/host_check.cpp`` loops over the thread indices of each launch and
 calls the same ``__host__ __device__`` code the kernels run, so this checks
 the kernels' arithmetic and indexing on a machine without a card.  Exact
-equality: the arithmetic is integer.
+equality: the arithmetic is integer.  The bodies run at both limb counts
+the kernels are instantiated at: 8 words (BN254, BLS12-381 Fr) and 12
+(BLS12-381 Fq), chosen by the consts block as on the card.
 """
 
 import functools
@@ -55,13 +57,26 @@ def _random_field(p, n, seed):
     return ([0, 1, p - 1] + [rng.randrange(p) for _ in range(n)])[:n]
 
 
-@pytest.mark.parametrize("modulus", [C.BN254_R, C.BN254_P],
-                         ids=["fr", "fq"])
+def _backend(modulus):
+    """The port's CPU field backend of ``modulus``."""
+    for curve in ("bn254", "bls12_381"):
+        for make in (fr_backend, fq_backend):
+            be = make(curve, "cpu")
+            if be.modulus == modulus:
+                return be
+    raise KeyError(modulus)
+
+
+MODULI = [C.BN254_R, C.BN254_P, C.BLS12_381_R, C.BLS12_381_P]
+MODULUS_IDS = ["fr", "fq", "bls-fr", "bls-fq"]
+
+
+@pytest.mark.parametrize("modulus", MODULI, ids=MODULUS_IDS)
 @pytest.mark.parametrize("op", [0, 1, 2], ids=["mul", "add", "sub"])
 def test_field_ewise(lib, modulus, op):
-    be = fr_backend("bn254", "cpu") if modulus == C.BN254_R \
-        else fq_backend("bn254", "cpu")
+    be = _backend(modulus)
     fc = FieldConsts(modulus)
+    assert fc.num_limbs == (12 if modulus == C.BLS12_381_P else 8)
     a = be.from_ints(_random_field(modulus, 64, 1))
     b = be.from_ints(_random_field(modulus, 64, 2)[::-1])
     plain = [cuda_fr.mul_plain, cuda_fr.add_plain, cuda_fr.sub_plain][op]
@@ -81,10 +96,21 @@ def test_fr_scan(lib, op, reverse):
     a total alone, and one column read with step 0.  The sums take zero
     entries; the products none, since a zero would make every later prefix
     zero and hide the tiles after it."""
-    be = fr_backend("bn254", "cpu")
+    _check_scan(lib, fr_backend("bn254", "cpu"), op, reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("op", [0, 1], ids=["mul", "add"])
+def test_fr_scan_bls_fq(lib, op, reverse):
+    """The scan's thread bodies at 12 words (BLS12-381 Fq)."""
+    _check_scan(lib, fq_backend("bls12_381", "cpu"), op, reverse)
+
+
+def _check_scan(lib, be, op, reverse):
     fc = be.consts
+    L = fc.num_limbs
     tile = lib.host_scan_tile()
-    vals = _random_field(C.BN254_R, 2 * tile + 77, 5)
+    vals = _random_field(be.modulus, 2 * tile + 77, 5)
     if op == 1:
         vals[tile // 2::97] = [0] * len(vals[tile // 2::97])
     else:
@@ -94,8 +120,8 @@ def test_fr_scan(lib, op, reverse):
     ld = aw.shape[1]
     for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile + 77):
         want, want_total = fr_scan_plain(fc, a[:, :n], op, reverse)
-        out = np.empty((8, n), dtype=np.uint32)
-        total = np.empty((8, 1), dtype=np.uint32)
+        out = np.empty((L, n), dtype=np.uint32)
+        total = np.empty((L, 1), dtype=np.uint32)
         lib.host_fr_scan(op, _ptr(aw), ld, 1, n, int(reverse), _ptr(out),
                          _ptr(total), fc.ptr)
         assert np.array_equal(out, _words(want)), n
@@ -106,35 +132,33 @@ def test_fr_scan(lib, op, reverse):
         assert np.array_equal(total, _words(want_total)), n
     n = tile + 3
     col = aw[:, 3:].copy()              # column 0 of col is column 3 of a
-    want, _ = fr_scan_plain(fc, a[:, 3:4].expand(8, n), op, reverse)
-    out = np.empty((8, n), dtype=np.uint32)
+    want, _ = fr_scan_plain(fc, a[:, 3:4].expand(L, n), op, reverse)
+    out = np.empty((L, n), dtype=np.uint32)
     lib.host_fr_scan(op, _ptr(col), col.shape[1], 0, n, int(reverse),
                      _ptr(out), None, fc.ptr)
     assert np.array_equal(out, _words(want))
 
 
-@pytest.mark.parametrize("modulus", [C.BN254_R, C.BN254_P],
-                         ids=["fr", "fq"])
+@pytest.mark.parametrize("modulus", MODULI, ids=MODULUS_IDS)
 def test_fr_pow(lib, modulus):
     """fr_pow's thread body against fr_pow_plain, under Fr and Fq, with
     e = 0 on a zero entry (one) and inverses of zero (zero)."""
-    be = fr_backend("bn254", "cpu") if modulus == C.BN254_R \
-        else fq_backend("bn254", "cpu")
+    be = _backend(modulus)
     fc = FieldConsts(modulus)
     for e in (0, 1, 2, 1 << 16, modulus - 2):
         a = be.from_ints(_random_field(modulus, 24, e % 1000))
         aw = _words(a)
         ew = np.ascontiguousarray(_words(to_tensor(
-            ints_to_words([e]), "cpu"))[:, 0])
+            ints_to_words([e], fc.num_limbs), "cpu"))[:, 0])
         out = np.empty_like(aw)
         lib.host_fr_pow(_ptr(aw), 24, _ptr(ew), e.bit_length(), _ptr(out),
                         fc.ptr)
         assert np.array_equal(out, _words(fr_pow_plain(fc, a, e))), e
 
 
-def _edge_points(curve, k=16):
+def _edge_points(curve, k=16, curve_type="bn254"):
     """Random points, their doubles' inputs, negatives and the identity."""
-    pts, _ = random_point_basis("bn254", k, seed=11, device="cpu")
+    pts, _ = random_point_basis(curve_type, k, seed=11, device="cpu")
     f = curve.f
     neg = torch.stack([pts[0], f.neg(pts[1]), pts[2]])
     ident = curve.identity((k,))
@@ -145,10 +169,41 @@ def _edge_points(curve, k=16):
 
 
 def test_g1_add_double(lib):
+    _check_add_double(lib, "bn254")
+
+
+def test_g1_add_double_bls(lib):
+    """K6 and K7 at 12 words, and K9 (the complete mixed add) with q the
+    rolled points and with q = p's own points (the doubling case)."""
     from kzg_snark_tpu_torch.ops.g1 import curve_ops
-    curve = curve_ops("bn254", "cpu")
+    fc = _check_add_double(lib, "bls12_381")
+    curve = curve_ops("bls12_381", "cpu")
+    p, q = _edge_points(curve, 8, "bls12_381")
+    m = p.shape[-1]
+    pw = _words(p)
+    for qq in (q, p):
+        qx = _words(qq[0].contiguous())
+        qy = _words(qq[1].contiguous())
+        qq_aff = curve.to_affine_ints(qq)
+        if any(a is None for a in qq_aff):   # q must be finite: Z = 1
+            norm = [a or (1, 1) for a in qq_aff]
+            qq = curve.from_affine_ints([a[0] for a in norm],
+                                        [a[1] for a in norm])
+            qx, qy = _words(qq[0]), _words(qq[1])
+        out = np.empty_like(pw)
+        lib.host_g1_add_mixed(_ptr(pw), _ptr(qx), _ptr(qy), m, _ptr(out), m,
+                              fc.ptr)
+        want = cuda_fr.g1_add_mixed_plain(fc, p, qq[0].contiguous(),
+                                          qq[1].contiguous())
+        assert np.array_equal(out, _words(want))
+
+
+def _check_add_double(lib, curve_type):
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    curve = curve_ops(curve_type, "cpu")
     fc = curve.f.consts
-    p, q = _edge_points(curve)
+    p, q = _edge_points(curve, 16 if curve_type == "bn254" else 8,
+                        curve_type)
     m = p.shape[-1]
     pw, qw = _words(p), _words(q)
     out = np.empty_like(pw)
@@ -156,6 +211,7 @@ def test_g1_add_double(lib):
     assert np.array_equal(out, _words(cuda_fr.g1_add_plain(fc, p, q)))
     lib.host_g1_double(_ptr(pw), _ptr(out), m, fc.ptr)
     assert np.array_equal(out, _words(cuda_fr.g1_double_plain(fc, p)))
+    return fc
 
 
 # (log2 n as a function of the library's tile bits T, tile bits or None
@@ -179,10 +235,20 @@ def test_ntt_pass(lib, case):
     the forward and inverse tables."""
     log_n, t = NTT_PASS_CASES[case]
     T = lib.host_ntt_tile()
-    n, t = 1 << log_n(T), t or T
-    ctx = ntt_context("bn254", n, "cpu")
+    _check_ntt_pass(lib, "bn254", 1 << log_n(T), t or T)
+
+
+@pytest.mark.parametrize("log_n, t", [(5, None), (9, 3)],
+                         ids=["32", "2^9-t3"])
+def test_ntt_pass_bls(lib, log_n, t):
+    """The pass at BLS12-381 Fr (255 bits, two-adicity 32)."""
+    _check_ntt_pass(lib, "bls12_381", 1 << log_n, t or lib.host_ntt_tile())
+
+
+def _check_ntt_pass(lib, curve_type, n, t):
+    ctx = ntt_context(curve_type, n, "cpu")
     fc = ctx.backend.consts
-    x = ctx.backend.from_ints(_random_field(C.BN254_R, n, n))
+    x = ctx.backend.from_ints(_random_field(fc.modulus, n, n))
     for tw in (ctx.tw_fwd, ctx.tw_inv):
         tww = _words(tw)
         y = x
@@ -233,27 +299,39 @@ def test_g1_fixed_base_table(lib, c, windows):
     """The table kernel's chain, identities and levels, in its order under
     g++, against fixed_base_table_plain: equal Jacobian words at the SRS
     build's c = 8, W = 32 and at a small shape."""
+    _check_table(lib, "bn254", c, windows)
+
+
+@pytest.mark.parametrize("c, windows", [(8, 32), (3, 5)])
+def test_g1_fixed_base_table_bls(lib, c, windows):
+    """The table at 12 words, of BLS12-381's generator."""
+    _check_table(lib, "bls12_381", c, windows)
+
+
+def _check_table(lib, curve_type, c, windows):
     from kzg_snark_tpu_torch.ops.g1 import curve_ops
-    curve = curve_ops("bn254", "cpu")
+    curve = curve_ops(curve_type, "cpu")
     fc = curve.f.consts
-    base = curve.from_affine_ints([1], [2]).contiguous()
+    L = fc.num_limbs
+    g1 = C.BN254_G1 if curve_type == "bn254" else C.BLS12_381_G1
+    base = curve.from_affine_ints([g1[0]], [g1[1]]).contiguous()
     want = fixed_base_table_plain(fc, base, c, windows)
-    assert want.shape == (3, 8, windows, 1 << c)
-    out = np.empty((3, 8, windows << c), dtype=np.uint32)
+    assert want.shape == (3, L, windows, 1 << c)
+    out = np.empty((3, L, windows << c), dtype=np.uint32)
     lib.host_g1_fixed_base_table(_ptr(_words(base)), _ptr(out), windows, c,
                                  fc.ptr)
-    assert np.array_equal(out, _words(want).reshape(3, 8, -1))
+    assert np.array_equal(out, _words(want).reshape(3, L, -1))
 
 
 @functools.lru_cache(maxsize=None)
-def _basis(n):
-    return random_point_basis("bn254", n, seed=3, device="cpu")[0]
+def _basis(n, curve_type="bn254"):
+    return random_point_basis(curve_type, n, seed=3, device="cpu")[0]
 
 
-def _schedule(n, sets, chunk, events, seed):
+def _schedule(n, sets, chunk, events, seed, curve_type="bn254"):
     """Points, c, W and the bucket schedule of ``sets`` scalar sets with a
     run of equal scalars (heavy buckets) and half zeros."""
-    pts = _basis(n)
+    pts = _basis(n, curve_type)
     rng = np.random.default_rng(seed)
     words = rng.integers(0, 1 << 32, size=(sets, 8, n), dtype=np.uint64)
     words[:, 7] &= (1 << 29) - 1
@@ -261,14 +339,26 @@ def _schedule(n, sets, chunk, events, seed):
     words[-1, :, 1::2] = 0
     scalars = to_tensor(words.astype(np.uint32), "cpu")
     c = window_bits(n)
-    dig = signed_digits(scalars, 254, c)
+    bits = fr_backend(curve_type, "cpu").modulus.bit_length()
+    dig = signed_digits(scalars, bits, c)
     return pts, c, dig.shape[1], bucket_schedule(dig, c, chunk, events)
 
 
 @pytest.mark.parametrize("complete", [False, True])
 def test_msm_accumulate(lib, complete):
-    pts, _, _, s = _schedule(64, 2, 4, 4, 4)
-    fc = fq_backend("bn254", "cpu").consts
+    _check_accumulate(lib, complete, "bn254")
+
+
+@pytest.mark.parametrize("complete", [False, True])
+def test_msm_accumulate_bls(lib, complete):
+    """The accumulate at 12 words (its 16-byte point loads are the
+    kernel's own; the entry arithmetic is this body's)."""
+    _check_accumulate(lib, complete, "bls12_381")
+
+
+def _check_accumulate(lib, complete, curve_type):
+    pts, _, _, s = _schedule(64, 2, 4, 4, 4, curve_type)
+    fc = fq_backend(curve_type, "cpu").consts
     xy = point_table(pts)
     part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, complete)
     out = np.empty(tuple(part.shape), dtype=np.uint32)
@@ -284,10 +374,20 @@ def test_msm_accumulate(lib, complete):
 def test_msm_reduce(lib, n, sets, chunk, events):
     """The window-sum launch (pieces of events, block tree) and the Horner
     launch; "two-blocks" has 256 threads a window, two blocks of 128."""
-    pts, c, W, s = _schedule(n, sets, chunk, events, 5)
+    _check_reduce(lib, n, sets, chunk, events, "bn254")
+
+
+def test_msm_reduce_bls(lib):
+    """The reduction at 12 words, two scalar sets; 255-bit scalars make
+    W = ceil(256 / c) windows."""
+    _check_reduce(lib, 64, 2, 4, 4, "bls12_381")
+
+
+def _check_reduce(lib, n, sets, chunk, events, curve_type):
+    pts, c, W, s = _schedule(n, sets, chunk, events, 5, curve_type)
     if n == 256:
         assert s.window_threads == 256
-    fc = fq_backend("bn254", "cpu").consts
+    fc = fq_backend(curve_type, "cpu").consts
     part = msm_accumulate_plain(fc, point_table(pts), s.entries, s.chunk_off,
                                 True)
     wp = window_sums_plain(fc, part, s.bucket_chunks, sets * W, c,

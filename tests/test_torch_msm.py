@@ -12,7 +12,8 @@ scalars give the identity on every route.  The bucket route is also held
 to the oracle on skewed scalar sets (all zero, all equal, one nonzero,
 half zeros), batched sets and both ``complete`` settings, and never calls
 ``CurveOps.add`` or ``CurveOps.double``.  A structured basis [(i+1) G]
-runs with ``complete=True``.
+runs with ``complete=True``, and on the bucket route with ``complete=None``
+under ``KZG_TPU_COMPLETE_ADD``, read at call time.
 """
 
 import functools
@@ -31,8 +32,9 @@ from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
 from kzg_snark_tpu_torch.ops.msm import MsmContext, msm_context
 from kzg_snark_tpu_torch.ops.benchpoints import normalize_points
 from kzg_snark_tpu_torch.ops.g1 import CurveOps
-from kzg_snark_tpu_torch.ops.msm_kernel import (num_windows, signed_digits,
-                                                window_bits)
+from kzg_snark_tpu_torch.ops.msm_kernel import (num_windows,
+                                                resolve_complete,
+                                                signed_digits, window_bits)
 
 # Tiny tensors: one intra-op thread is faster than many, and the test
 # workers share the CPU (threads that spin-wait stall them all).
@@ -219,3 +221,38 @@ def test_bucket_route_calls_no_curve_add_or_double(monkeypatch):
     monkeypatch.undo()
     assert ctx.curve.to_affine_ints(out) == [
         host_point(sum(a * b for a, b in zip(s, ks)))]
+
+
+def test_complete_add_variable_read_at_call_time(monkeypatch):
+    """KZG_TPU_COMPLETE_ADD, set after the (cached) context's first call,
+    makes msm(complete=None) take the complete add on the bucket route, as
+    the JAX FusedMsm._resolve_complete does; an explicit complete=False
+    still wins.  On [(i+1) G] with equal scalars the first bucket's
+    running sum meets its next point (G + 2G = 3G), so only the complete
+    add gives the oracle's sum."""
+    n = 2048
+    assert MsmContext.route(n) == "bucket"
+    pt, xs, ys = G1, [], []
+    for _ in range(n):
+        a = hc.normalize(pt)
+        xs.append(int(a[0]))
+        ys.append(int(a[1]))
+        pt = hc.add(pt, G1)
+    ctx = msm_context("bn254", "cpu")
+    pts = ctx.curve.from_affine_ints(xs, ys)
+    lim = ctx.scalars_to_limbs([1] * n)
+    want = [host_point(n * (n + 1) // 2)]
+
+    def run(complete=None):
+        return ctx.curve.to_affine_ints(ctx.msm(pts, lim, complete=complete))
+
+    monkeypatch.delenv("KZG_TPU_COMPLETE_ADD", raising=False)
+    assert run() != want              # the incomplete add, as the default
+    monkeypatch.setenv("KZG_TPU_COMPLETE_ADD", "1")
+    assert msm_context("bn254", "cpu") is ctx
+    assert run() == want
+    assert run(complete=False) != want
+    for value, complete in (("true", True), ("on", True), ("0", False)):
+        monkeypatch.setenv("KZG_TPU_COMPLETE_ADD", value)
+        assert resolve_complete(None) is complete
+        assert resolve_complete(not complete) is (not complete)
