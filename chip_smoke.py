@@ -56,7 +56,16 @@ Phases, in order, one printed line or block each:
                  guards, and the BLS phases' time
 
 The build phase also prints each kernel instantiation's registers, stack
-and spills (-Xptxas -v).  Each path (ntt scan, msm_one, main,
+and spills (-Xptxas -v); for the curve kernels (K6, K9 and K7 beside
+them) the resident blocks an SM (the CUDA occupancy calculator) and the
+waves 2^16 points make; the instructions of one Montgomery product and
+squaring of the PROD_CIOS and PROD_CHAIN policies at 8 and 12 words
+(cuobjdump -sass of csrc/probe/mont_probe.cu, by opcode: IMAD-class and
+all); and those products' throughput on the card (probe_loop), each
+checked once against the plain product.  The kernels and bls phases also
+hold K6 and K9 to their plain versions on edge batches
+(benchpoints.edge_batches: identities, P = Q, P = -Q, coordinates near
+p).  Each path (ntt scan, msm_one, main,
 marlin_parity, marlin and the bls paths) runs with the launch counts set
 to 0 just before it and read just after; a kernel's "launches" in the
 kernels JSON line are those of the path it is listed under, and its
@@ -120,6 +129,7 @@ NTT_TILES_TRIED = (8, 9, 10, 11)
 SRS_WINDOW_BITS = 8
 SRS_WINDOWS = 32            # ceil(254 / 8): the SRS build's table
 TAU = 0xABCDEF12345
+EDGE_POINTS = 512           # points of each case in the curve edge batches
 MARLIN_TAU = 0xFEED5EED
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -304,6 +314,111 @@ def _madd_products(torch, fq, p, qx, qy) -> float:
     return float(per.sum()) * mont_products(fq.num_limbs)
 
 
+def curve_occupancy(torch, resources: dict, rates: dict) -> None:
+    """The curve kernels' registers and spills (-Xptxas -v), their resident
+    blocks an SM (the CUDA occupancy calculator) and the waves that 2^16
+    points make: K6 and K9 (the carry-chain product), K7 beside them."""
+    from kzg_snark_tpu_torch.utils.build import cuda_lib
+    lib = cuda_lib()
+    threads = lib.kzg_g1_threads()
+    blocks = -(-(1 << MAIN_LOG_N) // threads)
+    for idx, kernel in enumerate(("k_g1_add", "k_g1_add_mixed",
+                                  "k_g1_double")):
+        for limbs in (8, 12):
+            res = next(v for k, v in resources.items()
+                       if f"{kernel}<{limbs}>" in k      # demangled
+                       or f"{len(kernel)}{kernel}ILi{limbs}E" in k)
+            per_sm = lib.kzg_g1_blocks_per_sm(idx, limbs)
+            if per_sm <= 0:
+                raise RuntimeError(f"occupancy of {kernel}<{limbs}>: "
+                                   f"{per_sm}")
+            resident = per_sm * rates["sms"]
+            log(f"[build] {kernel}<{limbs}>: {res['registers']} registers, "
+                f"spills {res['spill_stores']} B st / {res['spill_loads']} "
+                f"B ld; {per_sm} blocks of {threads} an SM, {resident} "
+                f"resident; 2^{MAIN_LOG_N} points = {blocks} blocks = "
+                f"{blocks / resident:.2f} waves ({-(-blocks // resident)})")
+
+
+def product_sass(lib_path: str) -> None:
+    """Instructions of one Montgomery product and squaring, PROD_CIOS and
+    PROD_CHAIN, at 8 and 12 words (cuobjdump -sass of a probe)."""
+    import shutil
+    from kzg_snark_tpu_torch.utils.build import _nvcc, sass_product_counts
+    if not (shutil.which("cuobjdump") or os.path.exists(os.path.join(
+            os.path.dirname(_nvcc()), "cuobjdump"))):
+        log("[build] product SASS: cuobjdump not in the toolkit")
+        return
+    for key, c in sorted(sass_product_counts(lib_path).items()):
+        log(f"[build] product SASS {key} words: {json.dumps(c)}")
+
+
+PRODUCT_LOOP_N = 1 << 17      # elements of the product throughput loops
+PRODUCT_LOOP_REPS = 64        # dependent products an element
+
+
+def product_throughput(torch, dev, rates: dict) -> None:
+    """The Montgomery product and squaring of PROD_CIOS and PROD_CHAIN at 8
+    words (BN254 Fq) and 12 (BLS12-381 Fq): one product each against the
+    plain version, then Montgomery products a second over PRODUCT_LOOP_N
+    elements of PRODUCT_LOOP_REPS dependent products (probe_loop, device
+    time), beside the 32 x 32-bit product bound of the kernel table."""
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    from kzg_snark_tpu_torch.ops.fr import fq_backend
+    from kzg_snark_tpu_torch.utils.build import check, probe_lib
+    lib = probe_lib()
+    n, reps = PRODUCT_LOOP_N, PRODUCT_LOOP_REPS
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for curve, limbs in (("bn254", 8), ("bls12_381", 12)):
+        fc = fq_backend(curve, dev).consts
+        x = random_canonical(torch, n, 71, dev, limbs)
+        y = random_canonical(torch, n, 72, dev, limbs)
+        out = torch.empty_like(x)
+        for sqr, pol, name in ((0, 0, "mul cios"), (0, 2, "mul chain"),
+                               (1, 0, "sqr cios"), (1, 2, "sqr chain")):
+            def run(r, sqr=sqr, pol=pol):
+                check(lib.kzg_probe_loop(sqr, pol, x.data_ptr(),
+                                         y.data_ptr(), out.data_ptr(), n, r,
+                                         fc.ptr, stream), "probe_loop")
+            run(1)
+            want = cuda_fr.mul_plain(fc, x, x if sqr else y)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"probe {name} at {limbs} words != "
+                                     f"plain")
+            ms, _ = timed_ms(torch, lambda: run(reps), 5)
+            per_s = n * reps / (ms * 1e-3)
+            peak = rates["products"] / mont_products(limbs)
+            log(f"[build] product loop {name} {limbs} words: {ms:.4f} ms "
+                f"for {n} x {reps}: {per_s / 1e9:.2f} G Montgomery "
+                f"products/s, {per_s / peak:.1%} of the 32x32-bit product "
+                f"bound ({mont_products(limbs)} a product)")
+
+
+def check_edge_batches(torch, fq, curve: str, pts) -> None:
+    """K6 and K9 against their plain versions, exactly, on the edge batches
+    of ``benchpoints.edge_batches`` from EDGE_POINTS points: identity
+    operands, P = Q, P = -Q, q with column periods m and 1, coordinates
+    near p and all-ones words."""
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    from kzg_snark_tpu_torch.ops.benchpoints import edge_batches
+    cases = edge_batches(curve, pts[..., :EDGE_POINTS].contiguous())
+    p, q = cases["add"]
+    runs = [("g1_add", cuda_fr.g1_add(fq, p, q),
+             cuda_fr.g1_add_plain(fq, p, q))]
+    for acc, qx, qy in cases["mixed"]:
+        runs.append((f"g1_add_mixed (qn = {qx.shape[-1]})",
+                     cuda_fr.g1_add_mixed(fq, acc, qx, qy),
+                     cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy)))
+    torch.cuda.synchronize()
+    for name, got, want in runs:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{curve} {name}: kernel != plain on the "
+                                 f"edge batch")
+        log(f"[kernels] {curve} {name}: exact on an edge batch of "
+            f"{got.shape[-1]} points")
+
+
 def phase_kernels(torch, dev, results, rates):
     from kzg_snark_tpu_torch.ops import cuda_fr
     from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
@@ -372,6 +487,7 @@ def phase_kernels(torch, dev, results, rates):
             (acc, qx, qy), bound(rates, 2 * pt_bytes + 64,
                   _madd_products(torch, fq, acc, qx, qy)),
             plain_reps=1)
+    check_edge_batches(torch, fq, "bn254", pts)
 
     # ntt_pass as the paths run it: one whole 2^18 transform (its passes),
     # against the plain stages; products k n / 2 x 136, bytes the array in
@@ -1055,6 +1171,7 @@ def phase_bls_kernels(torch, dev, rows, rates, basis):
         (acc, qx, qy), bound(rates, 2 * pt_bytes + 8 * L,
                              _madd_products(torch, fq, acc, qx, qy)),
         plain_reps=1)
+    check_edge_batches(torch, fq, "bls12_381", pts)
     base = curve_base(torch, dev, "bls12_381")
     windows = -(-C.BLS12_381_R.bit_length() // SRS_WINDOW_BITS)
     row("g1_fixed_base_table", "Fq", f"c = 8, W = {windows}",
@@ -1455,8 +1572,12 @@ def main() -> int:
     lib_path = build_cuda()
     cuda_lib()
     log(f"[build] {lib_path} in {time.perf_counter() - t0:.2f} s")
-    for name, res in sorted(kernel_resources(lib_path).items()):
+    resources = kernel_resources(lib_path)
+    for name, res in sorted(resources.items()):
         log(f"[build] {json.dumps(res, sort_keys=True)} {name}")
+    curve_occupancy(torch, resources, rates)
+    product_sass(lib_path)
+    product_throughput(torch, dev, rates)
 
     results: dict = {}
     paths: dict = {}

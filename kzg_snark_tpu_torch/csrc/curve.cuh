@@ -1,13 +1,14 @@
 // Short-Weierstrass (a = 0) group law in Jacobian coordinates over field.cuh.
 //
 // Counterpart of kzg_snark_tpu/ops/regcurve.py (RegCurve): the same formulas
-// in the same order (dbl-2009-l, add-2007-bl, madd-2007-bl), so every
-// representative (X, Y, Z) equals the JAX package's.  The identity is Z = 0.
+// (dbl-2009-l, add-2007-bl, madd-2007-bl), exact field arithmetic, so every
+// representative (X, Y, Z) equals the JAX package's whatever the order of
+// evaluation or the product policy.  The identity is Z = 0.
 // Where the TPU computed every case and selected lane-wise, a thread here
 // branches: the selected value is the same.
 #pragma once
 
-#include "field.cuh"
+#include "chain.cuh"
 
 template <int NL>
 struct G1J {
@@ -30,48 +31,60 @@ KZG_HD void g1_store(uint32_t* base, int64_t m, int64_t i, const G1J<NL>& P) {
   fe_store<NL>(base + 2 * NL * m, m, i, P.Z);
 }
 
-// LAT = true: the product with the small loop body (fe_mul_compact).
-template <bool LAT, int NL>
+// Product policies: which Montgomery product (and squaring) the formulas
+// run.  PROD_CIOS: fe_mul, straight-line (the default); PROD_COMPACT:
+// fe_mul_compact, the small loop body, for long chains on few threads (the
+// MSM reduction); PROD_CHAIN: fe_mul_chain and the true squaring
+// fe_sqr_chain (chain.cuh), for K6 and K9.
+enum { PROD_CIOS = 0, PROD_COMPACT = 1, PROD_CHAIN = 2 };
+
+template <int POL, int NL>
 KZG_HD void fmul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
                  const FieldConsts<NL>& F) {
-  if (LAT) {
+  if (POL == PROD_CHAIN) {
+    fe_mul_chain(r, a, b, F);
+  } else if (POL == PROD_COMPACT) {
     fe_mul_compact(r, a, b, F);
   } else {
     fe_mul(r, a, b, F);
   }
 }
 
-template <bool LAT, int NL>
+template <int POL, int NL>
 KZG_HD void fsqr(uint32_t r[NL], const uint32_t a[NL],
                  const FieldConsts<NL>& F) {
-  fmul<LAT>(r, a, a, F);
+  if (POL == PROD_CHAIN) {
+    fe_sqr_chain(r, a, F);
+  } else {
+    fmul<POL>(r, a, a, F);
+  }
 }
 
 // dbl-2009-l; the identity maps to Z3 = 0.
-template <bool LAT = false, int NL>
+template <int POL = PROD_CIOS, int NL>
 KZG_HD void g1_double(G1J<NL>& R, const G1J<NL>& P, const FieldConsts<NL>& F) {
   uint32_t A[NL], B[NL], C[NL], t[NL], D[NL], E[NL], FF[NL], X3[NL], Y3[NL],
       Z3[NL], u[NL];
-  fsqr<LAT>(A, P.X, F);
-  fsqr<LAT>(B, P.Y, F);
-  fsqr<LAT>(C, B, F);
+  fsqr<POL>(A, P.X, F);
+  fsqr<POL>(B, P.Y, F);
+  fsqr<POL>(C, B, F);
   fe_add(t, P.X, B, F);
-  fsqr<LAT>(t, t, F);
+  fsqr<POL>(t, t, F);
   fe_sub(D, t, A, F);
   fe_sub(D, D, C, F);
   fe_double(D, D, F);
   fe_double(E, A, F);
   fe_add(E, E, A, F);
-  fsqr<LAT>(FF, E, F);
+  fsqr<POL>(FF, E, F);
   fe_double(u, D, F);
   fe_sub(X3, FF, u, F);
   fe_double(u, C, F);
   fe_double(u, u, F);
   fe_double(u, u, F);  // 8C
   fe_sub(t, D, X3, F);
-  fmul<LAT>(Y3, E, t, F);
+  fmul<POL>(Y3, E, t, F);
   fe_sub(Y3, Y3, u, F);
-  fmul<LAT>(Z3, P.Y, P.Z, F);
+  fmul<POL>(Z3, P.Y, P.Z, F);
   fe_double(Z3, Z3, F);
   fe_copy<NL>(R.X, X3);
   fe_copy<NL>(R.Y, Y3);
@@ -80,7 +93,7 @@ KZG_HD void g1_double(G1J<NL>& R, const G1J<NL>& P, const FieldConsts<NL>& F) {
 
 // Complete Jacobian + Jacobian (add-2007-bl with the case analysis of
 // RegCurve.add).  R may alias P or Q.
-template <bool LAT = false, int NL>
+template <int POL = PROD_CIOS, int NL>
 KZG_HD void g1_add(G1J<NL>& R, const G1J<NL>& P, const G1J<NL>& Q,
                    const FieldConsts<NL>& F) {
   bool p_inf = fe_is_zero<NL>(P.Z);
@@ -94,19 +107,19 @@ KZG_HD void g1_add(G1J<NL>& R, const G1J<NL>& P, const G1J<NL>& Q,
     return;
   }
   uint32_t Z1Z1[NL], Z2Z2[NL], U1[NL], U2[NL], S1[NL], S2[NL], H[NL], Rr[NL];
-  fsqr<LAT>(Z1Z1, P.Z, F);
-  fsqr<LAT>(Z2Z2, Q.Z, F);
-  fmul<LAT>(U1, P.X, Z2Z2, F);
-  fmul<LAT>(U2, Q.X, Z1Z1, F);
-  fmul<LAT>(S1, P.Y, Q.Z, F);
-  fmul<LAT>(S1, S1, Z2Z2, F);
-  fmul<LAT>(S2, Q.Y, P.Z, F);
-  fmul<LAT>(S2, S2, Z1Z1, F);
+  fsqr<POL>(Z1Z1, P.Z, F);
+  fsqr<POL>(Z2Z2, Q.Z, F);
+  fmul<POL>(U1, P.X, Z2Z2, F);
+  fmul<POL>(U2, Q.X, Z1Z1, F);
+  fmul<POL>(S1, P.Y, Q.Z, F);
+  fmul<POL>(S1, S1, Z2Z2, F);
+  fmul<POL>(S2, Q.Y, P.Z, F);
+  fmul<POL>(S2, S2, Z1Z1, F);
   fe_sub(H, U2, U1, F);
   fe_sub(Rr, S2, S1, F);
   if (fe_is_zero<NL>(H)) {
     if (fe_is_zero<NL>(Rr)) {
-      g1_double<LAT>(R, P, F);
+      g1_double<POL>(R, P, F);
     } else {
       fe_copy<NL>(R.X, F.one);
       fe_copy<NL>(R.Y, F.one);
@@ -115,26 +128,26 @@ KZG_HD void g1_add(G1J<NL>& R, const G1J<NL>& P, const G1J<NL>& Q,
     return;
   }
   uint32_t HH[NL], I[NL], J[NL], r2[NL], V[NL], X3[NL], Y3[NL], Z3[NL], t[NL];
-  fsqr<LAT>(HH, H, F);
+  fsqr<POL>(HH, H, F);
   fe_double(I, HH, F);
   fe_double(I, I, F);
-  fmul<LAT>(J, H, I, F);
+  fmul<POL>(J, H, I, F);
   fe_double(r2, Rr, F);
-  fmul<LAT>(V, U1, I, F);
-  fsqr<LAT>(X3, r2, F);
+  fmul<POL>(V, U1, I, F);
+  fsqr<POL>(X3, r2, F);
   fe_sub(X3, X3, J, F);
   fe_double(t, V, F);
   fe_sub(X3, X3, t, F);
   fe_sub(t, V, X3, F);
-  fmul<LAT>(Y3, r2, t, F);
-  fmul<LAT>(t, S1, J, F);
+  fmul<POL>(Y3, r2, t, F);
+  fmul<POL>(t, S1, J, F);
   fe_double(t, t, F);
   fe_sub(Y3, Y3, t, F);
   fe_add(t, P.Z, Q.Z, F);
-  fsqr<LAT>(t, t, F);
+  fsqr<POL>(t, t, F);
   fe_sub(t, t, Z1Z1, F);
   fe_sub(t, t, Z2Z2, F);
-  fmul<LAT>(Z3, t, H, F);
+  fmul<POL>(Z3, t, H, F);
   fe_copy<NL>(R.X, X3);
   fe_copy<NL>(R.Y, Y3);
   fe_copy<NL>(R.Z, Z3);
@@ -142,35 +155,35 @@ KZG_HD void g1_add(G1J<NL>& R, const G1J<NL>& P, const G1J<NL>& Q,
 
 // Shared general case of madd-2007-bl: P + (qx, qy, 1).  Returns H and Rr so
 // the complete variant can classify the equal and opposite cases.
-template <int NL>
+template <int POL = PROD_CIOS, int NL>
 KZG_HD void g1_madd_general(G1J<NL>& R, uint32_t H[NL], uint32_t Rr[NL],
                             const G1J<NL>& P, const uint32_t qx[NL],
                             const uint32_t qy[NL], const FieldConsts<NL>& F) {
   uint32_t Z1Z1[NL], U2[NL], S2[NL];
-  fe_square(Z1Z1, P.Z, F);
-  fe_mul(U2, qx, Z1Z1, F);
-  fe_mul(S2, qy, P.Z, F);
-  fe_mul(S2, S2, Z1Z1, F);
+  fsqr<POL>(Z1Z1, P.Z, F);
+  fmul<POL>(U2, qx, Z1Z1, F);
+  fmul<POL>(S2, qy, P.Z, F);
+  fmul<POL>(S2, S2, Z1Z1, F);
   fe_sub(H, U2, P.X, F);
   fe_sub(Rr, S2, P.Y, F);
   uint32_t HH[NL], I[NL], J[NL], r2[NL], V[NL], X3[NL], Y3[NL], Z3[NL], t[NL];
-  fe_square(HH, H, F);
+  fsqr<POL>(HH, H, F);
   fe_double(I, HH, F);
   fe_double(I, I, F);
-  fe_mul(J, H, I, F);
+  fmul<POL>(J, H, I, F);
   fe_double(r2, Rr, F);
-  fe_mul(V, P.X, I, F);
-  fe_square(X3, r2, F);
+  fmul<POL>(V, P.X, I, F);
+  fsqr<POL>(X3, r2, F);
   fe_sub(X3, X3, J, F);
   fe_double(t, V, F);
   fe_sub(X3, X3, t, F);
   fe_sub(t, V, X3, F);
-  fe_mul(Y3, r2, t, F);
-  fe_mul(t, P.Y, J, F);
+  fmul<POL>(Y3, r2, t, F);
+  fmul<POL>(t, P.Y, J, F);
   fe_double(t, t, F);
   fe_sub(Y3, Y3, t, F);
   fe_add(t, P.Z, H, F);
-  fe_square(t, t, F);
+  fsqr<POL>(t, t, F);
   fe_sub(t, t, Z1Z1, F);
   fe_sub(Z3, t, HH, F);
   fe_copy<NL>(R.X, X3);
@@ -180,7 +193,7 @@ KZG_HD void g1_madd_general(G1J<NL>& R, uint32_t H[NL], uint32_t Rr[NL],
 
 // Incomplete mixed add (RegCurve.add_mixed_fast): exact when P is the
 // identity and when P == -q; P == q yields the identity instead of 2q.
-template <int NL>
+template <int POL = PROD_CIOS, int NL>
 KZG_HD void g1_add_mixed_fast(G1J<NL>& R, const G1J<NL>& P,
                               const uint32_t qx[NL], const uint32_t qy[NL],
                               const FieldConsts<NL>& F) {
@@ -191,11 +204,11 @@ KZG_HD void g1_add_mixed_fast(G1J<NL>& R, const G1J<NL>& P,
     return;
   }
   uint32_t H[NL], Rr[NL];
-  g1_madd_general(R, H, Rr, P, qx, qy, F);
+  g1_madd_general<POL>(R, H, Rr, P, qx, qy, F);
 }
 
 // Complete mixed add (RegCurve.add_mixed); q must be a finite point.
-template <int NL>
+template <int POL = PROD_CIOS, int NL>
 KZG_HD void g1_add_mixed(G1J<NL>& R, const G1J<NL>& P, const uint32_t qx[NL],
                          const uint32_t qy[NL], const FieldConsts<NL>& F) {
   if (fe_is_zero<NL>(P.Z)) {
@@ -206,10 +219,10 @@ KZG_HD void g1_add_mixed(G1J<NL>& R, const G1J<NL>& P, const uint32_t qx[NL],
   }
   G1J<NL> S;
   uint32_t H[NL], Rr[NL];
-  g1_madd_general(S, H, Rr, P, qx, qy, F);
+  g1_madd_general<POL>(S, H, Rr, P, qx, qy, F);
   if (fe_is_zero<NL>(H)) {
     if (fe_is_zero<NL>(Rr)) {
-      g1_double(R, P, F);
+      g1_double<POL>(R, P, F);
     } else {
       fe_copy<NL>(R.X, F.one);
       fe_copy<NL>(R.Y, F.one);
@@ -221,14 +234,101 @@ KZG_HD void g1_add_mixed(G1J<NL>& R, const G1J<NL>& P, const uint32_t qx[NL],
 }
 
 // Thread bodies of the K6 / K7 / K9 replacements: one point per thread.
+//
+// K6 and K9 run the product policy PROD_CHAIN.  Their formulas are those
+// of g1_add (add-2007-bl) and
+// g1_add_mixed (madd-2007-bl) with the same case analysis, so every
+// representative is theirs; the order is the registers': each coordinate is
+// loaded where it is first used, each output coordinate stored as soon as it
+// is known, so fewer field elements are live at once.  The rare cases (an
+// identity operand, P = Q, P = -Q) read their operands again from memory.
+
+// P = +-Q in an add (H = 0): 2P where R = 0 (P = Q), else the identity.
+template <int NL>
+KZG_HD void g1_add_exceptional(uint32_t* out, const uint32_t* p, int64_t m,
+                               int64_t i, bool equal,
+                               const FieldConsts<NL>& F) {
+  G1J<NL> R;
+  if (equal) {
+    g1_load(R, p, m, i);
+    g1_double<PROD_CHAIN>(R, R, F);
+  } else {
+    fe_copy<NL>(R.X, F.one);
+    fe_copy<NL>(R.Y, F.one);
+    for (int k = 0; k < NL; k++) R.Z[k] = 0;
+  }
+  g1_store(out, m, i, R);
+}
+
+// The end both formulas share: r = 2 Rr, X3 = r^2 - J - 2V,
+// Y3 = r (V - X3) - 2 S J, stored.  Rr, J and V are overwritten.
+template <int NL>
+KZG_HD void g1_add_tail(uint32_t* out, int64_t m, int64_t i, uint32_t Rr[NL],
+                        uint32_t J[NL], uint32_t V[NL], const uint32_t S[NL],
+                        const FieldConsts<NL>& F) {
+  uint32_t t[NL], u[NL];
+  fe_double(Rr, Rr, F);                            // r
+  fsqr<PROD_CHAIN>(t, Rr, F);
+  fe_sub(t, t, J, F);
+  fe_double(u, V, F);
+  fe_sub(t, t, u, F);                              // X3
+  fe_store<NL>(out, m, i, t);
+  fe_sub(V, V, t, F);
+  fmul<PROD_CHAIN>(V, Rr, V, F);
+  fmul<PROD_CHAIN>(J, S, J, F);
+  fe_double(J, J, F);
+  fe_sub(V, V, J, F);                              // Y3
+  fe_store<NL>(out + NL * m, m, i, V);
+}
+
 template <int NL>
 KZG_HD void g1_add_thread(int64_t i, const uint32_t* p, const uint32_t* q,
                           uint32_t* out, int64_t m, const FieldConsts<NL>& F) {
-  G1J<NL> P, Q, R;
-  g1_load(P, p, m, i);
-  g1_load(Q, q, m, i);
-  g1_add(R, P, Q, F);
-  g1_store(out, m, i, R);
+  const int64_t Y = NL * m, Z = 2 * NL * m;
+  uint32_t Z1[NL], Z2[NL];
+  fe_load<NL>(Z1, p + Z, m, i);
+  fe_load<NL>(Z2, q + Z, m, i);
+  const bool p_inf = fe_is_zero<NL>(Z1);
+  if (p_inf || fe_is_zero<NL>(Z2)) {
+    G1J<NL> S;
+    g1_load(S, p_inf ? q : p, m, i);
+    g1_store(out, m, i, S);
+    return;
+  }
+  // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H; S1 = Y1 Z2^3, S2 = Y2 Z1^3 (the
+  // same field values as Y1 Z2 Z2Z2, Y2 Z1 Z1Z1).
+  uint32_t Z1Z1[NL], Z2Z2[NL], ZZ[NL], U1[NL], H[NL], S1[NL], Rr[NL], t[NL];
+  fsqr<PROD_CHAIN>(Z1Z1, Z1, F);
+  fsqr<PROD_CHAIN>(Z2Z2, Z2, F);
+  fe_add(ZZ, Z1, Z2, F);
+  fsqr<PROD_CHAIN>(ZZ, ZZ, F);
+  fe_sub(ZZ, ZZ, Z1Z1, F);
+  fe_sub(ZZ, ZZ, Z2Z2, F);
+  fmul<PROD_CHAIN>(Z1, Z1, Z1Z1, F);               // Z1^3
+  fmul<PROD_CHAIN>(Z2, Z2, Z2Z2, F);               // Z2^3
+  fe_load<NL>(t, q, m, i);                         // X2
+  fmul<PROD_CHAIN>(H, t, Z1Z1, F);                 // U2
+  fe_load<NL>(t, p, m, i);                         // X1
+  fmul<PROD_CHAIN>(U1, t, Z2Z2, F);
+  fe_sub(H, H, U1, F);                             // H = U2 - U1
+  fe_load<NL>(t, p + Y, m, i);                     // Y1
+  fmul<PROD_CHAIN>(S1, t, Z2, F);
+  fe_load<NL>(t, q + Y, m, i);                     // Y2
+  fmul<PROD_CHAIN>(Rr, t, Z1, F);                  // S2
+  fe_sub(Rr, Rr, S1, F);                           // S2 - S1
+  if (fe_is_zero<NL>(H)) {
+    g1_add_exceptional(out, p, m, i, fe_is_zero<NL>(Rr), F);
+    return;
+  }
+  fmul<PROD_CHAIN>(ZZ, ZZ, H, F);
+  fe_store<NL>(out + Z, m, i, ZZ);                 // Z3
+  uint32_t I[NL], J[NL], V[NL];
+  fsqr<PROD_CHAIN>(I, H, F);                       // HH
+  fe_double(I, I, F);
+  fe_double(I, I, F);                              // I = 4 HH
+  fmul<PROD_CHAIN>(J, H, I, F);
+  fmul<PROD_CHAIN>(V, U1, I, F);
+  g1_add_tail(out, m, i, Rr, J, V, S1, F);
 }
 
 template <int NL>
@@ -249,12 +349,44 @@ KZG_HD void g1_add_mixed_thread(int64_t i, const uint32_t* p,
                                 const uint32_t* qx, const uint32_t* qy,
                                 int64_t qn, uint32_t* out, int64_t m,
                                 const FieldConsts<NL>& F) {
-  G1J<NL> P, R;
-  uint32_t x[NL], y[NL];
-  g1_load(P, p, m, i);
-  int64_t j = i % qn;
-  fe_load<NL>(x, qx, qn, j);
-  fe_load<NL>(y, qy, qn, j);
-  g1_add_mixed(R, P, x, y, F);
-  g1_store(out, m, i, R);
+  const int64_t Y = NL * m, Z = 2 * NL * m, j = i % qn;
+  uint32_t Z1[NL], t[NL];
+  fe_load<NL>(Z1, p + Z, m, i);
+  if (fe_is_zero<NL>(Z1)) {                   // (qx, qy, 1)
+    fe_load<NL>(t, qx, qn, j);
+    fe_store<NL>(out, m, i, t);
+    fe_load<NL>(t, qy, qn, j);
+    fe_store<NL>(out + Y, m, i, t);
+    fe_store<NL>(out + Z, m, i, F.one);
+    return;
+  }
+  uint32_t Z1Z1[NL], H[NL], Rr[NL];
+  fsqr<PROD_CHAIN>(Z1Z1, Z1, F);
+  fe_load<NL>(t, qx, qn, j);
+  fmul<PROD_CHAIN>(H, t, Z1Z1, F);                 // U2
+  fe_load<NL>(t, p, m, i);                         // X1
+  fe_sub(H, H, t, F);                              // H = U2 - X1
+  fe_load<NL>(t, qy, qn, j);
+  fmul<PROD_CHAIN>(Rr, t, Z1, F);
+  fmul<PROD_CHAIN>(Rr, Rr, Z1Z1, F);               // S2
+  fe_load<NL>(t, p + Y, m, i);                     // Y1
+  fe_sub(Rr, Rr, t, F);                            // S2 - Y1
+  if (fe_is_zero<NL>(H)) {
+    g1_add_exceptional(out, p, m, i, fe_is_zero<NL>(Rr), F);
+    return;
+  }
+  uint32_t HH[NL], I[NL], J[NL], V[NL];
+  fsqr<PROD_CHAIN>(HH, H, F);
+  fe_add(t, Z1, H, F);
+  fsqr<PROD_CHAIN>(t, t, F);
+  fe_sub(t, t, Z1Z1, F);
+  fe_sub(t, t, HH, F);
+  fe_store<NL>(out + Z, m, i, t);                  // Z3
+  fe_double(I, HH, F);
+  fe_double(I, I, F);                              // I = 4 HH
+  fmul<PROD_CHAIN>(J, H, I, F);
+  fe_load<NL>(t, p, m, i);                         // X1
+  fmul<PROD_CHAIN>(V, t, I, F);
+  fe_load<NL>(t, p + Y, m, i);                     // Y1
+  g1_add_tail(out, m, i, Rr, J, V, t, F);
 }

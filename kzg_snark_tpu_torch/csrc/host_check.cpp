@@ -35,13 +35,33 @@ static int impl_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
   return 0;
 }
 
+// The carry-chain product (square = 0) or squaring (square = 1) of
+// chain.cuh, as its C++ mirror: (NL, n) dense operands.
+template <int NL>
+static int impl_fe_chain(int square, const void* a, const void* b, void* out,
+                         int64_t n, const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t x[NL], y[NL], r[NL];
+    fe_load<NL>(x, (const uint32_t*)a, n, i);
+    fe_load<NL>(y, (const uint32_t*)b, n, i);
+    if (square) {
+      fe_sqr_chain(r, x, F);
+    } else {
+      fe_mul_chain(r, x, y, F);
+    }
+    fe_store<NL>((uint32_t*)out, n, i, r);
+  }
+  return 0;
+}
+
 template <int NL>
 static int impl_g1_add(const void* p, const void* q, void* out, int64_t m,
                        const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t i = 0; i < m; i++)
-    g1_add_thread(i, (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out,
-                  m, F);
+    g1_add_thread(i, (const uint32_t*)p, (const uint32_t*)q,
+                              (uint32_t*)out, m, F);
   return 0;
 }
 
@@ -60,8 +80,9 @@ static int impl_g1_add_mixed(const void* p, const void* qx, const void* qy,
                              const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
   for (int64_t i = 0; i < m; i++)
-    g1_add_mixed_thread(i, (const uint32_t*)p, (const uint32_t*)qx,
-                        (const uint32_t*)qy, qn, (uint32_t*)out, m, F);
+    g1_add_mixed_thread(i, (const uint32_t*)p,
+                                    (const uint32_t*)qx, (const uint32_t*)qy,
+                                    qn, (uint32_t*)out, m, F);
   return 0;
 }
 
@@ -177,7 +198,7 @@ static int impl_msm_window_sums(const void* partials, int64_t chunks,
                        (const int32_t*)bco, half, c, F);
     for (int64_t s = threads / 2; s > 0; s >>= 1)
       for (int64_t t = 0; t < s; t++)
-        g1_add<true>(sh[t], sh[t], sh[t + s], F);
+        g1_add<PROD_COMPACT>(sh[t], sh[t], sh[t + s], F);
     g1_store((uint32_t*)wparts, blocks, blk, sh[0]);
   }
   delete[] sh;
@@ -274,6 +295,11 @@ extern "C" int host_fr_ewise(int op, const void* a, int64_t lda, int64_t inca,
                              void* out, int64_t n, const void* consts) {
   return KZG_BY_LIMBS(consts, impl_fr_ewise, op, a, lda, inca, b, ldb, incb,
                       out, n, consts);
+}
+
+extern "C" int host_fe_chain(int square, const void* a, const void* b,
+                             void* out, int64_t n, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_fe_chain, square, a, b, out, n, consts);
 }
 
 extern "C" int host_g1_add(const void* p, const void* q, void* out, int64_t m,

@@ -85,12 +85,12 @@ KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
 }
 
 // The reduction runs long chains of curve operations on few threads, so it
-// takes the product with the small loop body (LAT = true): same values.
+// takes the product with the small loop body (PROD_COMPACT): same values.
 //
 // Doubling that leaves the identity alone (its X, Y stay as they are).
 template <int NL>
 KZG_HD void g1_double_finite(G1J<NL>& P, const FieldConsts<NL>& F) {
-  if (!fe_is_zero<NL>(P.Z)) g1_double<true>(P, P, F);
+  if (!fe_is_zero<NL>(P.Z)) g1_double<PROD_COMPACT>(P, P, F);
 }
 
 // One thread's share of a window sum sum_m m B_m (B_m: the sum of bucket m's
@@ -144,7 +144,7 @@ KZG_HD void msm_window_piece(G1J<NL>& V, int64_t wi, int64_t g, int64_t tpw,
         g1_load(Q, partials, chunks, cb + p - m);
       }
       g1_select(X, st, Wt, R);
-      g1_add<true>(X, X, Q, F);
+      g1_add<PROD_COMPACT>(X, X, Q, F);
       if (st) {
         Wt = X;
         m--;
@@ -158,9 +158,9 @@ KZG_HD void msm_window_piece(G1J<NL>& V, int64_t wi, int64_t g, int64_t tpw,
   g1_set_identity(acc, F);
   for (int bit = c - 1; bit >= 0; bit--) {
     g1_double_finite(acc, F);
-    if ((m >> bit) & 1) g1_add<true>(acc, acc, R, F);
+    if ((m >> bit) & 1) g1_add<PROD_COMPACT>(acc, acc, R, F);
   }
-  g1_add<true>(V, Wt, acc, F);
+  g1_add<PROD_COMPACT>(V, Wt, acc, F);
 }
 
 // Window wi's total: the sum of its P block partials in order.
@@ -171,7 +171,7 @@ KZG_HD void msm_window_total(G1J<NL>& S, const uint32_t* wparts, int64_t m,
   for (int j = 1; j < pieces; j++) {
     G1J<NL> Q;
     g1_load(Q, wparts, m, wi * pieces + j);
-    g1_add<true>(S, S, Q, F);
+    g1_add<PROD_COMPACT>(S, S, Q, F);
   }
 }
 
@@ -182,6 +182,6 @@ KZG_HD void msm_horner(G1J<NL>& acc, const G1J<NL>* S, int windows, int c,
   g1_set_identity(acc, F);
   for (int w = windows - 1; w >= 0; w--) {
     for (int i = 0; i < c; i++) g1_double_finite(acc, F);
-    g1_add<true>(acc, acc, S[w], F);
+    g1_add<PROD_COMPACT>(acc, acc, S[w], F);
   }
 }

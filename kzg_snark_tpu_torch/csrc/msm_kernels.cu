@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(kReduceThreads)
   for (int s = blockDim.x / 2; s > 0; s >>= 1) {
     if (t < s) {
       G1J<NL> A = sh[t], B = sh[t + s];
-      g1_add<true>(A, A, B, F);
+      g1_add<PROD_COMPACT>(A, A, B, F);
       sh[t] = A;
     }
     __syncthreads();

@@ -61,3 +61,63 @@ def random_point_basis(curve_type: str, size: int, seed: int,
                                 bases[1, :, j:j + 1])
         acc = torch.where((word == 1)[None, None], taken, acc)
     return normalize_points(f, acc), ks
+
+
+def adversarial_values(p: int, limbs: int) -> list[int]:
+    """Canonical values that stress a Montgomery product's carries: 0, 1,
+    p - 1 and its neighbours, all-ones low words, p less a power of the
+    word, R mod p and R^2 mod p (R = 2^(32 limbs))."""
+    R = 1 << (32 * limbs)
+    vals = [0, 1, 2, 3, p - 1, p - 2, p - 3, (p - 1) // 2, (p + 1) // 2,
+            R % p, R * R % p, (R - 1) % p]
+    vals += [(1 << (32 * k)) - 1 for k in range(1, limbs + 1)]
+    vals += [p - (1 << (32 * k)) for k in range(limbs)]
+    return sorted({v % p for v in vals})
+
+
+def edge_batches(curve_type: str, pts: torch.Tensor) -> dict:
+    """Inputs for the curve kernels' case analysis from k points ``pts``
+    (3, L, k) with Z = 1: {"add": (p, q), "mixed": [(acc, qx, qy), ...]}.
+
+    The add's lanes, k each: distinct points, P = Q, P = -Q, an identity
+    operand on either side and on both, and triples of adversarial field
+    values (not on the curve: the formulas are the same arithmetic) against
+    other such triples and against themselves.  Finite points are rescaled
+    to Jacobian representatives (l^2 X, l^3 Y, l) with l adversarial, so
+    coordinates near p and all-ones words reach the products.  The mixed
+    add's batches: q one point a lane (qn = m) and one q for all lanes
+    (qn = 1), each with distinct points, P = q (the doubling), P = -q, the
+    identity and adversarial triples as the accumulator."""
+    curve = curve_ops(curve_type, pts.device)
+    f = curve.f
+    k = pts.shape[2]
+    adv = adversarial_values(f.modulus, f.num_limbs)
+    cyc = lambda shift: f.from_ints(  # noqa: E731
+        [adv[(i + shift) % len(adv)] for i in range(k)])
+    nonzero = [v for v in adv if v]
+    lam = f.from_ints([nonzero[i % len(nonzero)] for i in range(k)])
+
+    def scaled(x, y):
+        lam2 = f.mul(lam, lam)
+        return torch.stack([f.mul(x, lam2), f.mul(y, f.mul(lam2, lam)), lam])
+
+    x, y = pts[0].contiguous(), pts[1].contiguous()
+    xr, yr = x.roll(1, -1).contiguous(), y.roll(1, -1).contiguous()
+    ident = curve.identity((k,))
+    raw = torch.stack([cyc(0), cyc(1), cyc(2)])
+    raw2 = torch.stack([cyc(3), cyc(5), cyc(7)])
+    P = scaled(x, y)
+    p = torch.cat([P, P, pts, ident, P, ident, raw, raw], dim=-1)
+    q = torch.cat([torch.stack([xr, yr, pts[2]]), pts,
+                   scaled(x, f.neg(y)), P, ident, ident, raw2, raw], dim=-1)
+    mixed = []
+    acc = torch.cat([P, P, scaled(x, f.neg(y)), ident, raw], dim=-1)
+    qx = torch.cat([xr, x, x, x, cyc(4)], dim=-1)
+    qy = torch.cat([yr, y, y, y, cyc(6)], dim=-1)
+    mixed.append((acc.contiguous(), qx.contiguous(), qy.contiguous()))
+    x0, y0 = x[:, :1].expand(-1, k), y[:, :1].expand(-1, k)
+    acc1 = torch.cat([P, scaled(x0, y0), scaled(x0, f.neg(y0)), ident, raw],
+                     dim=-1)
+    mixed.append((acc1.contiguous(), x[:, :1].contiguous(),
+                  y[:, :1].contiguous()))
+    return {"add": (p.contiguous(), q.contiguous()), "mixed": mixed}

@@ -480,11 +480,23 @@ def _points_check(name: str, fc: FieldConsts, *pts: torch.Tensor) -> int:
     return shape[2]
 
 
+def _chain_check(name: str, fc: FieldConsts) -> None:
+    """K6 and K9 run the carry-chain product (csrc/chain.cuh), whose sums
+    stay in their words for 2p + 2^(32 L - 30) < 2^(32 L): BN254 and
+    BLS12-381 by a wide margin."""
+    R = 1 << (32 * fc.num_limbs)
+    if 2 * fc.modulus + (R >> 30) >= R:
+        raise ValueError(f"{name}: a {fc.modulus.bit_length()}-bit modulus "
+                         f"is too close to 2^{32 * fc.num_limbs - 1} for "
+                         f"the carry-chain product")
+
+
 def g1_add(fc: FieldConsts, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """K6: complete Jacobian add of two (3, L, m) batches."""
     if _on_cpu(p, q):
         return g1_add_plain(fc, p, q)
     m = _points_check("g1_add", fc, p, q)
+    _chain_check("g1_add", fc)
     out = torch.empty_like(p)
     count_launch("g1_add", width=m, limbs=fc.num_limbs)
     check(cuda_lib().kzg_g1_add(p.data_ptr(), q.data_ptr(), out.data_ptr(),
@@ -512,6 +524,7 @@ def g1_add_mixed(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
         return g1_add_mixed_plain(fc, p, qx, qy)
     m = _points_check("g1_add_mixed", fc, p)
     _require_cuda("g1_add_mixed", p, qx, qy)
+    _chain_check("g1_add_mixed", fc)
     qn = qx.shape[-1]
     if qx.shape != (fc.num_limbs, qn) or qy.shape != qx.shape or qn < 1 \
             or m % qn:

@@ -1,17 +1,20 @@
 """Radix-2 NTT / iNTT over Fr on PyTorch tensors.
 
 Counterpart of ``kzg_snark_tpu/ops/ntt.py`` ``NttContext``: natural-order
-input and output over (8, n) Montgomery limb tensors, the deterministic
-domain root of ``ops/host/field`` ``nth_root_of_unity``.  Two modes, chosen
-by the caller:
+input and output over (8, ..., n) Montgomery limb tensors, transformed
+along the last axis (the middle axes are a batch, as in the JAX
+``_transform``), the deterministic domain root of ``ops/host/field``
+``nth_root_of_unity``.  Two modes, chosen by the caller:
 
 * ``"staged"`` (the default): ``ops/ntt_stage.staged_transform``, the
   K2-K5 replacement ``ntt_pass`` (as many stages a launch as a
-  shared-memory tile holds), the bit reversal a torch index gather;
+  shared-memory tile holds, the passes of a batch row after row), the
+  bit reversal a torch index gather;
 * ``"scan"``: the JAX ``_transform_scan`` (``KZG_TPU_NTT_MODE=scan``): the
   bit reversal by two half-width gathers and a transpose, then per stage
   two rolls align the pairs and the K10 kernel combines them against a
-  full-width twiddle row (the (stages, 8, n) rows are built on first use).
+  full-width twiddle row (the (stages, 8, n) rows are built on first use;
+  a batch is one launch a stage, its rows side by side).
 
 The n^-1 scale and coset shifts are K1 products.  Values are exact, so
 both modes give equal output.
@@ -79,16 +82,17 @@ class NttContext:
             return self._transform_scan(values, forward)
         table = self.tw_fwd if forward else self.tw_inv
         return staged_transform(self.backend.consts,
-                                values[:, self.bitrev], table)
+                                values[..., self.bitrev], table)
 
     def ntt(self, coeffs: torch.Tensor, mode: str = "staged") -> torch.Tensor:
-        """Evaluate: out[:, i] = p(w^i).  coeffs (8, n) Montgomery form."""
+        """Evaluate: out[..., i] = p(w^i).  coeffs (8, ..., n) Montgomery
+        form."""
         return self._transform(coeffs, True, mode)
 
     def intt(self, evals: torch.Tensor, mode: str = "staged") -> torch.Tensor:
         """Interpolate: inverse transform scaled by n^-1."""
-        return self.backend.mul(self._transform(evals, False, mode),
-                                self.n_inv)
+        out = self._transform(evals, False, mode)
+        return self.backend.mul(out, _over(self.n_inv, out))
 
     # -- scan mode (K10) -------------------------------------------------
     def _bitrev_2d(self, values: torch.Tensor) -> torch.Tensor:
@@ -101,8 +105,9 @@ class NttContext:
         dev = values.device
         rev_a = bit_reverse_indices(A).to(dev)
         rev_b = bit_reverse_indices(B).to(dev)
-        x2d = values.reshape(values.shape[0], A, B)[:, rev_a][:, :, rev_b]
-        return x2d.transpose(1, 2).reshape(values.shape[0], self.n)
+        lead = values.shape[:-1]
+        x2d = values.reshape(lead + (A, B))[..., rev_a, :][..., rev_b]
+        return x2d.transpose(-1, -2).reshape(lead + (self.n,))
 
     def _stage_twiddles(self, forward: bool) -> torch.Tensor:
         """(stages, 8, n) rows: row t, column i holds
@@ -125,14 +130,19 @@ class NttContext:
         fc = self.backend.consts
         tws = self._stage_twiddles(forward)
         x = self._bitrev_2d(values)
+        L, rows = x.shape[0], x[0].numel() // self.n
         idx = torch.arange(self.n, dtype=torch.int32, device=x.device)
         for t in range(tws.shape[0]):
             span = 1 << t
             upper = (idx & span) != 0
-            xl = torch.where(upper[None], torch.roll(x, span, dims=1), x)
-            xu = torch.where(upper[None], x, torch.roll(x, -span, dims=1))
-            x = fr_butterfly(fc, xl.contiguous(), xu.contiguous(),
-                             tws[t], upper.to(torch.int32))
+            xl = torch.where(upper, torch.roll(x, span, dims=-1), x)
+            xu = torch.where(upper, x, torch.roll(x, -span, dims=-1))
+            tw, mask = tws[t], upper.to(torch.int32)
+            if rows > 1:    # the batch's rows side by side: one launch
+                tw, mask = tw.repeat(1, rows), mask.repeat(rows)
+            x = fr_butterfly(fc, xl.reshape(L, -1).contiguous(),
+                             xu.reshape(L, -1).contiguous(), tw,
+                             mask).reshape(x.shape)
         return x
 
     def powers(self, c: int) -> torch.Tensor:
@@ -141,18 +151,27 @@ class NttContext:
 
     def coset_ntt(self, coeffs: torch.Tensor, shift: int) -> torch.Tensor:
         """Evaluate on the coset shift * H: NTT of coeffs[i] * shift^i."""
-        return self.ntt(self.backend.mul(coeffs, self._shift_powers(shift)))
+        return self.ntt(self.backend.mul(
+            coeffs, _over(self._shift_powers(shift), coeffs)))
 
     def coset_intt(self, evals: torch.Tensor, shift: int) -> torch.Tensor:
         inv_shift = pow(shift, -1, self.backend.modulus)
-        return self.backend.mul(self.intt(evals),
-                                self._shift_powers(inv_shift))
+        out = self.intt(evals)
+        return self.backend.mul(out,
+                                _over(self._shift_powers(inv_shift), out))
 
     def _shift_powers(self, c: int) -> torch.Tensor:
         cache = self.__dict__.setdefault("_shift_cache", {})
         if c not in cache:
             cache[c] = self.powers(c)
         return cache[c]
+
+
+def _over(row: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An (L, k) row shaped (L, 1, ..., 1, k) to broadcast over the batch
+    axes of x (L, ..., n)."""
+    return row.reshape((row.shape[0],) + (1,) * (x.dim() - 2)
+                       + (row.shape[-1],))
 
 
 @functools.lru_cache(maxsize=None)

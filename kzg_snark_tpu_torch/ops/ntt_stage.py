@@ -123,7 +123,13 @@ def staged_transform(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor
                      ) -> torch.Tensor:
     """Bit-reversed (L, n) input -> natural-order transform (L, n): the
     plain stages on the CPU, else the passes of ``pass_plan`` with the
-    library's tile, the first out of place, the rest in place."""
+    library's tile, the first out of place, the rest in place.  An
+    (L, ..., n) batch is transformed row after row along its last axis."""
+    if x.dim() > 2:
+        L, n = x.shape[0], x.shape[-1]
+        rows = x.reshape(L, -1, n).transpose(0, 1)
+        out = torch.stack([staged_transform(fc, r, tw) for r in rows], dim=1)
+        return out.reshape(x.shape)
     n = x.shape[1]
     x = x.contiguous()
     if cuda_fr._on_cpu(x, tw):

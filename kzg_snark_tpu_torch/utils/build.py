@@ -14,6 +14,10 @@ fallback: without ``nvcc`` or with a failing build it raises.
 
 ``host_lib()`` compiles ``csrc/host_check.cpp`` with g++: the kernels'
 thread bodies on the CPU, which the tests compare with the plain versions.
+``probe_lib()`` and ``sass_product_counts()`` build
+``csrc/probe/mont_probe.cu`` apart from the library: the Montgomery
+product policies' throughput loops and their instructions by opcode
+(``cuobjdump -sass``), which ``chip_smoke.py``'s build phase prints.
 
 Every kernel wrapper calls :func:`count_launch` where it launches, so a run
 can show which kernels its main path went through, over how many elements
@@ -56,6 +60,8 @@ CUDA_ENTRIES = {
     "kzg_g1_add": [_P, _P, _P, _I64, _P, _P],
     "kzg_g1_double": [_P, _P, _I64, _P, _P],
     "kzg_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P, _P],
+    "kzg_g1_blocks_per_sm": [_INT, _INT],
+    "kzg_g1_threads": [],
     "kzg_g1_fixed_base_table": [_P, _P, _INT, _INT, _P, _P],
     "kzg_ntt_tile": [],
     "kzg_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
@@ -70,6 +76,7 @@ CUDA_ENTRIES = {
 
 HOST_ENTRIES = {
     "host_fr_ewise": [_INT, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
+    "host_fe_chain": [_INT, _P, _P, _P, _I64, _P],
     "host_g1_add": [_P, _P, _P, _I64, _P],
     "host_g1_double": [_P, _P, _I64, _P],
     "host_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P],
@@ -146,11 +153,15 @@ def check(rc: int, name: str) -> None:
 def _digest(files: list[str], flags: list[str]) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
     for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
+        if not os.path.isfile(path):
+            continue
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
     for path in files:
         h.update(path.encode())
+        with open(os.path.join(_CSRC, path), "rb") as fh:
+            h.update(fh.read())
     return h.hexdigest()[:16]
 
 
@@ -266,6 +277,74 @@ def kernel_resources(lib_path: str) -> dict[str, dict[str, int]]:
                              capture_output=True, check=True).stdout
         found = dict(zip(out.splitlines(), found.values()))
     return found
+
+
+def probe_lib() -> ctypes.CDLL:
+    """``csrc/probe/mont_probe.cu`` built apart from the kernel library:
+    the product policies' throughput loops (``kzg_probe_loop``)."""
+    src = os.path.join(_CSRC, "probe", "mont_probe.cu")
+
+    def build():
+        return _build("torch_probe", "libmont_probe.so", [src], NVCC_FLAGS,
+                      lambda out_dir, tmp: [[[_nvcc()] + NVCC_FLAGS + [
+                          "-I", _CSRC, "-shared", "-o", tmp, src]]])
+    return _load("torch_probe", build, {"kzg_probe_loop": [
+        _INT, _INT, _P, _P, _P, _I64, _INT, _P, _P]})
+
+
+def sass_product_counts(lib_path: str) -> dict[str, dict[str, int]]:
+    """Instructions of one Montgomery product and squaring by policy and
+    limb count: ``csrc/probe/mont_probe.cu`` compiled to a cubin beside
+    ``lib_path`` and read with ``cuobjdump -sass``; each probe kernel's
+    opcode counts less those of ``probe_copy`` at its limb count.  Keys
+    "<kernel> <policy> <limbs>"; per entry "total", "imad" (IMAD of any
+    form but IMAD.MOV, a move) and "ops", the count of every opcode.
+    Raises where the toolkit has no ``cuobjdump``."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    src = os.path.join(_CSRC, "probe", "mont_probe.cu")
+    cubin = os.path.join(os.path.dirname(lib_path), "mont_probe.cubin")
+    if not os.path.exists(cubin):
+        _run([[_nvcc()] + NVCC_ARCH + ["-std=c++17", "-O3", "-cubin",
+                                       "-I", _CSRC, "-o", cubin, src]])
+    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, collections.Counter] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if m and name:
+            counts[name][m.group(1)] += 1
+    names = list(counts)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               text=True, capture_output=True,
+                               check=True).stdout.splitlines()
+    by_name = dict(zip(names, counts.values()))
+    policies = {"0": "cios", "2": "chain"}
+    out: dict[str, dict[str, int]] = {}
+    for full, c in by_name.items():
+        m = re.match(r"void probe_(mul|sqr)<(\d+), (\d+)>", full)
+        if not m:
+            continue
+        base = next(v for k, v in by_name.items()
+                    if k.startswith(f"void probe_copy<{m.group(3)}>"))
+        diff = c.copy()
+        diff.subtract(base)
+        ops = {k: v for k, v in diff.items() if v}
+        imad = {k: v for k, v in ops.items()
+                if k.startswith("IMAD") and not k.startswith("IMAD.MOV")}
+        key = f"{m.group(1)} {policies.get(m.group(2), m.group(2))} " \
+              f"{m.group(3)}"
+        out[key] = {"total": sum(ops.values()), "imad": sum(imad.values()),
+                    "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return out
 
 
 def cuda_lib() -> ctypes.CDLL:

@@ -394,3 +394,67 @@ def test_bls_bucket_kernels_match_plain(cuda):
                         s.window_threads)
     assert torch.equal(got, mk.msm_reduce_plain(
         fq, part, s.bucket_chunks, 2, W, c, s.window_threads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_curve_kernels_match_plain_on_edge_batches(cuda, curve_type):
+    """K6 and K9 (the carry-chain product in PTX) against their plain
+    versions on ``edge_batches``: identity operands, P = Q, P = -Q, the
+    mixed add's doubling, q with column periods m and 1, coordinates near
+    p and all-ones words; 8 words at BN254, 12 at BLS12-381."""
+    from kzg_snark_tpu_torch.ops.benchpoints import (edge_batches,
+                                                     random_point_basis)
+
+    fq = fq_backend(curve_type, cuda).consts
+    pts, _ = random_point_basis(curve_type, 64, seed=17, device=cuda)
+    cases = edge_batches(curve_type, pts)
+    p, q = cases["add"]
+    before = LAUNCHES["g1_add"]
+    assert torch.equal(cuda_fr.g1_add(fq, p, q),
+                       cuda_fr.g1_add_plain(fq, p, q))
+    assert LAUNCHES["g1_add"] == before + 1
+    for acc, qx, qy in cases["mixed"]:
+        before = LAUNCHES["g1_add_mixed"]
+        assert torch.equal(cuda_fr.g1_add_mixed(fq, acc, qx, qy),
+                           cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy))
+        assert LAUNCHES["g1_add_mixed"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1 << 11,), (1 << 16,), (3, 1 << 11)],
+                         ids=["8x2^11", "8x2^16", "8x3x2^11"])
+def test_ntt_launches_and_batches(cuda, shape):
+    """An (8, n) transform makes ceil(log2 n / t) ntt_pass launches; an
+    (8, ..., n) batch makes them for each row and equals the rows'
+    transforms, in both modes."""
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import tile_bits
+
+    n = shape[-1]
+    ctx = ntt_context("bn254", n, cuda)
+    rows = int(np.prod(shape[:-1]))
+    x = words(rows * n, 5, cuda).reshape((8,) + shape)
+    before = LAUNCHES["ntt_pass"]
+    y = ctx.ntt(x)
+    k = n.bit_length() - 1
+    assert LAUNCHES["ntt_pass"] - before == rows * -(-k // tile_bits())
+    flat = x.reshape(8, rows, n)
+    for r in range(rows):
+        assert torch.equal(y.reshape(8, rows, n)[:, r],
+                           ctx.ntt(flat[:, r].contiguous()))
+    assert torch.equal(ctx.ntt(x, mode="scan"), y)
+    assert torch.equal(ctx.intt(y), x)
+
+
+def test_chain_product_modulus_bound():
+    """K6 and K9 take the carry-chain product, whose sums stay in their
+    words for 2p + 2^(32 L - 30) < 2^(32 L): every curve modulus passes,
+    a 255-bit modulus just under 2^255 is refused before any launch."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.limbs import FieldConsts
+
+    for p in (C.BN254_R, C.BN254_P, C.BLS12_381_R, C.BLS12_381_P):
+        cuda_fr._chain_check("g1_add", FieldConsts(p))
+    with pytest.raises(ValueError):
+        cuda_fr._chain_check("g1_add", FieldConsts(2 ** 255 - 19))

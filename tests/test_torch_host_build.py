@@ -18,7 +18,9 @@ import torch
 
 from kzg_snark_tpu import constants as C
 from kzg_snark_tpu_torch.ops import cuda_fr
-from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+from kzg_snark_tpu_torch.ops.benchpoints import (adversarial_values,
+                                                  edge_batches,
+                                                  random_point_basis)
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops.limbs import (FieldConsts, ints_to_words,
                                            to_tensor, to_words)
@@ -156,6 +158,50 @@ def test_fr_pow(lib, modulus):
         assert np.array_equal(out, _words(fr_pow_plain(fc, a, e))), e
 
 
+def _high_pairs(p, L, count, seed):
+    """Random pairs (a, b) whose CIOS result before the final subtraction
+    lies in [p, 2p): (a b + M p) / R >= p, M = -a b / p mod R."""
+    R = 1 << (32 * L)
+    rng = random.Random(seed)
+    pinv = pow(-p, -1, R)
+    out = []
+    while len(out) < count:
+        a, b = rng.randrange(p), rng.randrange(p)
+        if (a * b + (a * b * pinv % R) * p) // R >= p:
+            out.append((a, b))
+    return out
+
+
+@pytest.mark.parametrize("modulus", [C.BN254_P, C.BLS12_381_R,
+                                     C.BLS12_381_P, C.BN254_R],
+                         ids=["fq", "bls-fr", "bls-fq", "fr"])
+def test_chain_product_and_square(lib, modulus):
+    """The carry-chain Montgomery product and squaring (csrc/chain.cuh, the
+    C++ mirror of its PTX) against mul_plain and Python integers: every
+    pair of the adversarial values, random pairs whose result needs the
+    final subtraction, and random pairs."""
+    be = _backend(modulus)
+    fc = be.consts
+    L = fc.num_limbs
+    adv = adversarial_values(modulus, L)
+    pairs = [(x, y) for x in adv for y in adv]
+    pairs += _high_pairs(modulus, L, 64, L)
+    pairs += [(x, x) for x, _ in _high_pairs(modulus, L, 8, L + 1)]
+    rand = _random_field(modulus, 128, 7)
+    pairs += list(zip(rand, rand[::-1]))
+    n = len(pairs)
+    a = be.from_ints([x for x, _ in pairs])
+    b = be.from_ints([y for _, y in pairs])
+    aw, bw = _words(a), _words(b)
+    out = np.empty_like(aw)
+    lib.host_fe_chain(0, _ptr(aw), _ptr(bw), _ptr(out), n, fc.ptr)
+    assert np.array_equal(out, _words(cuda_fr.mul_plain(fc, a, b)))
+    assert be.to_ints(torch.from_numpy(out.view(np.int32))) == [
+        x * y % modulus for x, y in pairs]
+    lib.host_fe_chain(1, _ptr(aw), _ptr(aw), _ptr(out), n, fc.ptr)
+    assert np.array_equal(out, _words(cuda_fr.mul_plain(fc, a, a)))
+
+
 def _edge_points(curve, k=16, curve_type="bn254"):
     """Random points, their doubles' inputs, negatives and the identity."""
     pts, _ = random_point_basis(curve_type, k, seed=11, device="cpu")
@@ -212,6 +258,31 @@ def _check_add_double(lib, curve_type):
     lib.host_g1_double(_ptr(pw), _ptr(out), m, fc.ptr)
     assert np.array_equal(out, _words(cuda_fr.g1_double_plain(fc, p)))
     return fc
+
+
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_g1_add_and_mixed_edge_batches(lib, curve_type):
+    """K6 and K9 as their kernels run them (the PROD_CHAIN policy, under
+    g++) against the plain versions on ``edge_batches``: identity
+    operands, P = Q, P = -Q, the mixed add's doubling, q with a column
+    period of m and of 1, and coordinates of adversarial field values."""
+    fc = fq_backend(curve_type, "cpu").consts
+    pts, _ = random_point_basis(curve_type, 8, seed=13, device="cpu")
+    cases = edge_batches(curve_type, pts)
+    p, q = cases["add"]
+    m = p.shape[-1]
+    pw, qw = _words(p), _words(q)
+    out = np.empty_like(pw)
+    lib.host_g1_add(_ptr(pw), _ptr(qw), _ptr(out), m, fc.ptr)
+    assert np.array_equal(out, _words(cuda_fr.g1_add_plain(fc, p, q)))
+    for acc, qx, qy in cases["mixed"]:
+        m, qn = acc.shape[-1], qx.shape[-1]
+        aw, xw, yw = _words(acc), _words(qx), _words(qy)
+        out = np.empty_like(aw)
+        lib.host_g1_add_mixed(_ptr(aw), _ptr(xw), _ptr(yw), qn, _ptr(out),
+                              m, fc.ptr)
+        want = cuda_fr.g1_add_mixed_plain(fc, acc, qx, qy)
+        assert np.array_equal(out, _words(want)), qn
 
 
 # (log2 n as a function of the library's tile bits T, tile bits or None
@@ -403,3 +474,168 @@ def _check_reduce(lib, n, sets, chunk, events, curve_type):
     lib.host_msm_horner(_ptr(out), sets, W, wp.shape[-1] // (sets * W), c,
                         _ptr(got), fc.ptr)
     assert np.array_equal(got, _words(res))
+
+
+def test_chain_ptx_is_generated():
+    """csrc/chain_ptx.cuh is what utils/gen_chain_ptx.py writes."""
+    from kzg_snark_tpu_torch.utils import gen_chain_ptx
+    with open(gen_chain_ptx.OUT) as fh:
+        assert fh.read() == gen_chain_ptx.render()
+
+
+def _ptx_steps():
+    """{(W, step): [(lines, outputs, inputs)]} parsed from chain_ptx.cuh."""
+    import re
+
+    from kzg_snark_tpu_torch.utils import gen_chain_ptx
+    text = open(gen_chain_ptx.OUT).read()
+    steps = {}
+    for w, body in re.findall(r"struct ChainPtx<(\d+)> \{(.*?)\n\};", text,
+                              re.S):
+        for name, fn in re.findall(r"void (\w+)\([^)]*\) \{(.*?)\n  \}",
+                                   body, re.S):
+            blocks = []
+            for asm in re.findall(r"asm volatile\((.*?)\);", fn, re.S):
+                lines = [ln.strip() for ln in re.findall(r'"(.*?)\\n\\t"',
+                                                         asm)]
+                outs, ins = re.split(r"\n\s*: ", asm.split('"}"')[1])[1:3]
+                blocks.append((lines, re.findall(r'"(=r|\+r)"\(([^)]*)\)',
+                                                 outs),
+                               re.findall(r'"r"\((\(.*?\)|[^()]*)\)', ins)))
+            steps[int(w), name] = blocks
+    return steps
+
+
+def _run_ptx(blocks, env):
+    """Interpret the blocks' PTX (the instructions the generator emits) on
+    Python integers; env maps C names ("t", "a", "b"...) to lists or ints."""
+    import re
+    M = (1 << 32) - 1
+
+    def get(expr):
+        m = re.fullmatch(r"\((\w+)\[(\d+)\] << 1\)", expr)
+        if m:
+            return (env[m[1]][int(m[2])] << 1) & M
+        m = re.fullmatch(r"(\w+)\[(\d+)\]", expr)
+        return env[m[1]][int(m[2])] if m else env[expr]
+
+    def put(expr, v):
+        m = re.fullmatch(r"(\w+)\[(\d+)\]", expr)
+        if m:
+            env[m[1]][int(m[2])] = v
+        else:
+            env[expr] = v
+
+    for lines, outs, ins in blocks:
+        modes = [m for m, _ in outs] + ["r"] * len(ins)
+        ops = [e for _, e in outs] + ins
+        regs = {f"%{i}": None if m == "=r" else get(e)
+                for i, (m, e) in enumerate(zip(modes, ops))}
+        cf, pred = None, {}
+
+        def val(x):
+            if x in regs:
+                assert regs[x] is not None, f"output read before written"
+                return regs[x]
+            return int(x, 0)
+
+        for line in lines:
+            line = line.strip("{} ").rstrip(";")
+            if not line or line.startswith(".reg"):
+                continue
+            op, args = line.split(None, 1)
+            a = [x.strip() for x in args.split(",")]
+            parts = op.split(".")
+            base, cc = parts[0], ".cc" in op
+            if base == "setp":
+                pred[a[0]] = val(a[1]) == val(a[2])
+                continue
+            if base == "selp":
+                regs[a[0]] = val(a[1]) if pred[a[3]] else val(a[2])
+                continue
+            carry_in = base in ("madc", "addc", "subc")
+            if carry_in:
+                assert cf is not None, f"carry read before set: {line}"
+            cin = cf if carry_in else 0
+            if base in ("mul", "mad", "madc"):
+                prod = val(a[1]) * val(a[2])
+                half = prod & M if parts[1] == "lo" else prod >> 32
+                s = half + (val(a[3]) if base != "mul" else 0) + cin
+            elif base in ("add", "addc"):
+                s = val(a[1]) + val(a[2]) + cin
+            else:
+                s = val(a[1]) - val(a[2]) - cin
+            regs[a[0]] = s & M
+            if cc:
+                cf = int(s > M) if base != "sub" and base != "subc" \
+                    else int(s < 0)
+            elif carry_in or base in ("mad", "add", "sub"):
+                cf = None           # a flag not set by .cc is not kept
+        for i, (_, e) in enumerate(outs):
+            put(e, regs[f"%{i}"])
+
+
+@pytest.mark.parametrize("modulus", [C.BN254_P, C.BLS12_381_R,
+                                     C.BLS12_381_P],
+                         ids=["8-words", "8-words-255-bits", "12-words"])
+def test_chain_ptx_interpreted(modulus):
+    """The generated PTX steps, interpreted instruction by instruction on
+    Python integers (the carry flag lives only inside its asm block), run
+    through fe_mul_chain's and fe_sqr_chain's step order, give the
+    Montgomery product and square on the adversarial values and random
+    ones.  nvcc is checked on the card; this checks the PTX text."""
+    fc = FieldConsts(modulus)
+    W, p = fc.num_limbs, modulus
+    R = 1 << (32 * W)
+    steps = _ptx_steps()
+    pw = [(p >> (32 * j)) & 0xFFFFFFFF for j in range(W)]
+    pinv = -pow(p, -1, 1 << 32) % (1 << 32)
+    words = lambda v, n: [(v >> (32 * j)) & 0xFFFFFFFF  # noqa: E731
+                          for j in range(n)]
+    vals = adversarial_values(p, W)
+    pairs = [(x, y) for x in vals for y in vals[::3]]
+    pairs += _high_pairs(p, W, 16, 3) + list(zip(
+        _random_field(p, 16, 8), _random_field(p, 16, 9)))
+    for x, y in pairs:
+        # fe_mul_chain's order: the first row in C, then the PTX steps.
+        bw = words(y, W)
+        ev, od = [0] * W, [0] * W
+        for j in range(0, W, 2):
+            ev[j], ev[j + 1] = words(words(x, W)[j] * bw[0], 2)
+            od[j], od[j + 1] = words(words(x, W)[j + 1] * bw[0], 2)
+        env = {"a": words(x, W), "p": pw}
+
+        def reduce(e, o):
+            env.update(e=e, o=o, m=e[0] * pinv % (1 << 32))
+            _run_ptx(steps[W, "pm_reduce_odd"], env)
+            _run_ptx(steps[W, "pm_reduce_even"], env)
+            assert env["e"][0] == 0
+
+        reduce(ev, od)
+        for i in range(1, W):
+            e, o = (od, ev) if i % 2 else (ev, od)
+            env.update(e=e, o=o, b=bw[i])
+            _run_ptx(steps[W, "pm_shift_odd"], env)
+            _run_ptx(steps[W, "pm_even"], env)
+            reduce(e, o)
+        env.update(e=ev, o=od)
+        _run_ptx(steps[W, "pm_merge"], env)
+        env["t"] = ev + [0]
+        _run_ptx(steps[W, "final_sub"], env)
+        got = sum(v << (32 * j) for j, v in enumerate(env["t"][:W]))
+        assert got == x * y * pow(R, -1, p) % p, (x, y)
+        aw = words(x, W)
+        a2 = [(aw[0] << 1) & 0xFFFFFFFF] + [
+            ((aw[j] << 1) | (aw[j - 1] >> 31)) & 0xFFFFFFFF
+            for j in range(1, W)]
+        env = {"ce": [0] * (2 * W), "co": [0] * (2 * W - 1), "k": [0] * W,
+               "a": aw, "a2": a2, "p": pw, "pinv": pinv, "kk": 0, "m": 0}
+        _run_ptx(steps[W, "sq_products"], env)
+        assert sum(v << (32 * j) for j, v in enumerate(env["ce"])) + sum(
+            v << (32 * j + 32) for j, v in enumerate(env["co"])) + sum(
+            v << (32 * (W + j)) for j, v in enumerate(env["k"])) == x * x
+        _run_ptx(steps[W, "sq_redc"], env)
+        env["t"] = env["ce"][W:] + [0]
+        _run_ptx(steps[W, "final_sub"], env)
+        got = sum(v << (32 * j) for j, v in enumerate(env["t"][:W]))
+        assert got == x * x * pow(R, -1, p) % p, x

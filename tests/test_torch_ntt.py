@@ -146,3 +146,76 @@ def test_scan_mode_matches_staged(log_n):
     assert torch.equal(ctx.intt(a, mode="scan"), ctx.intt(a))
     with pytest.raises(ValueError):
         ctx.ntt(a, mode="gather")
+
+
+@pytest.mark.parametrize("shape", [(4, 8), (2, 3, 16)],
+                         ids=["8x4x8", "8x2x3x16"])
+def test_batched_matches_jax_ntt_context(shape):
+    """(8, ..., n) operands: ntt, intt, coset_ntt and coset_intt along the
+    last axis equal the JAX ``NttContext`` on the same values in its
+    (16, ..., n) layout (batched operands take its unrolled transform),
+    built and run in one ``jax.jit``, its root-power tables from host
+    integers (its own build compiles each doubling step apart); the staged
+    and scan modes agree."""
+    import jax
+    import jax.numpy as jnp
+
+    from kzg_snark_tpu.ops import ntt as jntt
+    from kzg_snark_tpu.ops.fr import fr_backend as jax_fr_backend
+
+    n = shape[-1]
+    tctx = ntt_context("bn254", n, "cpu")
+    r = Fr.modulus
+
+    class HostTables(jntt.NttContext):
+        def _build_powers(self, w, count):
+            return self.backend.from_ints([pow(w, i, r)
+                                           for i in range(count)])
+
+    jb = jax_fr_backend("bn254")    # made outside the trace: it is cached
+
+    def run(v):
+        jctx = object.__new__(HostTables)
+        jctx._init(jb, n, tctx.root)
+        return (jctx.ntt(v), jctx.intt(v), jctx.coset_ntt(v, SHIFT),
+                jctx.coset_intt(v, SHIFT))
+
+    xs = values(int(np.prod(shape)), 300 + n)
+    ta = tctx.backend.from_ints(xs).reshape((8,) + shape)
+    want = jax.jit(run)(jnp.asarray(tensor_to_limbs16(ta)))
+    got = (tctx.ntt(ta), tctx.intt(ta), tctx.coset_ntt(ta, SHIFT),
+           tctx.coset_intt(ta, SHIFT))
+    for w, g in zip(want, got):
+        assert w.shape == (16,) + shape and g.shape == (8,) + shape
+        assert np.array_equal(np.asarray(w), tensor_to_limbs16(g))
+    assert torch.equal(tctx.ntt(ta, mode="scan"), got[0])
+    assert torch.equal(tctx.intt(ta, mode="scan"), got[1])
+
+
+@pytest.mark.parametrize("shape", [(1 << 11,), (3, 1 << 11), (2, 2, 1 << 4)],
+                         ids=["8xn", "8x3xn", "8x2x2x16"])
+def test_batched_staged_launches(monkeypatch, shape):
+    """On a device other than the CPU, an (8, n) operand makes the plan's
+    ceil(log2 n / t) ntt_pass launches, as before, and a batch makes them
+    row after row on (8, n) rows.  ntt_pass is replaced by a fake that
+    records each call on the meta device (no data); t = 10."""
+    from kzg_snark_tpu_torch.ops import ntt_stage
+    from kzg_snark_tpu_torch.ops.fr import fr_backend
+
+    calls = []
+
+    def fake_pass(fc, x, tw, s0, g, t, out=None):
+        calls.append((tuple(x.shape), s0, g))
+        return torch.empty_like(x) if out is None else out
+
+    monkeypatch.setattr(ntt_stage, "tile_bits", lambda: 10)
+    monkeypatch.setattr(ntt_stage, "ntt_pass", fake_pass)
+    n = shape[-1]
+    x = torch.empty((8,) + shape, dtype=torch.int32, device="meta")
+    tw = torch.empty((8, n // 2), dtype=torch.int32, device="meta")
+    out = ntt_stage.staged_transform(fr_backend("bn254", "cpu").consts, x,
+                                     tw)
+    assert out.shape == x.shape
+    plan = ntt_stage.pass_plan(n, 10)
+    rows = int(np.prod(shape[:-1]))
+    assert calls == [((8, n), s0, g) for s0, g in plan] * rows
