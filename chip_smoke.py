@@ -10,7 +10,11 @@ Phases, in order, one printed line or block each:
   kernels        every kernel entry point against its plain PyTorch version
                  on the card at the main paths' shapes: exact equality, both
                  times (inputs rotated through copies larger than the L2),
-                 and the least time the card could take (bound)
+                 and the least time the card could take (bound); the
+                 ladder (g1_ladder) at n in {1, 7, 256}, k in {1, 3} on
+                 edge scalar sets and scale_const(r - 1), then one small
+                 MSM's ladder (n = 256, k = 1) timed, with its bound, its
+                 critical-path floor and one thread's products in turn
   chains         fr_scan and fr_pow (K1 as the provers' chains use it) at
                  their edge widths and exponents against their plain
                  versions, their times, one narrow K1 / K7 launch; the SRS
@@ -32,12 +36,14 @@ Phases, in order, one printed line or block each:
   main           PLONK at n = 2^16: index, two proves, host verification,
                  tamper rejection, phase map, peak memory, launch counts
                  (also by width; fails above 2000 fr_mul, 600 fr_scan +
-                 fr_pow or 32 g1_add launches, on any g1_double launch, on
+                 fr_pow or 32 g1_add launches, on any g1_double or
+                 g1_ladder launch, on
                  other than one g1_fixed_base_table launch, and unless
                  ntt_pass makes ceil(log2 n / t) launches a transform, at
                  most 2)
   marlin_parity  Marlin at |H| = 2^6: the device proof byte-identical to the
-                 port's host Marlin prover's; the scan MSM (K9) ran
+                 port's host Marlin prover's; the scan MSM (K9) and the
+                 ladder ran, K7 alone did not
   marlin         Marlin at |H| = 2^14 (m = 2^15): index, two proves, host
                  verification, tamper rejection, phase map, peak memory,
                  launch counts (ntt_pass as on the main path)
@@ -51,29 +57,43 @@ Phases, in order, one printed line or block each:
                  version takes seconds), with times and bounds; the
                  bucket-route MSM at 2^16 points against the host oracle;
                  the scan-mode NTT (K10, bls_ntt_scan); PLONK n = 2^6
-                 byte-identical to the port's host prover (bls_parity);
+                 byte-identical to the port's host prover (bls_parity; the
+                 ladder ran, K7 alone did not);
                  PLONK n = 2^16 (bls_main) as the main phase, with its
                  guards, and the BLS phases' time
 
 The build phase also prints each kernel instantiation's registers, stack
-and spills (-Xptxas -v); for the curve kernels (K6, K9 and K7 beside
-them) the resident blocks an SM (the CUDA occupancy calculator) and the
+and spills (-Xptxas -v); for the curve kernels (K6, K7, K9 and the
+ladder) the resident blocks an SM (the CUDA occupancy calculator) and the
 waves 2^16 points make; the instructions of one Montgomery product and
 squaring of the PROD_CIOS and PROD_CHAIN policies at 8 and 12 words
 (cuobjdump -sass of csrc/probe/mont_probe.cu, by opcode: IMAD-class and
-all); and those products' throughput on the card (probe_loop), each
-checked once against the plain product.  The kernels and bls phases also
-hold K6 and K9 to their plain versions on edge batches
-(benchpoints.edge_batches: identities, P = Q, P = -Q, coordinates near
-p).  Each path (ntt scan, msm_one, main,
+all); those products' throughput on the card (probe_loop), each checked
+once against the plain product; and the PROD_CHAIN product's and
+squaring's latency on a lone warp (the ladder's floor).  The
+kernels and bls phases also hold K6, K7 and K9 to their plain versions
+on edge batches (benchpoints.edge_batches: identities, P = Q, P = -Q,
+coordinates near p).  Each path (ntt scan, msm_one, main,
 marlin_parity, marlin and the bls paths) runs with the launch counts set
 to 0 just before it and read just after; a kernel's "launches" in the
 kernels JSON line are those of the path it is listed under, and its
 "bls12_381" entry gives its launches on its BLS12-381 path (also by limb
-count) and its rows at BLS12-381.  The second-to-last lines are the
-kernels JSON and the nvidia-smi line; the last line is the result JSON.
-Any failure raises (non-zero exit, no result line).  Without a CUDA
-device the script exits non-zero at once.
+count) and its rows at BLS12-381; a kernel of OFF_PATH must launch no
+time on either.  The second-to-last lines are the kernels JSON and the
+nvidia-smi line; the last line is the result JSON.  Any failure raises
+(non-zero exit, no result line).  Without a CUDA device the script exits
+non-zero at once.
+
+    python3 chip_smoke.py --tree ROOT
+
+times the kernels and paths this slice changed with the package of the
+checkout ROOT, a directory inside this one (an earlier commit's `git
+archive` unpacked under a gitignored directory), and prints one JSON line
+(``tree_times``): K6, K7 and K9 at 2^16 points against their plain
+versions and one small MSM (n = 256, k = 1) held to the host oracle on
+both curves, device and wall ms, and the launches of the two parity
+paths' device runs.  Run it once a tree, in turns on one card (parent,
+change, change, parent), to compare two trees.
 """
 
 from __future__ import annotations
@@ -99,7 +119,11 @@ KERNELS = {
                  "kzg_snark_tpu/ops/ntt_stage.py:141", "main"),
     "g1_add": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
                "kzg_snark_tpu/ops/pallas_fr.py:232", "main"),
+    # K7 alone: its paths launch it no time since the ladder (OFF_PATH)
     "g1_double": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
+                  "kzg_snark_tpu/ops/pallas_fr.py:289", "marlin_parity"),
+    # K7 (with K6's add) as the small MSM uses it: the ladder in one launch
+    "g1_ladder": ("kzg_snark_tpu_torch/csrc/curve_kernels.cu",
                   "kzg_snark_tpu/ops/pallas_fr.py:289", "marlin_parity"),
     # K7 (and K6's row adds) as the SRS table build uses them
     "g1_fixed_base_table": ("kzg_snark_tpu_torch/csrc/srs_kernels.cu",
@@ -119,6 +143,10 @@ KERNELS = {
                "kzg_snark_tpu/ops/pallas_fr.py:114", "main"),
 }
 
+# Kernels that their paths must launch no time: K7 alone, since the small
+# MSM runs the ladder and the scan MSM's Horner fold the bucket route's.
+OFF_PATH = ("g1_double",)
+
 MAIN_LOG_N = 16
 PARITY_LOG_N = 6
 MARLIN_LOG_H = 14
@@ -130,6 +158,9 @@ SRS_WINDOW_BITS = 8
 SRS_WINDOWS = 32            # ceil(254 / 8): the SRS build's table
 TAU = 0xABCDEF12345
 EDGE_POINTS = 512           # points of each case in the curve edge batches
+LADDER_SIZES = (1, 7, 256)  # points of the ladder checks (256: the small
+                            # MSM's most)
+LATENCY_REPS = 1024         # dependent products of the lone-warp latency
 MARLIN_TAU = 0xFEED5EED
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -144,6 +175,31 @@ def mont_products(limbs: int) -> int:
     """32x32-bit products of one CIOS Montgomery product over ``limbs``
     words: 136 at 8, 300 at 12."""
     return 2 * limbs * limbs + limbs
+
+
+def sqr_products(limbs: int) -> int:
+    """32x32-bit products of one Montgomery squaring over ``limbs`` words,
+    each cross product once: L (L + 1) / 2 for the square and L^2 + L for
+    the reduction, 108 at 8 and 234 at 12."""
+    return limbs * (limbs + 1) // 2 + limbs * limbs + limbs
+
+
+# (squarings, products) of the curve formulas: dbl-2009-l, add-2007-bl (the
+# general case of a complete add) and madd-2007-bl; and those on the
+# longest dependent path from an operand to the result (the ladder's
+# critical path): Y -> B -> C -> D -> Y3 in the doubling, Z2 -> Z2Z2 -> U1
+# -> HH -> J -> Y3 in the add.
+DOUBLE = (5, 2)
+ADD = (5, 11)
+MADD = (4, 7)
+DOUBLE_DEPTH = (2, 1)
+ADD_DEPTH = (2, 3)
+
+
+def formula_products(limbs: int, ops: tuple) -> int:
+    """32x32-bit products of ``ops`` (squarings, products) at ``limbs``
+    words."""
+    return ops[0] * sqr_products(limbs) + ops[1] * mont_products(limbs)
 
 
 def log(msg: str) -> None:
@@ -234,17 +290,22 @@ def compare(torch, name, results, kernel_fn, plain_fn, args, work, reps=20,
             plain_reps=3):
     """Run kernel and plain version on the same CUDA inputs ``args``;
     demand exact equality; record both times (inputs rotated through
-    copies, see ``rotated``) and the bound of ``work`` (a dict from
-    ``bound``)."""
+    copies, see ``rotated``; ``plain_reps = 0``: the plain version's time
+    is that of the one call compared, host clock to a sync) and the bound
+    of ``work`` (a dict from ``bound``)."""
     got = kernel_fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = plain_fn(*args)
     torch.cuda.synchronize()
+    plain_once = (time.perf_counter() - t0) * 1e3
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain (max |diff| {err})")
     dev_ms, wall = timed_ms(torch, rotated(torch, kernel_fn, args), reps)
-    plain_dev, plain_wall = timed_ms(torch, rotated(torch, plain_fn, args),
-                                     plain_reps)
+    plain_dev, plain_wall = timed_ms(
+        torch, rotated(torch, plain_fn, args), plain_reps) if plain_reps \
+        else (plain_once, plain_once)
     # A call costs its device time unless the host cannot keep up; the
     # plain versions' thousands of small launches overflow the queue.
     results[name] = {"max_abs_err": err, "ms": min(dev_ms, wall),
@@ -265,16 +326,17 @@ def ntt_bound(rates: dict, n: int) -> dict:
 
 def table_bound(rates: dict, c: int, windows: int, limbs: int = 8) -> dict:
     """Bound of the fixed-base table (c, W): the base read, W 2^c points
-    written (12 limbs bytes a point); the Montgomery products its data
-    needs: 7 a doubling (c (W - 1) in the chain, W a level), 16 an add
-    except the W a level whose left operand is the identity (the case
-    split finds no equal or opposite pair: v < count)."""
+    written (12 limbs bytes a point); the products its data needs: a
+    doubling (c (W - 1) in the chain, W a level), an add except the W a
+    level whose left operand is the identity (the case split finds no
+    equal or opposite pair: v < count)."""
     levels = c - 1
     doublings = c * (windows - 1) + windows * levels
     adds = windows * ((1 << c) - 2) - windows * levels
     pt = 12 * limbs
     return bound(rates, pt + pt * windows * (1 << c),
-                 (7 * doublings + 16 * adds) * mont_products(limbs))
+                 formula_products(limbs, DOUBLE) * doublings
+                 + formula_products(limbs, ADD) * adds)
 
 
 def curve_base(torch, dev, curve="bn254"):
@@ -285,9 +347,9 @@ def curve_base(torch, dev, curve="bn254"):
 
 
 def _add_products(torch, fq, p, q) -> float:
-    """Montgomery products K6 does on these inputs: none with an identity
-    operand, 8 before the case split, 8 more in the general case or the 7
-    of a doubling where p == q."""
+    """32-bit products K6 does on these inputs: none with an identity
+    operand, 2 squarings and 6 products before the case split, 3 and 5 more
+    in the general case or a doubling where p == q."""
     from kzg_snark_tpu_torch.ops import cuda_fr
     f = cuda_fr.PlainField(fq)
     z1z1, z2z2 = f.square(p[2]), f.square(q[2])
@@ -295,13 +357,16 @@ def _add_products(torch, fq, p, q) -> float:
     r = f.sub(f.mul(f.mul(q[1], p[2]), z1z1), f.mul(f.mul(p[1], q[2]), z2z2))
     finite = ~f.is_zero(p[2]) & ~f.is_zero(q[2])
     h0, r0 = f.is_zero(h), f.is_zero(r)
-    per = (8 * finite + 8 * (finite & ~h0) + 7 * (finite & h0 & r0))
-    return float(per.sum()) * mont_products(fq.num_limbs)
+    L = fq.num_limbs
+    per = (formula_products(L, (2, 6)) * finite
+           + formula_products(L, (3, 5)) * (finite & ~h0)
+           + formula_products(L, DOUBLE) * (finite & h0 & r0))
+    return float(per.sum())
 
 
 def _madd_products(torch, fq, p, qx, qy) -> float:
-    """Montgomery products K9 does: none where p is the identity, 11 for
-    madd-2007-bl, 7 more where p == q (the doubling)."""
+    """32-bit products K9 does: none where p is the identity, madd-2007-bl,
+    and a doubling more where p == q."""
     from kzg_snark_tpu_torch.ops import cuda_fr
     f = cuda_fr.PlainField(fq)
     reps = p.shape[-1] // qx.shape[-1]
@@ -310,14 +375,19 @@ def _madd_products(torch, fq, p, qx, qy) -> float:
     h = f.sub(f.mul(qx, z1z1), p[0])
     r = f.sub(f.mul(f.mul(qy, p[2]), z1z1), p[1])
     finite = ~f.is_zero(p[2])
-    per = 11 * finite + 7 * (finite & f.is_zero(h) & f.is_zero(r))
-    return float(per.sum()) * mont_products(fq.num_limbs)
+    L = fq.num_limbs
+    per = (formula_products(L, MADD) * finite
+           + formula_products(L, DOUBLE)
+           * (finite & f.is_zero(h) & f.is_zero(r)))
+    return float(per.sum())
 
 
 def curve_occupancy(torch, resources: dict, rates: dict) -> None:
     """The curve kernels' registers and spills (-Xptxas -v), their resident
     blocks an SM (the CUDA occupancy calculator) and the waves that 2^16
-    points make: K6 and K9 (the carry-chain product), K7 beside them."""
+    points make: K6, K7 and K9 (the carry-chain product); the ladder's
+    registers and spills (summed: true, per point: false), and the summed
+    form's blocks of 256 threads an SM."""
     from kzg_snark_tpu_torch.utils.build import cuda_lib
     lib = cuda_lib()
     threads = lib.kzg_g1_threads()
@@ -338,6 +408,18 @@ def curve_occupancy(torch, resources: dict, rates: dict) -> None:
                 f"B ld; {per_sm} blocks of {threads} an SM, {resident} "
                 f"resident; 2^{MAIN_LOG_N} points = {blocks} blocks = "
                 f"{blocks / resident:.2f} waves ({-(-blocks // resident)})")
+    kernel = "k_g1_ladder"
+    for limbs in (8, 12):
+        for tree in ("true", "false"):
+            res = next(v for k, v in resources.items()
+                       if f"{kernel}<{limbs}, {tree}>" in k
+                       or f"{len(kernel)}{kernel}ILi{limbs}ELb"
+                          f"{int(tree == 'true')}E" in k)
+            log(f"[build] {kernel}<{limbs}, {tree}>: {res['registers']} "
+                f"registers, spills {res['spill_stores']} B st / "
+                f"{res['spill_loads']} B ld" + (
+                    f"; {lib.kzg_g1_blocks_per_sm(3, limbs)} block of 256 "
+                    f"threads an SM" if tree == "true" else ""))
 
 
 def product_sass(lib_path: str) -> None:
@@ -395,17 +477,50 @@ def product_throughput(torch, dev, rates: dict) -> None:
                 f"bound ({mont_products(limbs)} a product)")
 
 
+LATENCY: dict = {}     # limbs -> {"mul": us, "sqr": us} on a lone warp
+
+
+def product_latency(torch, dev) -> None:
+    """One PROD_CHAIN Montgomery product's and squaring's latency on a lone
+    warp, at 8 and 12 words: probe_loop over 32 elements (one warp) of
+    LATENCY_REPS dependent products, device time over the count, into
+    LATENCY (the ladder's floor and serial cost)."""
+    from kzg_snark_tpu_torch.ops.fr import fq_backend
+    from kzg_snark_tpu_torch.utils.build import check, probe_lib
+    lib = probe_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for curve, limbs in (("bn254", 8), ("bls12_381", 12)):
+        fc = fq_backend(curve, dev).consts
+        x = random_canonical(torch, 32, 73, dev, limbs)
+        y = random_canonical(torch, 32, 74, dev, limbs)
+        out = torch.empty_like(x)
+        for sqr, name in ((0, "mul"), (1, "sqr")):
+            def run(sqr=sqr):
+                check(lib.kzg_probe_loop(sqr, 2, x.data_ptr(), y.data_ptr(),
+                                         out.data_ptr(), 32, LATENCY_REPS,
+                                         fc.ptr, stream), "probe_loop")
+            ms, _ = timed_ms(torch, run, 5)
+            LATENCY.setdefault(limbs, {})[name] = ms * 1e3 / LATENCY_REPS
+        log(f"[build] PROD_CHAIN latency on a lone warp, {limbs} words: "
+            f"product {LATENCY[limbs]['mul']:.4f} us, squaring "
+            f"{LATENCY[limbs]['sqr']:.4f} us ({LATENCY_REPS} dependent, "
+            f"32 elements)")
+
+
 def check_edge_batches(torch, fq, curve: str, pts) -> None:
-    """K6 and K9 against their plain versions, exactly, on the edge batches
-    of ``benchpoints.edge_batches`` from EDGE_POINTS points: identity
-    operands, P = Q, P = -Q, q with column periods m and 1, coordinates
-    near p and all-ones words."""
+    """K6, K7 and K9 against their plain versions, exactly, on the edge
+    batches of ``benchpoints.edge_batches`` from EDGE_POINTS points:
+    identity operands, P = Q, P = -Q, q with column periods m and 1,
+    coordinates near p and all-ones words (K7: the add's p and q)."""
     from kzg_snark_tpu_torch.ops import cuda_fr
     from kzg_snark_tpu_torch.ops.benchpoints import edge_batches
     cases = edge_batches(curve, pts[..., :EDGE_POINTS].contiguous())
     p, q = cases["add"]
+    pq = torch.cat([p, q], dim=-1).contiguous()
     runs = [("g1_add", cuda_fr.g1_add(fq, p, q),
-             cuda_fr.g1_add_plain(fq, p, q))]
+             cuda_fr.g1_add_plain(fq, p, q)),
+            ("g1_double", cuda_fr.g1_double(fq, pq),
+             cuda_fr.g1_double_plain(fq, pq))]
     for acc, qx, qy in cases["mixed"]:
         runs.append((f"g1_add_mixed (qn = {qx.shape[-1]})",
                      cuda_fr.g1_add_mixed(fq, acc, qx, qy),
@@ -417,6 +532,175 @@ def check_edge_batches(torch, fq, curve: str, pts) -> None:
                                  f"edge batch")
         log(f"[kernels] {curve} {name}: exact on an edge batch of "
             f"{got.shape[-1]} points")
+
+
+def ladder_work(rates: dict, sets: list, limbs: int) -> dict:
+    """Bound, floor and serial cost of one summed ladder (``g1_ladder``)
+    over the scalar sets ``sets`` (lists of n ints, one a point).
+
+    Bound: bytes, the points, the scalar words and the results, once;
+    products on this data, a doubling for each row below a point's highest
+    set bit over the sets, a complete add for each add after a (set,
+    point)'s first (which meets the identity and copies) and for each of a
+    set's n - 1 tree adds.
+
+    Floor (``floor_ms``): the critical path at the lone-warp latencies of
+    LATENCY.  A row's add and doubling are independent, so a thread's
+    longest path climbs the doublings to one of its set bits and then runs
+    through the adds of the set bits from there on (DOUBLE_DEPTH and
+    ADD_DEPTH each); then the tree, an add's depth a level where both
+    operands are points (a partial sum that cancels to the identity is
+    counted as a point).
+
+    Serial (``serial_ms``): every product of a warp's rows, up to the
+    highest set bit of the run's scalars, one after another at those
+    latencies, each row a complete add (a warp pays it unless every lane's
+    bit is 0) and, but the last, a doubling, then ceil(log2 n) tree adds:
+    one thread's stream of products, what a design of one thread a (set,
+    point) pays."""
+    k, n = len(sets), len(sets[0])
+    tops = [[s.bit_length() - 1 for s in row] for row in sets]
+    adds = [[max(bin(s).count("1") - 1, 0) for s in row] for row in sets]
+    dbl = sum(max(max(t[i] for t in tops), 0) for i in range(n))
+    work = bound(rates, 12 * limbs * n + 32 * k * n + 12 * limbs * k,
+                 formula_products(limbs, DOUBLE) * dbl
+                 + formula_products(limbs, ADD)
+                 * (sum(map(sum, adds)) + k * (n - 1)))
+    lat = LATENCY[limbs]
+
+    def us(ops):
+        return ops[0] * lat["sqr"] + ops[1] * lat["mul"]
+
+    d_dbl, d_add = us(DOUBLE_DEPTH), us(ADD_DEPTH)
+    floor = 0.0
+    for row in sets:
+        nodes = []          # (ready time, is the identity)
+        for s in row:
+            bits = [b for b in range(s.bit_length()) if s >> b & 1]
+            nodes.append((max((b * d_dbl + (len(bits) - j - (j == 0)) * d_add
+                               for j, b in enumerate(bits)), default=0.0),
+                          not bits))
+        m = n
+        while m > 1:
+            h = (m + 1) // 2
+            pairs = [(nodes[i], nodes[i + h] if i + h < m else (0.0, True))
+                     for i in range(h)]
+            nodes = [(max(a[0], b[0]) + (0 if a[1] or b[1] else d_add),
+                      a[1] and b[1]) for a, b in pairs]
+            m = h
+        floor = max(floor, nodes[0][0])
+    rows = max(map(max, tops)) + 1
+    serial = (max(rows - 1, 0) * us(DOUBLE)
+              + (rows + (n - 1).bit_length()) * us(ADD))
+    work["floor_ms"] = floor / 1e3
+    work["serial_ms"] = serial / 1e3
+    work["rows"] = rows
+    return work
+
+
+def check_ladder(torch, fq, curve: str, pts, ks, rates, results,
+                 name="g1_ladder") -> None:
+    """g1_ladder against g1_ladder_plain, exactly: at n in LADDER_SIZES with
+    k = 3 and 1 sets of ``edge_scalar_sets`` (random; 0, 1, r - 1 and a
+    duplicate; a set summing to the identity), one scalar of column period
+    1 summed and per point, and scale_const by r - 1, the plain version on
+    CPU copies of the inputs (its Python-integer path; on the card each of
+    its 256 rows is hundreds of small launches).  Then one small MSM's
+    kernel (n = 256, k = 1, random scalars) against the plain version on
+    the card, timed (``compare``), its bound, floor and serial cost
+    (``ladder_work``) into ``results[name]``."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    from kzg_snark_tpu_torch.ops.benchpoints import edge_scalar_sets
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
+
+    dev = pts.device
+    L = fq.num_limbs
+    for n in LADDER_SIZES:
+        p = pts[..., :n].contiguous()
+        sc = torch.stack([to_tensor(ints_to_words(s), dev)
+                          for s in edge_scalar_sets(curve, ks[:n], 80 + n)])
+        got, got1 = (cuda_fr.g1_ladder(fq, p, x) for x in
+                     (sc, sc[:1].contiguous()))
+        want = cuda_fr.g1_ladder_plain(fq, p.cpu(), sc.cpu())
+        if not (torch.equal(got.cpu(), want)
+                and torch.equal(got1.cpu(), want[..., :1])):
+            raise AssertionError(f"{curve} g1_ladder != plain at n = {n}")
+        if n != 7:
+            continue
+        one = sc[:1, :, 1:2].contiguous()
+        for tree in (True, False):
+            if not torch.equal(cuda_fr.g1_ladder(fq, p, one, tree).cpu(),
+                               cuda_fr.g1_ladder_plain(fq, p.cpu(), one.cpu(),
+                                                       tree)):
+                raise AssertionError(f"{curve} g1_ladder (one scalar, tree "
+                                     f"{tree}) != plain")
+    r = C.BN254_R if curve == "bn254" else C.BLS12_381_R
+    few = pts[..., :16].contiguous()
+    rm1 = to_tensor(ints_to_words([r - 1]), "cpu")[None]
+    if not torch.equal(curve_ops(curve, dev).scale_const(few, r - 1).cpu(),
+                       cuda_fr.g1_ladder_plain(fq, few.cpu(), rm1,
+                                               False)[:, :, 0]):
+        raise AssertionError(f"{curve} scale_const(r - 1) != plain")
+    log(f"[kernels] {curve} g1_ladder == plain at n = {LADDER_SIZES}, k = 3 "
+        f"and 1 (edge scalar sets), one scalar of period 1 summed and per "
+        f"point; scale_const(r - 1) == plain")
+
+    import random
+    rng = random.Random(90)
+    n = LADDER_SIZES[-1]
+    ints = [[rng.randrange(r) for _ in range(n)]]
+    sc = to_tensor(ints_to_words(ints[0]), dev)[None]
+    p = pts[..., :n].contiguous()
+    work = ladder_work(rates, ints, L)
+    compare(torch, name, results,
+            lambda u, v: cuda_fr.g1_ladder(fq, u, v),
+            lambda u, v: cuda_fr.g1_ladder_plain(fq, u, v), (p, sc), work,
+            reps=10, plain_reps=0)
+    log(f"[kernels] {curve} g1_ladder, one small MSM (n = {n}, k = 1, "
+        f"{L} words): {work['rows']} rows; bound {work['bound_ms']:.4f} ms "
+        f"({work['bound_by']}), critical-path floor {work['floor_ms']:.4f} "
+        f"ms, one thread's products in turn {work['serial_ms']:.4f} ms")
+
+
+def curve_rows(torch, rates, fq_be, pts, row) -> None:
+    """K6, K7 and K9 at the paths' shape over the m points ``pts`` (3, L,
+    m), each through ``row(name, kernel_fn, plain_fn, args, work)``: K6
+    pts + q and K7 2 q, where q is pts rotated and doubled and its first
+    lanes hold equal, opposite and identity cases; K9 at the basis build's
+    shape, one affine q broadcast over m accumulators whose first lanes are
+    the identity, q and -q.  Bounds from the products these inputs need."""
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    fq = fq_be.consts
+    L, m = pts.shape[1], pts.shape[2]
+    k = 64          # equal, opposite and identity cases in the first lanes
+    q = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
+    q[:, :, :2 * k] = pts[:, :, :2 * k]
+    q[1, :, k:2 * k] = fq_be.neg(pts[1, :, k:2 * k].contiguous())
+    q[2, :, 2 * k:3 * k] = 0
+    q = q.contiguous()
+    qx = pts[0, :, 7:8].contiguous()
+    qy = pts[1, :, 7:8].contiguous()
+    acc = q.clone()
+    acc[2, :, :k] = 0
+    acc[0, :, k:2 * k] = qx
+    acc[1, :, k:2 * k] = qy
+    acc[2, :, k:3 * k] = fq_be.one_mont
+    acc[0, :, 2 * k:3 * k] = qx
+    acc[1, :, 2 * k:3 * k] = fq_be.neg(qy)
+    acc = acc.contiguous()
+    pt_bytes = 12 * L * m
+    row("g1_add", lambda u, v: cuda_fr.g1_add(fq, u, v),
+        lambda u, v: cuda_fr.g1_add_plain(fq, u, v), (pts, q),
+        bound(rates, 3 * pt_bytes, _add_products(torch, fq, pts, q)))
+    row("g1_double", lambda u: cuda_fr.g1_double(fq, u),
+        lambda u: cuda_fr.g1_double_plain(fq, u), (q,),
+        bound(rates, 2 * pt_bytes, formula_products(L, DOUBLE) * m))
+    row("g1_add_mixed", lambda u, x, y: cuda_fr.g1_add_mixed(fq, u, x, y),
+        lambda u, x, y: cuda_fr.g1_add_mixed_plain(fq, u, x, y),
+        (acc, qx, qy), bound(rates, 2 * pt_bytes + 8 * L,
+                             _madd_products(torch, fq, acc, qx, qy)))
 
 
 def phase_kernels(torch, dev, results, rates):
@@ -451,43 +735,12 @@ def phase_kernels(torch, dev, results, rates):
             bound(rates, 2 * elem + 32, MONT_PRODUCTS * n_field))
 
     npts = 1 << MAIN_LOG_N
-    pts, _ = random_point_basis("bn254", npts, seed=5, device=dev)
-    q = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
-    k = 64          # equal, opposite and identity cases in the first lanes
-    q[:, :, :2 * k] = pts[:, :, :2 * k]
-    q[1, :, k:2 * k] = cuda_fr.fr_sub(fq, torch.zeros_like(pts[1, :, :k]),
-                                      pts[1, :, k:2 * k].contiguous())
-    q[2, :, 2 * k:3 * k] = 0
-    q = q.contiguous()
-    pt_bytes = 96 * npts
-    compare(torch, "g1_add", results, lambda u, v: cuda_fr.g1_add(fq, u, v),
-            lambda u, v: cuda_fr.g1_add_plain(fq, u, v), (pts, q),
-            bound(rates, 3 * pt_bytes, _add_products(torch, fq, pts, q)),
-            plain_reps=1)
-    compare(torch, "g1_double", results, lambda u: cuda_fr.g1_double(fq, u),
-            lambda u: cuda_fr.g1_double_plain(fq, u), (q,),
-            bound(rates, 2 * pt_bytes, 7 * MONT_PRODUCTS * npts),
-            plain_reps=1)
-
-    # K9 at the basis build's shape: one affine q broadcast over 2^16
-    # accumulators; the first lanes are the identity, q and -q.
-    qx = pts[0, :, 7:8].contiguous()
-    qy = pts[1, :, 7:8].contiguous()
-    acc = q.clone()
-    acc[2, :, :k] = 0
-    acc[0, :, k:2 * k] = qx
-    acc[1, :, k:2 * k] = qy
-    acc[2, :, k:3 * k] = fq_backend("bn254", dev).one_mont
-    acc[0, :, 2 * k:3 * k] = qx
-    acc[1, :, 2 * k:3 * k] = cuda_fr.fr_sub(fq, torch.zeros_like(qy), qy)
-    acc = acc.contiguous()
-    compare(torch, "g1_add_mixed", results,
-            lambda u, x, y: cuda_fr.g1_add_mixed(fq, u, x, y),
-            lambda u, x, y: cuda_fr.g1_add_mixed_plain(fq, u, x, y),
-            (acc, qx, qy), bound(rates, 2 * pt_bytes + 64,
-                  _madd_products(torch, fq, acc, qx, qy)),
-            plain_reps=1)
+    pts, ks = random_point_basis("bn254", npts, seed=5, device=dev)
+    curve_rows(torch, rates, fq_backend("bn254", dev), pts,
+               lambda name, *a: compare(torch, name, results, *a,
+                                        plain_reps=1))
     check_edge_batches(torch, fq, "bn254", pts)
+    check_ladder(torch, fq, "bn254", pts, ks, rates, results)
 
     # ntt_pass as the paths run it: one whole 2^18 transform (its passes),
     # against the plain stages; products k n / 2 x 136, bytes the array in
@@ -703,29 +956,29 @@ def bucket_schedule(torch, sets, c=None, chunk=None, events=None, bits=254):
 
 def accumulate_work(n, sched, limbs=8):
     """(bytes, 32-bit products) of the accumulate: the points read once,
-    the entries and offsets, the partials written; 11 Montgomery products
-    a mixed add, one add per entry after a chunk's first."""
+    the entries and offsets, the partials written; a mixed add per entry
+    after a chunk's first."""
     E = sched.entries.numel()
     C = sched.chunk_off.numel() - 1
     return (8 * limbs * n + 4 * E + 4 * (C + 1) + 12 * limbs * C,
-            (E - C) * 11 * mont_products(limbs))
+            (E - C) * formula_products(limbs, MADD))
 
 
 def reduce_work(sched, sets, W, c, limbs=8):
     """(bytes, products) of the reduction this data needs: one complete add
-    (16 products) a chunk partial (bucket sums and running sums) and a
-    step (Wt += R) for each magnitude up to a window's top nonempty
-    bucket; the Horner fold's c (W - 1) doublings (7) and W adds."""
+    a chunk partial (bucket sums and running sums) and a step (Wt += R)
+    for each magnitude up to a window's top nonempty bucket; the Horner
+    fold's c (W - 1) doublings and W adds."""
     import torch
     C = sched.chunk_off.numel() - 1
     half = 1 << (c - 1)
     per = sched.bucket_chunks.diff().reshape(sets * W, half)
     mags = torch.arange(1, half + 1, device=per.device)
     top = float(((per > 0) * mags).max(dim=1).values.sum())
-    horner = sets * (7 * c * (W - 1) + 16 * W)
     pt = 12 * limbs
     return (pt * C + 4 * (per.numel() + 1) + pt * sets,
-            (16 * (C + top) + horner) * mont_products(limbs))
+            formula_products(limbs, ADD) * (C + top + sets * W)
+            + formula_products(limbs, DOUBLE) * sets * c * (W - 1))
 
 
 PATH_WIDTHS: dict = {}      # path -> {kernel: {width class: launches}}
@@ -1049,14 +1302,14 @@ def phase_msm(torch, dev, paths, rates):
 
 # The BLS12-381 path where each kernel's BLS launches count.
 BLS_PATHS = {name: "bls_main" for name in KERNELS}
-BLS_PATHS.update(g1_double="bls_parity", g1_add_mixed="bls_msm_basis",
-                 fr_butterfly="bls_ntt_scan")
+BLS_PATHS.update(g1_double="bls_parity", g1_ladder="bls_parity",
+                 g1_add_mixed="bls_msm_basis", fr_butterfly="bls_ntt_scan")
 BLS_MSM_LOG_N = 16
 BLS_POW_LOG_N = 16          # fr_pow's width: its plain version at 2^18
                             # takes about 6 s at 8 words
 
 
-def phase_bls_kernels(torch, dev, rows, rates, basis):
+def phase_bls_kernels(torch, dev, rows, rates, basis, ks):
     """Every kernel at BLS12-381 against its plain version, exactly:
     K1 and the chains at Fr (8 words) and Fq (12 words), the NTT pass and
     K10 at Fr, the curve kernels, the SRS table and the bucket kernels at
@@ -1139,39 +1392,18 @@ def phase_bls_kernels(torch, dev, rows, rates, basis):
     fq = fq_be.consts
     L = fq.num_limbs
     pts = basis[..., :n].contiguous()
-    q = cuda_fr.g1_double(fq, pts.roll(1, -1).contiguous())
-    k = 64          # equal, opposite and identity cases in the first lanes
-    q[:, :, :2 * k] = pts[:, :, :2 * k]
-    q[1, :, k:2 * k] = fq_be.neg(pts[1, :, k:2 * k].contiguous())
-    q[2, :, 2 * k:3 * k] = 0
-    q = q.contiguous()
-    pt_bytes = 12 * L * n
-    row("g1_add", "Fq", "2^16 points",
-        lambda u, v: cuda_fr.g1_add(fq, u, v),
-        lambda u, v: cuda_fr.g1_add_plain(fq, u, v), (pts, q),
-        bound(rates, 3 * pt_bytes, _add_products(torch, fq, pts, q)),
-        plain_reps=1)
-    row("g1_double", "Fq", "2^16 points",
-        lambda u: cuda_fr.g1_double(fq, u),
-        lambda u: cuda_fr.g1_double_plain(fq, u), (q,),
-        bound(rates, 2 * pt_bytes, 7 * mont_products(L) * n), plain_reps=1)
-    qx = pts[0, :, 7:8].contiguous()
-    qy = pts[1, :, 7:8].contiguous()
-    acc = q.clone()
-    acc[2, :, :k] = 0
-    acc[0, :, k:2 * k] = qx
-    acc[1, :, k:2 * k] = qy
-    acc[2, :, k:3 * k] = fq_be.one_mont
-    acc[0, :, 2 * k:3 * k] = qx
-    acc[1, :, 2 * k:3 * k] = fq_be.neg(qy)
-    acc = acc.contiguous()
-    row("g1_add_mixed", "Fq", "2^16 points, one q",
-        lambda u, x, y: cuda_fr.g1_add_mixed(fq, u, x, y),
-        lambda u, x, y: cuda_fr.g1_add_mixed_plain(fq, u, x, y),
-        (acc, qx, qy), bound(rates, 2 * pt_bytes + 8 * L,
-                             _madd_products(torch, fq, acc, qx, qy)),
-        plain_reps=1)
+    shapes = {"g1_add_mixed": "2^16 points, one q"}
+    curve_rows(torch, rates, fq_be, pts,
+               lambda name, *a: row(name, "Fq",
+                                    shapes.get(name, "2^16 points"), *a,
+                                    plain_reps=1))
     check_edge_batches(torch, fq, "bls12_381", pts)
+    got: dict = {}
+    check_ladder(torch, fq, "bls12_381", pts, ks, rates, got,
+                 "bls g1_ladder Fq")
+    rows.setdefault("g1_ladder", []).append(
+        {"curve": "bls12_381", "field": "Fq",
+         "shape": "one small MSM, n = 256, k = 1", **got["bls g1_ladder Fq"]})
     base = curve_base(torch, dev, "bls12_381")
     windows = -(-C.BLS12_381_R.bit_length() // SRS_WINDOW_BITS)
     row("g1_fixed_base_table", "Fq", f"c = 8, W = {windows}",
@@ -1225,7 +1457,7 @@ def phase_bls(torch, dev, paths, rates, rows):
     log(f"[bls] random-multiplier basis of 2^{BLS_MSM_LOG_N} points (3, "
         f"{pts.shape[1]}, n) in {time.perf_counter() - t0:.2f} s, launches "
         f"{json.dumps(paths['bls_msm_basis'], sort_keys=True)}")
-    phase_bls_kernels(torch, dev, rows, rates, pts)
+    phase_bls_kernels(torch, dev, rows, rates, pts, ks)
 
     r = C.BLS12_381_R
     Fp = base_field("bls12_381")
@@ -1265,6 +1497,7 @@ def phase_bls(torch, dev, paths, rates, rows):
                  lambda fn: run_path(torch, paths, "bls_parity", fn))
     log(f"[bls_parity] launches "
         f"{json.dumps(paths['bls_parity'], sort_keys=True)}")
+    check_ladder_path("bls_parity", paths["bls_parity"])
     phase_main(torch, dev, paths, "bls12_381", "bls_main")
     log(f"[bls] BLS12-381 phases in {time.perf_counter() - t_bls:.1f} s")
 
@@ -1315,11 +1548,25 @@ def _circuit(Fr, n):
             a + b + c)
 
 
+def plonk_parity_device(dev, curve):
+    """The device part of the PLONK parity run at n = 2^6: (index keys,
+    proof)."""
+    from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+    from kzg_snark_tpu_torch.ops.host.field import scalar_field
+    from kzg_snark_tpu_torch.rng import Rng
+
+    n = 1 << PARITY_LOG_N
+    qM, qZ, qO, perm, w = _circuit(scalar_field(curve), n)
+    keys = DeviceProver(curve, rng=Rng(600), device=dev).preprocess(
+        qM, qZ, qZ, qO, qZ, perm, max_degree=n + 5, tau=TAU)
+    return keys, DeviceProver(curve, rng=Rng(601), device=dev).prove(
+        keys[0], [], w)
+
+
 def phase_parity(dev, curve="bn254", tag="parity", run=None):
     """PLONK at n = 2^6 on ``curve``: the device index and proof against
     the port's host prover; ``run(fn)`` drives the device part (a
     run_path)."""
-    from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
     from kzg_snark_tpu_torch.models.plonk.indexer import Indexer
     from kzg_snark_tpu_torch.models.plonk.prover import Prover
     from kzg_snark_tpu_torch.ops.host.field import scalar_field
@@ -1330,10 +1577,7 @@ def phase_parity(dev, curve="bn254", tag="parity", run=None):
     args = (qM, qZ, qZ, qO, qZ, perm)
 
     def device():
-        keys = DeviceProver(curve, rng=Rng(600), device=dev).preprocess(
-            *args, max_degree=n + 5, tau=TAU)
-        return keys, DeviceProver(curve, rng=Rng(601), device=dev).prove(
-            keys[0], [], w)
+        return plonk_parity_device(dev, curve)
     (ipk_d, ivk_d), proof_d = run(device) if run else device()
     t0 = time.perf_counter()
     idx = Indexer(curve, backend="host", rng=Rng(600))
@@ -1410,14 +1654,16 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
         f"{json.dumps(PATH_WIDTHS[name], sort_keys=True)}")
     log(f"[{name}] launches by limb count: "
         f"{json.dumps(PATH_LIMBS[name], sort_keys=True)}")
-    if counts.get("g1_double", 0) > 0 or counts.get("g1_add", 0) > 32 \
+    if counts.get("g1_double", 0) > 0 or counts.get("g1_ladder", 0) > 0 \
+            or counts.get("g1_add", 0) > 32 \
             or counts.get("g1_fixed_base_table", 0) != 1 \
             or counts.get("msm_reduce", 0) > 2 * counts.get("msm_accumulate",
                                                             0):
         raise AssertionError(f"the {curve} PLONK path launched g1_double "
-                             "(none allowed), more g1_add (32) or "
-                             "msm_reduce (2 an MSM) than the bucket route "
-                             "allows, or other than one g1_fixed_base_table")
+                             "or g1_ladder (none allowed), more g1_add (32) "
+                             "or msm_reduce (2 an MSM) than the bucket "
+                             "route allows, or other than one "
+                             "g1_fixed_base_table")
     check_ntt_passes(name, counts)
     chains = counts.get("fr_scan", 0) + counts.get("fr_pow", 0)
     if counts.get("fr_mul", 0) > 2000 or chains > 600:
@@ -1426,8 +1672,32 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
                              f"and fr_scan + fr_pow {chains} (limit 600)")
 
 
-def phase_marlin_parity(torch, dev, paths):
+def check_ladder_path(name: str, counts: dict) -> None:
+    """The small MSMs of a parity path ran the ladder (g1_ladder at least
+    once) and K7 alone no time."""
+    if counts.get("g1_double", 0) != 0 or counts.get("g1_ladder", 0) < 1:
+        raise AssertionError(f"the {name} path launched g1_double "
+                             f"{counts.get('g1_double', 0)} times (none "
+                             f"allowed) and g1_ladder "
+                             f"{counts.get('g1_ladder', 0)} (at least 1)")
+
+
+def marlin_parity_device(dev):
+    """The device part of the Marlin parity run at |H| = 2^6: (index keys,
+    proof)."""
     from kzg_snark_tpu_torch.models.marlin.device import DeviceProver
+    from kzg_snark_tpu_torch.rng import Rng
+    from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
+
+    n = 1 << MARLIN_PARITY_LOG_H
+    A, B, C, z = synthetic_r1cs(n)
+    keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
+        A, B, C, 6 * 2 * n, tau=MARLIN_TAU)
+    return keys, DeviceProver("bn254", rng=Rng(901), device=dev).prove(
+        keys[0], z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:])
+
+
+def phase_marlin_parity(torch, dev, paths):
     from kzg_snark_tpu_torch.models.marlin.indexer import Indexer
     from kzg_snark_tpu_torch.models.marlin.prover import Prover
     from kzg_snark_tpu_torch.rng import Rng
@@ -1437,15 +1707,8 @@ def phase_marlin_parity(torch, dev, paths):
     A, B, C, z = synthetic_r1cs(n)
     x, w = z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:]
     max_degree = 6 * 2 * n
-
-    def run():
-        keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
-            A, B, C, max_degree, tau=MARLIN_TAU)
-        proof = DeviceProver("bn254", rng=Rng(901), device=dev).prove(
-            keys[0], x, w)
-        return keys, proof
-
-    (ipk_d, ivk_d), proof_d = run_path(torch, paths, "marlin_parity", run)
+    (ipk_d, ivk_d), proof_d = run_path(torch, paths, "marlin_parity",
+                                       lambda: marlin_parity_device(dev))
     t0 = time.perf_counter()
     idx = Indexer("bn254", backend="host", rng=Rng(900))
     idx.kzg.normalize_commitments = True
@@ -1462,6 +1725,7 @@ def phase_marlin_parity(torch, dev, paths):
     counts = paths["marlin_parity"]
     if counts.get("g1_add_mixed", 0) == 0:
         raise AssertionError("the Marlin parity run took no scan MSM (K9)")
+    check_ladder_path("marlin_parity", counts)
     log(f"[marlin_parity] |H|=2^6: index and proof byte-identical to the "
         f"host Marlin prover (host side {host_s:.1f} s); launches "
         f"{json.dumps(counts, sort_keys=True)}")
@@ -1550,11 +1814,86 @@ def profile_run(torch, label, fn):
         + "; ".join(f"{name[:48]} {ms:.3f} ({n})" for ms, n, name in top))
 
 
+def tree_times(root: str) -> dict:
+    """``curve_rows`` (K6, K7 and K9 at 2^16 points) and one small MSM (n =
+    256, k = 1, held to the host oracle) on both curves, device and wall
+    ms, and the launches of the two parity paths' device runs, with the
+    package of the checkout at ``root``, a directory inside this one (an
+    earlier tree unpacked under a gitignored directory; public entry
+    points only, so such a tree runs too)."""
+    import random
+    import torch
+    here = os.path.dirname(os.path.realpath(__file__))
+    root = os.path.realpath(root)
+    if os.path.commonpath([root, here]) != here or not os.path.isdir(
+            os.path.join(root, "kzg_snark_tpu_torch")):
+        raise SystemExit(f"chip_smoke: --tree {root}: not a checkout inside "
+                         f"{here}")
+    sys.path.insert(0, root)
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.fr import fq_backend
+    from kzg_snark_tpu_torch.ops.g1 import generator
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
+    from kzg_snark_tpu_torch.ops.msm import msm_context
+    from kzg_snark_tpu_torch.utils.build import (launch_counts,
+                                                 reset_launches)
+
+    dev = torch.device("cuda", 0)
+    rates = device_rates(torch)
+    out = {"root": root}
+    for curve in ("bn254", "bls12_381"):
+        pts, ks = random_point_basis(curve, 1 << MAIN_LOG_N, seed=5,
+                                     device=dev)
+        rows: dict = {}
+        curve_rows(torch, rates, fq_backend(curve, dev), pts,
+                   lambda name, *a: compare(torch, name, rows, *a,
+                                            plain_reps=1))
+        n = LADDER_SIZES[-1]
+        r = C.BN254_R if curve == "bn254" else C.BLS12_381_R
+        rng = random.Random(91)
+        ints = [rng.randrange(r) for _ in range(n)]
+        ctx = msm_context(curve, dev)
+        p = pts[..., :n].contiguous()
+        sc = ctx.scalars_to_limbs(ints)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = ctx.curve.to_affine_ints(ctx.msm(p, sc))[0]
+        launches = launch_counts()
+        Fp = base_field(curve)
+        gx, gy = generator(curve)
+        want = hc.normalize(hc.multiply(
+            (Fp(gx), Fp(gy), Fp(1)),
+            sum(s_ * k_ for s_, k_ in zip(ints, ks)) % r))
+        if got != (int(want[0]), int(want[1])):
+            raise AssertionError(f"{curve} small MSM differs from the host "
+                                 f"oracle")
+        out[curve] = {"2^16_points_ms": {k_: v["ms"] for k_, v in
+                                         rows.items()},
+                      "small_msm_n256_k1_ms": timed_ms(
+                          torch, lambda: ctx.msm(p, sc), 10),
+                      "small_msm_launches": launches}
+    for name, fn in (("marlin_parity", marlin_parity_device),
+                     ("bls_parity", lambda d: plonk_parity_device(
+                         d, "bls12_381"))):
+        torch.cuda.synchronize()
+        reset_launches()
+        fn(dev)
+        torch.cuda.synchronize()
+        out[name] = launch_counts()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--tree"]:
+        print(json.dumps({"tree_times": tree_times(sys.argv[2])}), flush=True)
+        return 0
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kzg_snark_tpu_torch.utils.build import (build_cuda, cuda_lib,
                                                  kernel_resources)
@@ -1578,6 +1917,7 @@ def main() -> int:
     curve_occupancy(torch, resources, rates)
     product_sass(lib_path)
     product_throughput(torch, dev, rates)
+    product_latency(torch, dev)
 
     results: dict = {}
     paths: dict = {}
@@ -1598,7 +1938,11 @@ def main() -> int:
         launches = paths[path].get(name, 0)
         bls_path = BLS_PATHS[name]
         bls_launches = paths[bls_path].get(name, 0)
-        if launches == 0 or bls_launches == 0:
+        if name in OFF_PATH:
+            if launches or bls_launches:
+                raise AssertionError(f"kernel {name} launched on the {path} "
+                                     f"or the {bls_path} path")
+        elif launches == 0 or bls_launches == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{path} or the {bls_path} path")
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1612,6 +1956,7 @@ def main() -> int:
                                       "by_limbs": PATH_LIMBS[bls_path].get(
                                           name, {}),
                                       "rows": bls_rows[name]}})
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_name)
     print(json.dumps({"ok": True, "device": {

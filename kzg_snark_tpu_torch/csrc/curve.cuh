@@ -31,11 +31,19 @@ KZG_HD void g1_store(uint32_t* base, int64_t m, int64_t i, const G1J<NL>& P) {
   fe_store<NL>(base + 2 * NL * m, m, i, P.Z);
 }
 
+// The identity as CurveOps.identity writes it: (one, one, 0).
+template <int NL>
+KZG_HD void g1_set_identity(G1J<NL>& P, const FieldConsts<NL>& F) {
+  fe_copy<NL>(P.X, F.one);
+  fe_copy<NL>(P.Y, F.one);
+  for (int k = 0; k < NL; k++) P.Z[k] = 0;
+}
+
 // Product policies: which Montgomery product (and squaring) the formulas
 // run.  PROD_CIOS: fe_mul, straight-line (the default); PROD_COMPACT:
 // fe_mul_compact, the small loop body, for long chains on few threads (the
 // MSM reduction); PROD_CHAIN: fe_mul_chain and the true squaring
-// fe_sqr_chain (chain.cuh), for K6 and K9.
+// fe_sqr_chain (chain.cuh), for K6, K7, K9 and the ladder.
 enum { PROD_CIOS = 0, PROD_COMPACT = 1, PROD_CHAIN = 2 };
 
 template <int POL, int NL>
@@ -235,7 +243,7 @@ KZG_HD void g1_add_mixed(G1J<NL>& R, const G1J<NL>& P, const uint32_t qx[NL],
 
 // Thread bodies of the K6 / K7 / K9 replacements: one point per thread.
 //
-// K6 and K9 run the product policy PROD_CHAIN.  Their formulas are those
+// K6, K7 and K9 run the product policy PROD_CHAIN.  Their formulas are those
 // of g1_add (add-2007-bl) and
 // g1_add_mixed (madd-2007-bl) with the same case analysis, so every
 // representative is theirs; the order is the registers': each coordinate is
@@ -334,10 +342,10 @@ KZG_HD void g1_add_thread(int64_t i, const uint32_t* p, const uint32_t* q,
 template <int NL>
 KZG_HD void g1_double_thread(int64_t i, const uint32_t* p, uint32_t* out,
                              int64_t m, const FieldConsts<NL>& F) {
-  G1J<NL> P, R;
+  G1J<NL> P;
   g1_load(P, p, m, i);
-  g1_double(R, P, F);
-  g1_store(out, m, i, R);
+  g1_double<PROD_CHAIN>(P, P, F);
+  g1_store(out, m, i, P);
 }
 
 // K9: p (3, NL, m) + the affine point (qx, qy), complete.  qx and qy are
@@ -389,4 +397,63 @@ KZG_HD void g1_add_mixed_thread(int64_t i, const uint32_t* p,
   fmul<PROD_CHAIN>(V, t, I, F);
   fe_load<NL>(t, p + Y, m, i);                     // Y1
   g1_add_tail(out, m, i, Rr, J, V, t, F);
+}
+
+// K7 (with K6's body) as the small MSM and CurveOps.scale use it.
+//
+// Highest set bit of an S-word scalar whose words lie `stride` apart; -1
+// for zero.
+KZG_HD int scalar_top_bit(const uint32_t* s, int64_t stride, int S) {
+  for (int w = S - 1; w >= 0; w--) {
+    const uint32_t v = s[w * stride];
+    if (v == 0) continue;
+#ifdef __CUDA_ARCH__
+    return 32 * w + 31 - __clz(v);
+#else
+    return 32 * w + 31 - __builtin_clz(v);
+#endif
+  }
+  return -1;
+}
+
+// acc = s P by the double-and-add ladder of the JAX _small_msm_core and
+// CurveOps.scale: for each bit row b from the least significant up,
+// acc = bit ? acc + base : acc, then base = 2 base, with base = P at row 0.
+// The add is skipped where the bit is 0 and the ladder stops at the
+// scalar's highest set bit; neither changes acc or its representative.
+// P is point i of the (3, NL, n) batch `pts`; s is the scalar's first word,
+// its S words `stride` apart.  acc and base stay in registers.
+template <int NL>
+KZG_HD void g1_ladder_thread(G1J<NL>& acc, const uint32_t* pts, int64_t n,
+                             int64_t i, const uint32_t* s, int64_t stride,
+                             int S, const FieldConsts<NL>& F) {
+  g1_set_identity(acc, F);
+  const int top = scalar_top_bit(s, stride, S);
+  if (top < 0) return;
+  G1J<NL> base;
+  g1_load(base, pts, n, i);
+#pragma unroll 1
+  for (int b = 0;; b++) {
+    if ((s[(b >> 5) * stride] >> (b & 31)) & 1)
+      g1_add<PROD_CHAIN>(acc, acc, base, F);
+    if (b == top) break;
+    g1_double<PROD_CHAIN>(base, base, F);
+  }
+}
+
+// Thread t's share of one level of CurveOps.tree_sum over S[0, m): an odd
+// level is padded with the identity at its end, and t < h = ceil(m / 2)
+// takes S[t] + S[t + h].  The result stays in S[0, h).
+template <int NL>
+KZG_HD void g1_tree_pair(G1J<NL>* S, int m, int t, const FieldConsts<NL>& F) {
+  const int h = (m + 1) / 2;
+  if (t >= h) return;
+  G1J<NL> A = S[t], B;
+  if (t + h < m) {
+    B = S[t + h];
+  } else {
+    g1_set_identity(B, F);
+  }
+  g1_add<PROD_CHAIN>(A, A, B, F);
+  S[t] = A;
 }

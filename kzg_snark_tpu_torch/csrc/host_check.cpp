@@ -86,6 +86,33 @@ static int impl_g1_add_mixed(const void* p, const void* qx, const void* qy,
   return 0;
 }
 
+// The ladder launch: block after block, every thread's ladder, then (tree)
+// the block's halving tree level after level in the kernel's order.
+template <int NL>
+static int impl_g1_ladder(const void* pts, const void* scalars, int S,
+                          int64_t sp, void* out, int64_t n, int64_t sets,
+                          int tree, const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
+  const uint32_t* p = (const uint32_t*)pts;
+  const uint32_t* s = (const uint32_t*)scalars;
+  G1J<NL>* sh = new G1J<NL>[n];
+  for (int64_t j = 0; j < sets; j++) {
+    for (int64_t i = 0; i < n; i++)
+      g1_ladder_thread(sh[i], p, n, i, s + j * S * sp + (sp == 1 ? 0 : i), sp,
+                       S, F);
+    if (!tree) {
+      for (int64_t i = 0; i < n; i++)
+        g1_store((uint32_t*)out, sets * n, j * n + i, sh[i]);
+      continue;
+    }
+    for (int m = (int)n; m > 1; m = (m + 1) / 2)
+      for (int t = 0; t < m; t++) g1_tree_pair(sh, m, t, F);
+    g1_store((uint32_t*)out, sets, j, sh[0]);
+  }
+  delete[] sh;
+  return 0;
+}
+
 template <int NL>
 static int impl_fr_butterfly(const void* xl, const void* xu, const void* tw,
                              const void* mask, void* out, int64_t n,
@@ -316,6 +343,13 @@ extern "C" int host_g1_add_mixed(const void* p, const void* qx, const void* qy,
                                  int64_t qn, void* out, int64_t m,
                                  const void* consts) {
   return KZG_BY_LIMBS(consts, impl_g1_add_mixed, p, qx, qy, qn, out, m, consts);
+}
+
+extern "C" int host_g1_ladder(const void* pts, const void* scalars, int S,
+                              int64_t sp, void* out, int64_t n, int64_t sets,
+                              int tree, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_g1_ladder, pts, scalars, S, sp, out, n,
+                      sets, tree, consts);
 }
 
 extern "C" int host_fr_butterfly(const void* xl, const void* xu, const void* tw,

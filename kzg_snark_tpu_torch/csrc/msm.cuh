@@ -20,13 +20,6 @@
 #include "curve.cuh"
 
 template <int NL>
-KZG_HD void g1_set_identity(G1J<NL>& P, const FieldConsts<NL>& F) {
-  fe_copy<NL>(P.X, F.one);
-  fe_copy<NL>(P.Y, F.one);
-  for (int k = 0; k < NL; k++) P.Z[k] = 0;
-}
-
-template <int NL>
 KZG_HD void g1_select(G1J<NL>& R, bool c, const G1J<NL>& A, const G1J<NL>& B) {
   fe_select<NL>(R.X, c, A.X, B.X);
   fe_select<NL>(R.Y, c, A.Y, B.Y);

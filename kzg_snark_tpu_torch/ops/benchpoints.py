@@ -63,6 +63,24 @@ def random_point_basis(curve_type: str, size: int, seed: int,
     return normalize_points(f, acc), ks
 
 
+def edge_scalar_sets(curve_type: str, ks: list[int], seed: int
+                     ) -> list[list[int]]:
+    """Three scalar sets over the n = len(ks) points P_i = k_i G of
+    ``random_point_basis``: uniform below r; 0, 1, r - 1 and (n >= 5) a
+    duplicate among uniform values; and (n >= 2) k_1, r - k_0 and zeros,
+    whose sum is the identity."""
+    from .. import constants as C
+    r = C.BN254_R if curve_type == "bn254" else C.BLS12_381_R
+    n = len(ks)
+    rng = random.Random(seed)
+    sets = [[rng.randrange(r) for _ in range(n)] for _ in range(3)]
+    sets[1][:3] = [0, 1, r - 1][:n]
+    if n >= 5:
+        sets[1][4] = sets[1][3]
+    sets[2] = ([ks[1], r - ks[0]] + [0] * n)[:n] if n >= 2 else [0]
+    return sets
+
+
 def adversarial_values(p: int, limbs: int) -> list[int]:
     """Canonical values that stress a Montgomery product's carries: 0, 1,
     p - 1 and its neighbours, all-ones low words, p less a power of the

@@ -5,7 +5,8 @@ Counterpart of ``kzg_snark_tpu/ops/pallas_fr.py``:
 * K1 ``fr_mul`` (and ``fr_add`` / ``fr_sub`` from the same source file),
   ``csrc/fr_kernels.cu``;
 * K6 ``g1_add``, K7 ``g1_double`` and K9 ``g1_add_mixed``,
-  ``csrc/curve_kernels.cu``.
+  ``csrc/curve_kernels.cu``; K7 with K6's add as the small MSM uses them,
+  the whole double-and-add ladder in one launch: ``g1_ladder``.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.  Plain versions also take CUDA
@@ -404,6 +405,57 @@ def g1_add_mixed_plain(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
                              qy.repeat(1, reps))
 
 
+LADDER_POINTS = 256     # most points of a summed ladder (one block a set)
+
+
+def _top_row(words: torch.Tensor) -> int:
+    """Bit rows up to the highest set bit of any (k, S, sp) int64 word."""
+    for w in range(words.shape[1] - 1, -1, -1):
+        top = int(words[:, w].max()) if words.numel() else 0
+        if top:
+            return 32 * w + top.bit_length()
+    return 0
+
+
+def g1_ladder_plain(fc: FieldConsts, points: torch.Tensor,
+                    scalars: torch.Tensor, tree: bool = True
+                    ) -> torch.Tensor:
+    """K7 and K6 as the small MSM uses them, plain: points (3, L, n),
+    scalars (k, S, sp) canonical 32-bit words with sp = n or 1 (one scalar
+    for every point) -> sum_i s_ji P_i (3, L, k), or every s_ji P_i
+    (3, L, k, n) where ``tree`` is false.
+
+    The row loop of the JAX ``_small_msm_core`` and ``CurveOps.scale``:
+    for each bit row from the least significant up, acc = bit ? acc + base
+    : acc and base = 2 base; rows past every scalar's highest set bit leave
+    acc as it is and are not run.  Then ``CurveOps.tree_sum``'s halving
+    tree along the points."""
+    f = PlainField(fc)
+    L, n = points.shape[1], points.shape[2]
+    words = _wide(scalars)
+    one = fc.tensors(points.device)["one"].reshape(L, 1, 1).expand(
+        L, scalars.shape[0], n)
+    ident = torch.stack([one, one, torch.zeros_like(one)])
+    acc = ident
+    base = points[:, :, None, :]
+    for b in range(_top_row(words)):
+        bit = (words[:, b // 32] >> (b % 32)) & 1             # (k, sp)
+        taken = add_formula(f, acc, base)
+        acc = torch.where((bit == 1)[None, None], taken, acc)
+        base = double_formula(f, base)
+    if not tree:
+        return acc
+    m = n
+    while m > 1:
+        if m % 2:
+            acc = torch.cat([acc, ident[..., :1]], dim=-1)
+            m += 1
+        half = m // 2
+        acc = add_formula(f, acc[..., :half], acc[..., half:])
+        m = half
+    return acc[..., 0].contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
@@ -536,4 +588,32 @@ def g1_add_mixed(fc: FieldConsts, p: torch.Tensor, qx: torch.Tensor,
     check(cuda_lib().kzg_g1_add_mixed(p.data_ptr(), qx.data_ptr(),
                                       qy.data_ptr(), qn, out.data_ptr(), m,
                                       fc.ptr, _stream(p)), "g1_add_mixed")
+    return out
+
+
+def g1_ladder(fc: FieldConsts, points: torch.Tensor, scalars: torch.Tensor,
+              tree: bool = True) -> torch.Tensor:
+    """K7 and K6 as the small MSM uses them, in one launch: points (3, L,
+    n), scalars (k, S, sp) canonical 32-bit words with sp = n or 1 -> sum_i
+    s_ji P_i (3, L, k), n at most ``LADDER_POINTS``; with ``tree`` false
+    every s_ji P_i (3, L, k, n), any n.  The representatives of
+    ``g1_ladder_plain``."""
+    if _on_cpu(points, scalars):
+        return g1_ladder_plain(fc, points, scalars, tree)
+    n = _points_check("g1_ladder", fc, points)
+    _require_cuda("g1_ladder", points, scalars)
+    _chain_check("g1_ladder", fc)
+    if scalars.dim() != 3 or scalars.shape[1] < 1 \
+            or scalars.shape[2] not in (1, n) \
+            or not 1 <= n <= (LADDER_POINTS if tree else 1 << 30):
+        raise ValueError(f"g1_ladder: scalars {tuple(scalars.shape)} for "
+                         f"{n} points (tree {tree})")
+    k, S, sp = scalars.shape
+    L = fc.num_limbs
+    out = torch.empty((3, L, k) if tree else (3, L, k, n),
+                      dtype=torch.int32, device=points.device)
+    count_launch("g1_ladder", width=n, limbs=L)
+    check(cuda_lib().kzg_g1_ladder(points.data_ptr(), scalars.data_ptr(), S,
+                                   sp, out.data_ptr(), n, k, int(tree),
+                                   fc.ptr, _stream(points)), "g1_ladder")
     return out

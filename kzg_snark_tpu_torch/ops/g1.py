@@ -10,15 +10,20 @@ and to their plain versions for CPU tensors.  The formulas are those of
 
 ``add_mixed`` (p + an affine q, complete madd-2007-bl) goes to the K9
 kernel for CUDA tensors and its plain version for CPU tensors, and returns
-the representative of the JAX ``add_mixed``.
+the representative of the JAX ``add_mixed``.  ``scale`` and
+``scale_const`` (the JAX ``g1.py:247-268``) run the double-and-add ladder
+in one ``g1_ladder`` launch, one scalar for every point, with the JAX
+representatives.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cuda_fr
 from .fr import FieldBackend, fq_backend
+from .limbs import to_tensor
 
 
 class CurveOps:
@@ -91,6 +96,29 @@ class CurveOps:
         out = cuda_fr.g1_add_mixed(self.f.consts, self._flat(p),
                                    qx.contiguous(), qy.contiguous())
         return out.reshape(p.shape)
+
+    # -- scalar multiplication (K7 and K6 as the ladder) ------------------
+    def scale(self, pts: torch.Tensor, scalar_bits) -> torch.Tensor:
+        """Every point times the scalar whose bits, least significant first,
+        are ``scalar_bits`` (any length, shared by all points): the JAX
+        ``scale``.  One ``g1_ladder`` launch with one scalar row of column
+        period 1, never expanded to the points."""
+        bits = torch.as_tensor(scalar_bits).reshape(-1).tolist()
+        words = [0] * max(1, -(-len(bits) // 32))
+        for i, b in enumerate(bits):
+            words[i // 32] |= (int(b) & 1) << (i % 32)
+        sc = to_tensor(np.array(words, dtype=np.uint32).reshape(1, -1, 1),
+                       pts.device)
+        out = cuda_fr.g1_ladder(self.f.consts, self._flat(pts), sc,
+                                tree=False)
+        return out.reshape(pts.shape)
+
+    def scale_const(self, pts: torch.Tensor, k: int) -> torch.Tensor:
+        """Scalar multiple by a Python int k >= 0 (the JAX
+        ``scale_const``)."""
+        if k == 0:
+            return self.identity(tuple(pts.shape[2:]))
+        return self.scale(pts, [(k >> i) & 1 for i in range(k.bit_length())])
 
     # -- reductions -----------------------------------------------------
     def tree_sum(self, pts: torch.Tensor) -> torch.Tensor:

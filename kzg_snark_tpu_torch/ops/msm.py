@@ -5,12 +5,14 @@ the number of points n as the JAX ``MsmContext`` does:
 
 * n >= 2048: the sorted-bucket kernels (``ops/msm_kernel.py``:
   ``msm_accumulate``, K8, and ``msm_reduce``);
-* n <= 256: bit-serial double-and-add (``_small_msm``, the JAX
-  ``_small_msm_core``) on K6 / K7;
+* n <= 256: bit-serial double-and-add (the JAX ``_small_msm_core``, its
+  representatives), the whole ladder and its halving tree in one
+  ``g1_ladder`` launch (K7 with K6's add);
 * otherwise: the scan Pippenger (``_scan_msm``, the JAX ``_msm_core``):
   8-bit windows, one complete mixed add (K9) of width W * lanes per step
   between a gather and a scatter of the (W, 256, lanes) bucket table, then
-  the lane merge, the suffix ladder and the Horner fold on K6 / K7.
+  the lane merge and the suffix ladder on K6, and the Horner fold in the
+  bucket route's one Horner launch (``msm_kernel.reduce_horner``).
 
 ``commit`` pads the SRS slice to a power of two (``DeviceSRS.slice_pow2``)
 as the JAX ``commit`` does, so a commit takes the same route on the same
@@ -32,12 +34,11 @@ from . import cuda_fr
 from .fr import canonical_device, fr_backend
 from .g1 import CurveOps, generator
 from .limbs import SCALAR_LIMBS, ints_to_words, to_tensor
-from .msm_kernel import fused_msm
+from .msm_kernel import fused_msm, reduce_horner
 
-SMALL_THRESHOLD = 256
+SMALL_THRESHOLD = cuda_fr.LADDER_POINTS
 FUSED_THRESHOLD = 2048
 SCAN_WINDOW_BITS = 8
-SCALAR_BITS = 32 * SCALAR_LIMBS       # bit rows of the bit-serial route
 
 
 def halve_sum_last(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
@@ -61,23 +62,6 @@ def suffix_ladder(curve: CurveOps, pts: torch.Tensor) -> torch.Tensor:
         pts = curve.add(pts, torch.cat([pts[..., shift:], fill], dim=-1))
         shift *= 2
     return pts
-
-
-def _small_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor
-               ) -> torch.Tensor:
-    """Bit-serial double-and-add: points (3, L, n), scalars (k, 8, n)
-    canonical -> (3, L, k).  Each bit row is one add of width k n (K6) and
-    one doubling of the n bases (K7); then a halving tree per set."""
-    k, _, n = scalars.shape
-    words = cuda_fr._wide(scalars)                         # (k, 8, n)
-    acc = curve.identity((k, n)).contiguous()
-    base = points[:, :, None, :]
-    for b in range(SCALAR_BITS):
-        bit = (words[:, b // 32] >> (b % 32)) & 1         # (k, n)
-        taken = curve.add(acc, base)
-        acc = torch.where((bit == 1)[None, None], taken, acc)
-        base = curve.double(base)
-    return curve.tree_sum(acc)[..., 0]
 
 
 def _choose_lanes(n: int) -> int:
@@ -127,13 +111,8 @@ def _scan_msm(curve: CurveOps, points: torch.Tensor, scalars: torch.Tensor,
     suffix = suffix_ladder(curve, merged)
     suffix[2, :, :, 0] = 0                       # exclude the j = 0 term
     window_sums = halve_sum_last(curve, suffix)           # (3, L, W)
-
-    acc = curve.identity((1,)).contiguous()
-    for w in range(W - 1, -1, -1):
-        for _ in range(c):
-            acc = curve.double(acc)
-        acc = curve.add(acc, window_sums[..., w:w + 1].contiguous())
-    return acc
+    # acc = 2^c acc + S_w from the top window: one piece a window.
+    return reduce_horner(curve.f.consts, window_sums.contiguous(), 1, W, c)
 
 
 class MsmContext:
@@ -176,7 +155,8 @@ class MsmContext:
             return self.fused.msm(points, scalars, complete)
         sets = scalars if scalars.dim() == 3 else scalars[None]
         if route == "small":
-            return _small_msm(self.curve, points, sets)
+            return cuda_fr.g1_ladder(self.curve.f.consts,
+                                     points.contiguous(), sets.contiguous())
         return torch.cat([_scan_msm(self.curve, points, s, self._gen)
                           for s in sets], dim=-1)
 

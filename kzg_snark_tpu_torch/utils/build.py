@@ -60,6 +60,7 @@ CUDA_ENTRIES = {
     "kzg_g1_add": [_P, _P, _P, _I64, _P, _P],
     "kzg_g1_double": [_P, _P, _I64, _P, _P],
     "kzg_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P, _P],
+    "kzg_g1_ladder": [_P, _P, _INT, _I64, _P, _I64, _I64, _INT, _P, _P],
     "kzg_g1_blocks_per_sm": [_INT, _INT],
     "kzg_g1_threads": [],
     "kzg_g1_fixed_base_table": [_P, _P, _INT, _INT, _P, _P],
@@ -80,6 +81,7 @@ HOST_ENTRIES = {
     "host_g1_add": [_P, _P, _P, _I64, _P],
     "host_g1_double": [_P, _P, _I64, _P],
     "host_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P],
+    "host_g1_ladder": [_P, _P, _INT, _I64, _P, _I64, _I64, _INT, _P],
     "host_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P],
     "host_ntt_tile": [],
     "host_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P],

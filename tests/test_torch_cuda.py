@@ -6,9 +6,9 @@ operands and raises).  With a card (tests marked ``cuda``, skipped where
 ``torch.cuda.is_available()`` is false): every kernel entry point equals
 its plain version on small numpy-seeded inputs and counts its launch
 (K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
-bucket route's msm_accumulate and msm_reduce, and the chains' fr_scan and
-fr_pow), at BN254 and at BLS12-381 (Fr in 8 words, Fq in the kernels'
-12-word instantiation).
+bucket route's msm_accumulate and msm_reduce, the chains' fr_scan and
+fr_pow, and the small MSM's g1_ladder), at BN254 and at BLS12-381 (Fr in
+8 words, Fq in the kernels' 12-word instantiation).
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -71,6 +71,20 @@ def test_curve_and_stage_wrappers_reject_other_devices():
     m = torch.empty((8,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fr_butterfly(fc, x, x, x, m)
+
+
+def test_ladder_wrapper_rejects_other_devices():
+    """g1_ladder sends meta tensors, and a CPU scalar plane beside meta
+    points, to the kernel path, which raises."""
+    fc = fq_backend("bn254", "cpu").consts
+    p = torch.empty((3, 8, 4), dtype=torch.int32, device="meta")
+    s = torch.empty((2, 8, 4), dtype=torch.int32, device="meta")
+    for tree in (True, False):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_fr.g1_ladder(fc, p, s, tree)
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_fr.g1_ladder(fc, p, torch.zeros((1, 8, 1),
+                                                 dtype=torch.int32), tree)
 
 
 def test_scan_and_pow_wrappers_reject_other_devices():
@@ -419,6 +433,58 @@ def test_curve_kernels_match_plain_on_edge_batches(cuda, curve_type):
         assert torch.equal(cuda_fr.g1_add_mixed(fq, acc, qx, qy),
                            cuda_fr.g1_add_mixed_plain(fq, acc, qx, qy))
         assert LAUNCHES["g1_add_mixed"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_double_kernel_matches_plain_on_edge_batches(cuda, curve_type):
+    """K7 (dbl-2009-l on the carry-chain squaring) against its plain
+    version on the points of ``edge_batches``."""
+    from kzg_snark_tpu_torch.ops.benchpoints import (edge_batches,
+                                                     random_point_basis)
+
+    fq = fq_backend(curve_type, cuda).consts
+    pts, _ = random_point_basis(curve_type, 64, seed=18, device=cuda)
+    p, q = edge_batches(curve_type, pts)["add"]
+    batch = torch.cat([p, q], dim=-1).contiguous()
+    before = LAUNCHES["g1_double"]
+    assert torch.equal(cuda_fr.g1_double(fq, batch),
+                       cuda_fr.g1_double_plain(fq, batch))
+    assert LAUNCHES["g1_double"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_ladder_kernel_matches_plain(cuda, curve_type):
+    """g1_ladder against g1_ladder_plain, exact words, at n = 1, 7, 256
+    with k = 3 and 1 sets of ``edge_scalar_sets``; one scalar of column
+    period 1 summed and per point; scale_const by r - 1."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.benchpoints import (edge_scalar_sets,
+                                                     random_point_basis)
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
+
+    fq = fq_backend(curve_type, cuda).consts
+    for n in (1, 7, 256):
+        pts, ks = random_point_basis(curve_type, n, seed=40 + n, device=cuda)
+        sc = torch.stack([to_tensor(ints_to_words(s), cuda)
+                          for s in edge_scalar_sets(curve_type, ks, n)])
+        before = LAUNCHES["g1_ladder"]
+        got = cuda_fr.g1_ladder(fq, pts, sc)
+        assert LAUNCHES["g1_ladder"] == before + 1
+        assert torch.equal(got, cuda_fr.g1_ladder_plain(fq, pts, sc)), n
+        assert torch.equal(cuda_fr.g1_ladder(fq, pts, sc[:1].contiguous()),
+                           got[..., :1])
+    one = sc[:1, :, :1].contiguous()
+    for tree in (True, False):
+        assert torch.equal(cuda_fr.g1_ladder(fq, pts, one, tree),
+                           cuda_fr.g1_ladder_plain(fq, pts, one, tree))
+    r = C.BN254_R if curve_type == "bn254" else C.BLS12_381_R
+    few = pts[..., :16].contiguous()
+    rm1 = to_tensor(ints_to_words([r - 1]), cuda)[None]
+    assert torch.equal(curve_ops(curve_type, cuda).scale_const(few, r - 1),
+                       cuda_fr.g1_ladder_plain(fq, few, rm1, False)[:, :, 0])
 
 
 @pytest.mark.cuda

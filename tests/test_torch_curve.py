@@ -9,6 +9,9 @@ also held to the JAX Pallas wrappers with interpret mode set, as
 ``tests/test_pallas.py`` runs them (at 128 points the wrappers serve the
 call from the XLA formulas), and K9's to ``RegCurve.add_mixed``, the body of
 ``_add_mixed_call``.  The g++ build of K9's thread body must agree too.
+``scale`` and ``scale_const`` (one ``g1_ladder`` launch on the card, its
+plain version here) give the Jacobian words of the JAX ``CurveOps.scale``
+under ``jax.jit`` (one compile, 64 bits).
 """
 
 import jax.numpy as jnp
@@ -226,3 +229,54 @@ def test_double_plain_matches_pallas_fused_double(curves):
     got = cuda_fr.g1_double_plain(tc.f.consts,
                                   points16_to_tensor(P, device="cpu"))
     assert same(want, got)
+
+
+SCALE_BITS = 64
+
+
+@pytest.fixture(scope="module")
+def scale_case(curves):
+    """16 points (the identity, Z = 1 multiples of G, their doubles with
+    Z != 1) for both packages, and the JAX ``scale`` under one
+    ``jax.jit`` of a (64,) bit array."""
+    import jax
+
+    jc, tc = curves
+    Fp = base_field("bn254")
+    G = (Fp(1), Fp(2), Fp(1))
+    ks = [int(k) for k in np.random.default_rng(9).integers(2, 1 << 40, 8)]
+    aff = [hc.normalize(hc.multiply(G, k)) for k in ks]
+    xs, ys = [int(a[0]) for a in aff], [int(a[1]) for a in aff]
+    jp, tp = jc.from_affine_ints(xs, ys), tc.from_affine_ints(xs, ys)
+    jp = jnp.concatenate([jp, jc.double_xla(jp)], axis=-1)
+    tp = torch.cat([tp, tc.double(tp)], dim=-1)
+    jp = jp.at[:, :, 0].set(jc.identity()[:, :, 0])
+    tp[:, :, 0] = tc.identity()[:, :, 0]
+    assert same(jp, tp)
+    return jp, tp, jax.jit(jc.scale)
+
+
+def _bits(k):
+    return np.array([(k >> i) & 1 for i in range(SCALE_BITS)], np.uint32)
+
+
+def test_scale_matches_jax(curves, scale_case):
+    _, tc = curves
+    jp, tp, jax_scale = scale_case
+    k = int(np.random.default_rng(10).integers(1, 1 << 63)) | (1 << 63)
+    bits = _bits(k)
+    assert same(jax_scale(jp, jnp.asarray(bits)), tc.scale(tp, bits))
+
+
+@pytest.mark.parametrize("k", [0, 1, 5])
+def test_scale_const_matches_jax(curves, scale_case, k):
+    """``scale_const(pts, k)`` against the JAX ``scale`` of k's bits padded
+    to 64 (rows past the top bit leave acc as it is); at k = 0 also the JAX
+    ``scale_const``, the identity."""
+    jc, tc = curves
+    jp, tp, jax_scale = scale_case
+    got = tc.scale_const(tp, k)
+    assert same(jax_scale(jp, jnp.asarray(_bits(k))), got)
+    assert torch.equal(got, tc.scale(tp, _bits(k)[:max(k.bit_length(), 1)]))
+    if k == 0:
+        assert same(jc.scale_const(jp, 0), got)

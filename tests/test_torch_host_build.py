@@ -20,6 +20,7 @@ from kzg_snark_tpu import constants as C
 from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.benchpoints import (adversarial_values,
                                                   edge_batches,
+                                                  edge_scalar_sets,
                                                   random_point_basis)
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops.limbs import (FieldConsts, ints_to_words,
@@ -283,6 +284,71 @@ def test_g1_add_and_mixed_edge_batches(lib, curve_type):
                               m, fc.ptr)
         want = cuda_fr.g1_add_mixed_plain(fc, acc, qx, qy)
         assert np.array_equal(out, _words(want)), qn
+
+
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_g1_double_edge_batches(lib, curve_type):
+    """K7 as its kernel runs it (dbl-2009-l on the PROD_CHAIN squaring and
+    product, under g++) against its plain version on the points of
+    ``edge_batches``: identities, Jacobian representatives with
+    adversarial Z, and adversarial triples."""
+    fc = fq_backend(curve_type, "cpu").consts
+    pts, _ = random_point_basis(curve_type, 8, seed=19, device="cpu")
+    p, q = edge_batches(curve_type, pts)["add"]
+    batch = torch.cat([p, q], dim=-1).contiguous()
+    m = batch.shape[-1]
+    bw = _words(batch)
+    out = np.empty_like(bw)
+    lib.host_g1_double(_ptr(bw), _ptr(out), m, fc.ptr)
+    assert np.array_equal(out, _words(cuda_fr.g1_double_plain(fc, batch)))
+
+
+def _ladder_sets(curve_type, n):
+    """n points of ``random_point_basis`` and the three scalar sets (3, 8,
+    n) of ``edge_scalar_sets``."""
+    pts, ks = random_point_basis(curve_type, n, seed=23 + n, device="cpu")
+    sc = torch.stack([to_tensor(ints_to_words(s), "cpu")
+                      for s in edge_scalar_sets(curve_type, ks, n)])
+    return pts, sc
+
+
+def _host_ladder(lib, fc, pts, sc, tree):
+    k, S, sp = sc.shape
+    n = pts.shape[-1]
+    pw, sw = _words(pts), _words(sc)
+    out = np.empty((3, fc.num_limbs, k if tree else k * n), dtype=np.uint32)
+    assert lib.host_g1_ladder(_ptr(pw), _ptr(sw), S, sp, _ptr(out), n, k,
+                              int(tree), fc.ptr) == 0
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 7, 16])
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_g1_ladder(lib, curve_type, n):
+    """The ladder kernel's body and halving tree (PROD_CHAIN, under g++)
+    against ``g1_ladder_plain`` (the JAX row loop, then
+    ``CurveOps.tree_sum``), exact words: k = 1 and 3 sets
+    (``edge_scalar_sets``: random; 0, 1, r - 1 and a duplicate; a set
+    summing to the identity), one scalar of column period 1 for every
+    point, and the per-point form."""
+    fc = fq_backend(curve_type, "cpu").consts
+    pts, sc = _ladder_sets(curve_type, n)
+    want = cuda_fr.g1_ladder_plain(fc, pts, sc, tree=False)
+    out = _host_ladder(lib, fc, pts, sc, tree=False)
+    assert np.array_equal(out, _words(want.reshape(3, fc.num_limbs, -1)))
+    want = cuda_fr.g1_ladder_plain(fc, pts, sc)
+    for k in (1, 3):           # the sets are independent: set 0 alone
+        assert np.array_equal(_host_ladder(lib, fc, pts, sc[:k], True),
+                              _words(want[..., :k]))
+    if n >= 2:
+        from kzg_snark_tpu_torch.ops.g1 import curve_ops
+        curve = curve_ops(curve_type, "cpu")
+        assert curve.to_affine_ints(want)[2] is None
+    period1 = sc[:1, :, -1:].contiguous()
+    for tree in (True, False):
+        want = cuda_fr.g1_ladder_plain(fc, pts, period1, tree)
+        assert np.array_equal(_host_ladder(lib, fc, pts, period1, tree),
+                              _words(want.reshape(3, fc.num_limbs, -1)))
 
 
 # (log2 n as a function of the library's tile bits T, tile bits or None

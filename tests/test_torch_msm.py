@@ -6,9 +6,11 @@ sum d_w 2^(cw) = s at every window width the bucket route uses.  The MSM
 (plain versions of the kernels on the CPU) must equal the host sum over
 ``random_point_basis`` (P_i = k_i G, so the oracle is (sum s_i k_i) G),
 with scalars 0, 1, r - 1 and duplicates, on each route the JAX
-``MsmContext`` would take: bit-serial (n <= 256: 64, 200), scan Pippenger
-on K9 (300, 1024) and the sorted-bucket route (2048, 4096); all-zero
-scalars give the identity on every route.  The bucket route is also held
+``MsmContext`` would take: bit-serial (n <= 256: 1, 7, 64, 200; one
+``g1_ladder`` call, the words of the row loop on ``CurveOps``), scan
+Pippenger on K9 (300, 1024) and the sorted-bucket route (2048, 4096);
+all-zero scalars give the identity on every route, and no route calls
+``CurveOps.double``.  The bucket route is also held
 to the oracle on skewed scalar sets (all zero, all equal, one nonzero,
 half zeros), batched sets and both ``complete`` settings, and never calls
 ``CurveOps.add`` or ``CurveOps.double``.  A structured basis [(i+1) G]
@@ -119,10 +121,18 @@ def test_msm_matches_host_oracle(n):
     assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
 
 
+def refuse(*args, **kwargs):
+    raise AssertionError("the MSM called a CurveOps method it must not")
+
+
 @pytest.mark.parametrize("n, route", [(200, "small"), (300, "scan"),
                                       (2048, "bucket")])
-def test_msm_routes_match_host_oracle(n, route):
+def test_msm_routes_match_host_oracle(monkeypatch, n, route):
+    """Every route equals the host oracle and calls ``CurveOps.double``
+    zero times (the small route's ladder is one ``g1_ladder`` launch, the
+    scan route's Horner fold the bucket route's Horner launch)."""
     assert MsmContext.route(n) == route
+    monkeypatch.setattr(CurveOps, "double", refuse)
     pts, ks = basis(n)
     ctx = msm_context("bn254", "cpu")
     s = scalars(n, n + 2)
@@ -130,6 +140,46 @@ def test_msm_routes_match_host_oracle(n, route):
     assert got == [host_point(sum(a * b for a, b in zip(s, ks)))]
     zero = ctx.msm(pts, ctx.scalars_to_limbs([0] * n))
     assert ctx.curve.to_affine_ints(zero) == [None]
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_small_route_calls_no_curve_add_or_double(monkeypatch, n):
+    """The small route is one ``g1_ladder`` call: no ``CurveOps.add`` (the
+    halving tree runs in the ladder) and no ``CurveOps.double``; k = 2
+    sets against the host oracle."""
+    assert MsmContext.route(n) == "small"
+    pts, ks = random_point_basis("bn254", n, seed=31, device="cpu")
+    ctx = msm_context("bn254", "cpu")
+    sets = [scalars(max(n, 6), 40 + n)[:n], [0] * n]
+    lim = torch.stack([ctx.scalars_to_limbs(s) for s in sets])
+    monkeypatch.setattr(CurveOps, "add", refuse)
+    monkeypatch.setattr(CurveOps, "double", refuse)
+    out = ctx.msm(pts, lim)
+    monkeypatch.undo()
+    assert ctx.curve.to_affine_ints(out) == [
+        host_point(sum(a * b for a, b in zip(s, ks))) for s in sets]
+
+
+def test_small_route_matches_row_loop():
+    """The small route's Jacobian words equal the bit-serial row loop's:
+    all 256 bit rows of one K6 add of width k n and one K7 doubling on
+    ``CurveOps``, then ``CurveOps.tree_sum`` (the JAX ``_small_msm_core``,
+    which the ladder cuts at the highest set bit)."""
+    n = 5
+    pts, _ = random_point_basis("bn254", n, seed=32, device="cpu")
+    ctx = msm_context("bn254", "cpu")
+    curve = ctx.curve
+    sets = [scalars(6, 41)[:n], [3, 0, 1, R - 1, 2]]
+    lim = torch.stack([ctx.scalars_to_limbs(s) for s in sets])
+    words = lim.to(torch.int64) & 0xFFFFFFFF
+    acc = curve.identity((2, n)).contiguous()
+    base = pts[:, :, None, :]
+    for b in range(256):
+        bit = (words[:, b // 32] >> (b % 32)) & 1
+        taken = curve.add(acc, base)
+        acc = torch.where((bit == 1)[None, None], taken, acc)
+        base = curve.double(base)
+    assert torch.equal(ctx.msm(pts, lim), curve.tree_sum(acc)[..., 0])
 
 
 def test_msm_many_matches_single():
@@ -208,9 +258,6 @@ def test_bucket_route_duplicate_points_complete():
 
 
 def test_bucket_route_calls_no_curve_add_or_double(monkeypatch):
-    def refuse(*args, **kwargs):
-        raise AssertionError("the bucket route called CurveOps")
-
     pts, ks = basis(2048)
     ctx = msm_context("bn254", "cpu")
     s = [(i % 5) * 1000003 for i in range(2048)]
