@@ -41,6 +41,20 @@ Phases, in order, one printed line or block each:
                  other than one g1_fixed_base_table launch, and unless
                  ntt_pass makes ceil(log2 n / t) launches a transform, at
                  most 2)
+  checked        PLONK at n = 2^16 indexed and proved twice by a fresh
+                 prover under KZG_TPU_CHECKED=1 (every field and curve op
+                 and PLONK round validated on the card): byte-identical to
+                 the main path's, seconds beside the unchecked ones; a
+                 planted non-canonical fr_mul output (p added to one
+                 column) and g1_add output (one coordinate set to p) trap
+                 with the op's name and column
+  config         KZG_TPU_NTT_MODE=scan with no mode argument: a 2^16 NTT
+                 and iNTT launch fr_butterfly and no ntt_pass (the
+                 config_scan path) and equal staged; "unrolled" raises
+  serial         the n = 2^16 SRS (a DeviceSRS), the PLONK index keys and
+                 a proof saved and loaded (utils/serialization): a prove
+                 from the loaded keys byte-identical, the loaded proof
+                 verified on the host; seconds and bytes
   marlin_parity  Marlin at |H| = 2^6: the device proof byte-identical to the
                  port's host Marlin prover's; the scan MSM (K9) and the
                  ladder ran, K7 alone did not
@@ -61,6 +75,14 @@ Phases, in order, one printed line or block each:
                  ladder ran, K7 alone did not);
                  PLONK n = 2^16 (bls_main) as the main phase, with its
                  guards, and the BLS phases' time
+  bls_marlin     Marlin on BLS12-381: |H| = 2^6 as marlin_parity
+                 (bls_marlin_parity: the ladder and K9 at 12 words), then
+                 |H| = 2^14 as the marlin phase
+                 (bls_marlin: the bucket MSM and the SRS table at 12
+                 words), with launches by width and limb count
+  entry          python -m kzg_snark_tpu_torch --synthetic 6 --seed 7
+                 --timing on the card, then with KZG_TPU_CHECKED=1: exit
+                 0, three PASS lines and the timing report
 
 The build phase also prints each kernel instantiation's registers, stack
 and spills (-Xptxas -v); for the curve kernels (K6, K7, K9 and the
@@ -73,10 +95,11 @@ once against the plain product; and the PROD_CHAIN product's and
 squaring's latency on a lone warp (the ladder's floor).  The
 kernels and bls phases also hold K6, K7 and K9 to their plain versions
 on edge batches (benchpoints.edge_batches: identities, P = Q, P = -Q,
-coordinates near p).  Each path (ntt scan, msm_one, main,
-marlin_parity, marlin and the bls paths) runs with the launch counts set
-to 0 just before it and read just after; a kernel's "launches" in the
-kernels JSON line are those of the path it is listed under, and its
+coordinates near p).  Each path (ntt scan, msm_one, main, config_scan,
+marlin_parity, marlin, the bls paths, bls_marlin_parity and bls_marlin)
+runs with the launch counts set to 0 just before it and read just after;
+a kernel's "launches" in the kernels JSON line are those of the path it
+is listed under, and its
 "bls12_381" entry gives its launches on its BLS12-381 path (also by limb
 count) and its rows at BLS12-381; a kernel of OFF_PATH must launch no
 time on either.  The second-to-last lines are the kernels JSON and the
@@ -99,6 +122,7 @@ change, change, parent), to compare two trees.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
 import os
@@ -162,6 +186,7 @@ LADDER_SIZES = (1, 7, 256)  # points of the ladder checks (256: the small
                             # MSM's most)
 LATENCY_REPS = 1024         # dependent products of the lone-warp latency
 MARLIN_TAU = 0xFEED5EED
+ENTRY_ARGS = ["--synthetic", "6", "--seed", "7", "--timing"]
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 L2_BYTES = 50 * 2 ** 20         # H100 L2 cache
@@ -1601,7 +1626,7 @@ def phase_parity(dev, curve="bn254", tag="parity", run=None):
 def phase_main(torch, dev, paths, curve="bn254", name="main"):
     """PLONK on ``curve`` at n = 2^16 as the path ``name``: index, two
     proves, host verification and tamper rejection, and the launch
-    guards."""
+    guards.  Returns the keys, both proofs and their seconds."""
     from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
     from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
     from kzg_snark_tpu_torch.ops.host.field import scalar_field
@@ -1620,12 +1645,13 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
                                  max_degree=n + 5, tau=TAU)
         torch.cuda.synchronize()
         times["index"] = time.perf_counter() - t0
-        times["prove"] = []
+        times["prove"], times["proofs"] = [], []
         for _ in range(2):
             t0 = time.perf_counter()
             proof = prover.prove(keys[0], [], w)
             torch.cuda.synchronize()
             times["prove"].append(time.perf_counter() - t0)
+            times["proofs"].append(proof)
         return keys, proof
 
     (ipk, ivk), proof = run_path(torch, paths, name, run)
@@ -1639,8 +1665,9 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
     if not ok:
         raise AssertionError(f"host Verifier rejected the {curve} n=2^16 "
                              "proof")
-    proof["evaluations"]["a"] = proof["evaluations"]["a"] + 1
-    if Verifier(curve, rng=Rng(79)).verify(ivk, [], proof):
+    tampered = {**proof, "evaluations": {
+        **proof["evaluations"], "a": proof["evaluations"]["a"] + 1}}
+    if Verifier(curve, rng=Rng(79)).verify(ivk, [], tampered):
         raise AssertionError("host Verifier accepted a tampered proof")
     log(f"[{name}] PLONK {curve} n=2^16: index {times['index']:.3f} s, "
         f"prove {times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, "
@@ -1670,6 +1697,9 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
         raise AssertionError(f"the {curve} PLONK path launched fr_mul "
                              f"{counts.get('fr_mul', 0)} times (limit 2000) "
                              f"and fr_scan + fr_pow {chains} (limit 600)")
+    return {"keys": (ipk, ivk), "proofs": times["proofs"],
+            "index_s": times["index"], "prove_s": times["prove"],
+            "circuit": (qM, qZ, qO, perm, w)}
 
 
 def check_ladder_path(name: str, counts: dict) -> None:
@@ -1682,56 +1712,77 @@ def check_ladder_path(name: str, counts: dict) -> None:
                              f"{counts.get('g1_ladder', 0)} (at least 1)")
 
 
-def marlin_parity_device(dev):
-    """The device part of the Marlin parity run at |H| = 2^6: (index keys,
-    proof)."""
+def marlin_parity_device(dev, curve="bn254"):
+    """The device part of the Marlin parity run at |H| = 2^6 on ``curve``:
+    (index keys, proof)."""
     from kzg_snark_tpu_torch.models.marlin.device import DeviceProver
     from kzg_snark_tpu_torch.rng import Rng
     from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
 
     n = 1 << MARLIN_PARITY_LOG_H
-    A, B, C, z = synthetic_r1cs(n)
-    keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
+    A, B, C, z = synthetic_r1cs(n, curve_type=curve)
+    keys = DeviceProver(curve, rng=Rng(900), device=dev).preprocess(
         A, B, C, 6 * 2 * n, tau=MARLIN_TAU)
-    return keys, DeviceProver("bn254", rng=Rng(901), device=dev).prove(
+    return keys, DeviceProver(curve, rng=Rng(901), device=dev).prove(
         keys[0], z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:])
 
 
-def phase_marlin_parity(torch, dev, paths):
+def marlin_parity_host(curve: str) -> dict:
+    """The host side of the Marlin parity run at |H| = 2^6 on ``curve``:
+    the port's host Marlin indexer and prover with normalized commitments,
+    their index commitments and proof as ints (``to_plain``), and its
+    seconds."""
     from kzg_snark_tpu_torch.models.marlin.indexer import Indexer
     from kzg_snark_tpu_torch.models.marlin.prover import Prover
     from kzg_snark_tpu_torch.rng import Rng
+    from kzg_snark_tpu_torch.utils.convert import to_plain
     from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
 
-    n = 1 << MARLIN_PARITY_LOG_H
-    A, B, C, z = synthetic_r1cs(n)
-    x, w = z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:]
-    max_degree = 6 * 2 * n
-    (ipk_d, ivk_d), proof_d = run_path(torch, paths, "marlin_parity",
-                                       lambda: marlin_parity_device(dev))
     t0 = time.perf_counter()
-    idx = Indexer("bn254", backend="host", rng=Rng(900))
+    n = 1 << MARLIN_PARITY_LOG_H
+    A, B, C, z = synthetic_r1cs(n, curve_type=curve)
+    idx = Indexer(curve, backend="host", rng=Rng(900))
     idx.kzg.normalize_commitments = True
-    ipk_h, ivk_h = idx.preprocess(A, B, C, max_degree, tau=MARLIN_TAU)
-    prover = Prover("bn254", backend="host", rng=Rng(901))
+    ipk, ivk = idx.preprocess(A, B, C, 6 * 2 * n, tau=MARLIN_TAU)
+    prover = Prover(curve, backend="host", rng=Rng(901))
     prover.kzg.normalize_commitments = True
-    proof_h = prover.prove(ipk_h, x, w)
-    host_s = time.perf_counter() - t0
-    if ivk_d["commitments"] != ivk_h["commitments"]:
-        raise AssertionError("Marlin |H|=2^6 index commitments differ")
+    proof = prover.prove(ipk, z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:])
+    return {"commitments": to_plain(ivk["commitments"]),
+            "proof": to_plain(proof), "seconds": time.perf_counter() - t0}
+
+
+def phase_marlin_parity(torch, dev, paths, curve="bn254",
+                        name="marlin_parity"):
+    """Marlin at |H| = 2^6 on ``curve`` as the path ``name``: the device
+    index and proof byte-identical to the port's host Marlin prover's
+    (``marlin_parity_host``); the scan MSM (K9) and the ladder ran, K7
+    alone did not."""
+    from kzg_snark_tpu_torch.utils.convert import to_plain
+
+    (_, ivk_d), proof_d = run_path(torch, paths, name,
+                                   lambda: marlin_parity_device(dev, curve))
+    ref = marlin_parity_host(curve)
+    if to_plain(ivk_d["commitments"]) != ref["commitments"]:
+        raise AssertionError(f"Marlin {curve} |H|=2^6 index commitments "
+                             "differ")
     for part in ("commitments", "evaluations", "kzg_proofs"):
-        if proof_d[part] != proof_h[part]:
-            raise AssertionError(f"Marlin |H|=2^6 proof {part} differ")
-    counts = paths["marlin_parity"]
+        if to_plain(proof_d[part]) != ref["proof"][part]:
+            raise AssertionError(f"Marlin {curve} |H|=2^6 proof {part} "
+                                 "differ")
+    counts = paths[name]
     if counts.get("g1_add_mixed", 0) == 0:
-        raise AssertionError("the Marlin parity run took no scan MSM (K9)")
-    check_ladder_path("marlin_parity", counts)
-    log(f"[marlin_parity] |H|=2^6: index and proof byte-identical to the "
-        f"host Marlin prover (host side {host_s:.1f} s); launches "
-        f"{json.dumps(counts, sort_keys=True)}")
+        raise AssertionError(f"the {name} run took no scan MSM (K9)")
+    check_ladder_path(name, counts)
+    log(f"[{name}] {curve} |H|=2^{MARLIN_PARITY_LOG_H}: index and proof "
+        f"byte-identical to the host Marlin prover (host side "
+        f"{ref['seconds']:.1f} s); "
+        f"launches {json.dumps(counts, sort_keys=True)}")
 
 
-def phase_marlin(torch, dev, paths):
+def phase_marlin(torch, dev, paths, curve="bn254", name="marlin"):
+    """Marlin on ``curve`` at |H| = 2^14 as the path ``name``: index, two
+    proves, host verification and tamper rejection; returns a steady
+    prove for the profile."""
     from kzg_snark_tpu_torch.models.marlin.device import DeviceProver
     from kzg_snark_tpu_torch.models.marlin.verifier import Verifier
     from kzg_snark_tpu_torch.rng import Rng
@@ -1739,7 +1790,7 @@ def phase_marlin(torch, dev, paths):
 
     n = 1 << MARLIN_LOG_H
     t0 = time.perf_counter()
-    A, B, C, z = synthetic_r1cs(n)
+    A, B, C, z = synthetic_r1cs(n, curve_type=curve)
     circuit_s = time.perf_counter() - t0
     x, w = z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:]
     m = len(A.nonzero_positions())
@@ -1749,11 +1800,11 @@ def phase_marlin(torch, dev, paths):
 
     def run():
         t0 = time.perf_counter()
-        keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
+        keys = DeviceProver(curve, rng=Rng(900), device=dev).preprocess(
             A, B, C, max_degree, tau=MARLIN_TAU)
         torch.cuda.synchronize()
         times["index"] = time.perf_counter() - t0
-        prover = DeviceProver("bn254", rng=Rng(901), collect_timings=True,
+        prover = DeviceProver(curve, rng=Rng(901), collect_timings=True,
                               device=dev)
         times["prover"] = prover
         times["prove"] = []
@@ -1764,35 +1815,39 @@ def phase_marlin(torch, dev, paths):
             times["prove"].append(time.perf_counter() - t0)
         return keys, proof
 
-    (ipk, ivk), proof = run_path(torch, paths, "marlin", run)
-    counts = paths["marlin"]
+    (ipk, ivk), proof = run_path(torch, paths, name, run)
+    counts = paths[name]
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    ok = Verifier("bn254", rng=Rng(902)).verify(ivk, x, proof)
+    ok = Verifier(curve, rng=Rng(902)).verify(ivk, x, proof)
     verify_s = time.perf_counter() - t0
     if not ok:
-        raise AssertionError("host Marlin Verifier rejected the proof")
+        raise AssertionError(f"host Marlin Verifier rejected the {curve} "
+                             "proof")
     tampered = dict(proof)
     tampered["evaluations"] = dict(proof["evaluations"])
     beta1 = list(proof["evaluations"]["beta1"])
     beta1[0] = beta1[0] + 1
     tampered["evaluations"]["beta1"] = beta1
-    if Verifier("bn254", rng=Rng(903)).verify(ivk, x, tampered):
+    if Verifier(curve, rng=Rng(903)).verify(ivk, x, tampered):
         raise AssertionError("host Marlin Verifier accepted a tampered proof")
-    check_ntt_passes("marlin", counts)
-    log(f"[marlin] |H|=2^14, nnz(A)=m={m}, max_degree={max_degree}: circuit "
-        f"{circuit_s:.3f} s, index {times['index']:.3f} s, prove "
+    check_ntt_passes(name, counts)
+    log(f"[{name}] {curve} |H|=2^{MARLIN_LOG_H}, nnz(A)=m={m}, "
+        f"max_degree={max_degree}: "
+        f"circuit {circuit_s:.3f} s, index {times['index']:.3f} s, prove "
         f"{times['prove'][0]:.3f} s then {times['prove'][1]:.3f} s, host "
         f"verify {verify_s:.3f} s: accepted, tampered rejected")
     phases = {k: round(v * 1e3, 3)
               for k, v in times["prover"].timings.items()}
-    log(f"[marlin] phases of the second prove (ms): {json.dumps(phases)}; "
+    log(f"[{name}] phases of the second prove (ms): {json.dumps(phases)}; "
         f"sum {sum(phases.values()):.3f} ms")
-    log(f"[marlin] peak device memory {peak} bytes "
+    log(f"[{name}] peak device memory {peak} bytes "
         f"({peak / 2 ** 30:.3f} GiB)")
-    log(f"[marlin] launches: {json.dumps(counts, sort_keys=True)}")
-    log(f"[marlin] launches by width (elements or points): "
-        f"{json.dumps(PATH_WIDTHS['marlin'], sort_keys=True)}")
+    log(f"[{name}] launches: {json.dumps(counts, sort_keys=True)}")
+    log(f"[{name}] launches by width (elements or points): "
+        f"{json.dumps(PATH_WIDTHS[name], sort_keys=True)}")
+    log(f"[{name}] launches by limb count: "
+        f"{json.dumps(PATH_LIMBS[name], sort_keys=True)}")
     return lambda: times["prover"].prove(ipk, x, w)
 
 
@@ -1812,6 +1867,289 @@ def profile_run(torch, label, fn):
         f"busy {busy:.3f} ms over {len(spans)} device activities, idle "
         f"share {1 - busy / wall_ms:.4f}; device ms by kernel: "
         + "; ".join(f"{name[:48]} {ms:.3f} ({n})" for ms, n, name in top))
+
+
+# ---------------------------------------------------------------------------
+# The single-device surface: checked mode, the config's NTT mode,
+# serialization, Marlin on BLS12-381 and the entry point.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def env_set(**values):
+    """The environment variables ``values`` for the block, the old values
+    restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_checked(torch, dev, main):
+    """PLONK n = 2^16 (BN254) indexed and proved twice by a fresh prover
+    under KZG_TPU_CHECKED=1 with the main path's seeds: the index and both
+    proofs byte-identical to the main path's, their seconds beside the
+    unchecked ones; then planted faults (``plant_faults``) must trap."""
+    from kzg_snark_tpu_torch.models.plonk.device import (DeviceProver,
+                                                         PlonkDeviceCore)
+    from kzg_snark_tpu_torch.ops.fr import CheckedFieldBackend
+    from kzg_snark_tpu_torch.rng import Rng
+
+    n = 1 << MAIN_LOG_N
+    qM, qZ, qO, perm, w = main["circuit"]
+    t_phase = time.perf_counter()
+    with env_set(KZG_TPU_CHECKED="1"):
+        prover = DeviceProver("bn254", rng=Rng(77), collect_timings=True,
+                              device=dev)
+        t0 = time.perf_counter()
+        ipk, ivk = prover.preprocess(qM, qZ, qZ, qO, qZ, perm,
+                                     max_degree=n + 5, tau=TAU)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        prove_s, proofs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proofs.append(prover.prove(ipk, [], w))
+            torch.cuda.synchronize()
+            prove_s.append(time.perf_counter() - t0)
+        if not isinstance(PlonkDeviceCore("bn254", n, dev).be,
+                          CheckedFieldBackend):
+            raise AssertionError("KZG_TPU_CHECKED=1 gave an unchecked core")
+    if ivk["commitments"] != main["keys"][1]["commitments"]:
+        raise AssertionError("the checked index differs from the unchecked")
+    for i, (got, want) in enumerate(zip(proofs, main["proofs"])):
+        if got != want:
+            raise AssertionError(f"checked prove {i + 1} differs from the "
+                                 "unchecked one")
+    phases = {k: round(v * 1e3, 3) for k, v in prover.timings.items()}
+    log(f"[checked] PLONK bn254 n=2^{MAIN_LOG_N} under KZG_TPU_CHECKED=1: "
+        f"index and "
+        f"both proofs byte-identical to the main path's; index "
+        f"{index_s:.3f} s (unchecked {main['index_s']:.3f}), prove "
+        f"{prove_s[0]:.3f} then {prove_s[1]:.3f} s (unchecked "
+        f"{main['prove_s'][0]:.3f} then {main['prove_s'][1]:.3f}): the "
+        f"steady prove {prove_s[1] / main['prove_s'][1]:.3f}x")
+    log(f"[checked] phases of the second checked prove (ms): "
+        f"{json.dumps(phases)}")
+    plant_faults(torch, dev)
+    log(f"[checked] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def plant_faults(torch, dev):
+    """Under KZG_TPU_CHECKED=1 on the card: an fr_mul whose output has p
+    added to one column must trap at "mul", a g1_add whose output holds p
+    in one coordinate of one point at "g1.add", each at that column; the
+    clean op passes first."""
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.fr import fr_backend
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    from kzg_snark_tpu_torch.ops.limbs import (ints_to_words, to_tensor,
+                                               to_words, words_to_ints)
+
+    col, point, m = 4097, 5, 1 << 10
+
+    def words_of(fc, value):
+        return to_tensor(ints_to_words([value], fc.num_limbs), dev)[:, 0]
+
+    def mul_plus_p(kernel):
+        def planted(fc, a, b):
+            out = kernel(fc, a, b)
+            v = words_to_ints(to_words(out[:, col:col + 1]))[0]
+            out[:, col] = words_of(fc, v + fc.modulus)
+            return out
+        return planted
+
+    def add_with_p(kernel):
+        def planted(fc, p, q):
+            out = kernel(fc, p, q)
+            out[1, :, point] = words_of(fc, fc.modulus)
+            return out
+        return planted
+
+    with env_set(KZG_TPU_CHECKED="1"):
+        be = fr_backend("bn254", dev)
+        a = be.to_mont(random_canonical(torch, 1 << 16, 71, dev))
+        b = be.to_mont(random_canonical(torch, 1 << 16, 72, dev))
+        curve = curve_ops("bn254", dev)
+        pts, _ = random_point_basis("bn254", m, seed=73, device=dev)
+        cases = (("fr_mul", mul_plus_p, lambda: be.mul(a, b), "mul", col),
+                 ("g1_add", add_with_p,
+                  lambda: curve.add(pts, pts.flip(-1)), "g1.add",
+                  m + point))
+        for name, fault, call, op, column in cases:
+            call()
+            kernel = getattr(cuda_fr, name)
+            setattr(cuda_fr, name, fault(kernel))
+            try:
+                call()
+            except AssertionError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"checked mode passed a planted "
+                                     f"non-canonical {name} output")
+            finally:
+                setattr(cuda_fr, name, kernel)
+            if not msg.startswith(f"{op}: non-canonical output") or \
+                    not msg.endswith(f"at column {column}"):
+                raise AssertionError(f"the planted {name} fault trapped "
+                                     f"as {msg!r}")
+            log(f"[checked] planted {name} fault trapped: {msg[:40]}... "
+                f"{msg[-20:]}")
+
+
+def phase_config(torch, dev, paths):
+    """KZG_TPU_NTT_MODE read at call time: with "scan" and no mode
+    argument a 2^16 transform and its inverse launch fr_butterfly and no
+    ntt_pass (the config_scan path) and equal the staged ones; "unrolled"
+    (XLA only) raises."""
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+
+    t_phase = time.perf_counter()
+    n = 1 << MAIN_LOG_N
+    ctx = ntt_context("bn254", n, dev)
+    x = ctx.backend.to_mont(random_canonical(torch, n, 81, dev))
+    want = ctx.ntt(x, mode="staged")
+    with env_set(KZG_TPU_NTT_MODE="scan"):
+        got, back = run_path(torch, paths, "config_scan",
+                             lambda: (ctx.ntt(x), ctx.intt(want)))
+    counts = paths["config_scan"]
+    if counts.get("ntt_pass", 0) or not counts.get("fr_butterfly", 0):
+        raise AssertionError(f"KZG_TPU_NTT_MODE=scan launched {counts}")
+    if not torch.equal(got, want) or not torch.equal(back, x):
+        raise AssertionError("KZG_TPU_NTT_MODE=scan differs from staged")
+    with env_set(KZG_TPU_NTT_MODE="unrolled"):
+        try:
+            ctx.ntt(x)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("KZG_TPU_NTT_MODE=unrolled did not raise")
+    log(f"[config] KZG_TPU_NTT_MODE=scan, no mode argument: NTT and iNTT "
+        f"2^{MAIN_LOG_N} == staged, launches {json.dumps(counts)}; "
+        f"unrolled raises: {refused}; phase in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serial(torch, dev, main):
+    """Save and load the n = 2^16 SRS as a DeviceSRS, the PLONK index keys
+    and a proof: a prove from the loaded keys byte-identical to one from
+    the original keys, the loaded proof verified on the host; the seconds
+    and file sizes."""
+    import tempfile
+    from kzg_snark_tpu_torch.models.kzg import KZG
+    from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+    from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
+    from kzg_snark_tpu_torch.ops.srs import DeviceSRS
+    from kzg_snark_tpu_torch.rng import Rng
+    from kzg_snark_tpu_torch.utils import serialization as ser
+
+    t_phase = time.perf_counter()
+    ipk, ivk = main["keys"]
+    w = main["circuit"][-1]
+    kzg = KZG("bn254", backend="cuda", device=dev)
+    secs = {}
+
+    def timed_call(label, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        secs[label] = round(time.perf_counter() - t0, 3)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        srs, keys, proof_path = (os.path.join(tmp, f) for f in (
+            "srs.npz", "keys.npz", "proof.json"))
+        timed_call("save_srs", ser.save_srs, srs, kzg, ipk["ck"], ivk["rk"])
+        ck, _ = timed_call("load_srs", ser.load_srs, srs, kzg)
+        if not isinstance(ck, DeviceSRS) or \
+                not torch.equal(ck.points, ipk["ck"].points):
+            raise AssertionError("the loaded SRS differs from the saved one")
+        timed_call("save_index_keys", ser.save_index_keys, keys, kzg, ipk,
+                   ivk)
+        ipk2, ivk2 = timed_call("load_index_keys", ser.load_index_keys, keys,
+                                kzg)
+        proof = DeviceProver("bn254", rng=Rng(502), device=dev).prove(
+            ipk, [], w)
+        loaded_proof = DeviceProver("bn254", rng=Rng(502), device=dev).prove(
+            ipk2, [], w)
+        if loaded_proof != proof or ivk2["commitments"] != ivk["commitments"]:
+            raise AssertionError("a prove from the loaded keys differs from "
+                                 "one from the original keys")
+        timed_call("save_proof", ser.save_proof, proof_path, loaded_proof)
+        back = timed_call("load_proof", ser.load_proof, proof_path, kzg)
+        if back != proof or not Verifier("bn254", rng=Rng(503)).verify(
+                ivk2, [], back):
+            raise AssertionError("the loaded proof does not verify")
+        sizes = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))}
+    log(f"[serial] n=2^{MAIN_LOG_N} SRS (DeviceSRS), PLONK index keys and "
+        f"proof saved and loaded: a prove from the loaded keys byte-identical, the "
+        f"loaded proof verified; seconds {json.dumps(secs)}; bytes "
+        f"{json.dumps(sizes)}; phase in {time.perf_counter() - t_phase:.1f} "
+        f"s")
+
+
+def phase_bls_marlin(torch, dev, paths):
+    """Marlin on BLS12-381: at |H| = 2^6 (bls_marlin_parity, as the
+    marlin_parity phase) the commits on the ladder and the scan MSM at 12
+    words; at |H| = 2^14 (bls_marlin) index, two proves, host
+    verification, tamper rejection, the phase map and the launches, the
+    bucket MSM and the SRS table at 12 words."""
+    t_phase = time.perf_counter()
+    phase_marlin_parity(torch, dev, paths, "bls12_381", "bls_marlin_parity")
+    check_limbs("bls_marlin_parity", ("g1_ladder", "g1_add_mixed"))
+    log(f"[bls_marlin_parity] launches by limb count "
+        f"{json.dumps(PATH_LIMBS['bls_marlin_parity'], sort_keys=True)}")
+    phase_marlin(torch, dev, paths, "bls12_381", "bls_marlin")
+    check_limbs("bls_marlin", ("msm_accumulate", "msm_reduce",
+                               "g1_fixed_base_table"))
+    log(f"[bls_marlin] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_limbs(name: str, kernels) -> None:
+    """Each of ``kernels`` launched at 12 words (BLS12-381 Fq) on the path
+    ``name``."""
+    for kernel in kernels:
+        if not PATH_LIMBS[name].get(kernel, {}).get(12, 0):
+            raise AssertionError(f"the {name} path launched {kernel} at no "
+                                 f"12-word width: {PATH_LIMBS[name]}")
+
+
+def phase_entry():
+    """``python -m kzg_snark_tpu_torch --synthetic 6 --seed 7 --timing`` on
+    the card, then again with KZG_TPU_CHECKED=1: exit 0, three PASS lines
+    and the timing report."""
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "kzg_snark_tpu_torch", *ENTRY_ARGS]
+    for label, extra in (("unchecked", {}), ("checked",
+                                             {"KZG_TPU_CHECKED": "1"})):
+        env = dict(os.environ, **extra)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (here, os.environ.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        out = proc.stdout
+        if proc.returncode != 0 or out.count("verification: PASS") != 3 \
+                or "Timing report:" not in out:
+            raise AssertionError(f"the entry point ({label}) exited "
+                                 f"{proc.returncode}: {out[-2000:]} "
+                                 f"{proc.stderr[-2000:]}")
+        report = json.loads(out.split("Timing report:\n", 1)[1].rsplit(
+            "Demo complete!", 1)[0])
+        log(f"[entry] {label}: {' '.join(cmd[1:])}: exit 0, three PASS, "
+            f"{wall:.1f} s wall; demo seconds "
+            f"{json.dumps({k: v['total_s'] for k, v in report.items()})}")
+    log(f"[entry] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
 def tree_times(root: str) -> dict:
@@ -1926,12 +2264,18 @@ def main() -> int:
     phase_ntt(torch, dev, paths, rates)
     phase_msm(torch, dev, paths, rates)
     phase_parity(dev)
-    phase_main(torch, dev, paths)
+    main_run = phase_main(torch, dev, paths)
+    phase_checked(torch, dev, main_run)
+    phase_config(torch, dev, paths)
+    phase_serial(torch, dev, main_run)
+    del main_run
     phase_marlin_parity(torch, dev, paths)
     marlin_prove = phase_marlin(torch, dev, paths)
     profile_run(torch, "Marlin |H|=2^14 steady prove", marlin_prove)
     bls_rows: dict = {}
     phase_bls(torch, dev, paths, rates, bls_rows)
+    phase_bls_marlin(torch, dev, paths)
+    phase_entry()
 
     kernels = []
     for name, (src, rep, path) in KERNELS.items():

@@ -53,10 +53,18 @@ class DeviceProver:
         self.kzg = KZG(curve_type=curve_type, backend="cuda", rng=rng,
                        device=self.device)
         self.rng = self.kzg.rng
-        self.pd = PolyDev(curve_type, self.device)
-        self.be = self.pd.be
         self.collect_timings = collect_timings
         self.timings: dict[str, float] = {}
+
+    @property
+    def pd(self) -> PolyDev:
+        """The polynomial toolkit, looked up at call time (so checked
+        while KZG_TPU_CHECKED is on)."""
+        return PolyDev(self.kzg.curve_type, self.device)
+
+    @property
+    def be(self):
+        return self.pd.be
 
     def _phase(self, name: str, t0: float) -> float:
         """Close a phase when timings are on: wait for the device, so the

@@ -15,7 +15,11 @@ computation on the device:
 
 Given the same Rng seed and tau, the proof is byte-identical to the host
 prover's with ``normalize_commitments=True``.  The JAX version compiled each
-round with ``jax.jit``; here each round is a direct method call.
+round with ``jax.jit``; here each round is a direct method call.  Under
+``KZG_TPU_CHECKED`` (the core is cached by the flag) the rounds compute
+over the checked backend and each round method's output is validated
+under ``"plonk.<name>"``, the counterpart of the JAX ``jit_method``
+wrapper; the values, and so the proof, are those of an unchecked run.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import time
 
 import torch
 
-from ...ops.fr import canonical_device, fr_backend
+from ...ops.fr import (CheckedFieldBackend, canonical_device,
+                       checked_enabled, fr_backend, validate_tree_canonical)
 from ...ops.host.field import scalar_field
 from ...ops.msm import FUSED_THRESHOLD, affine_to_host, msm_context
 from ...ops.ntt import ntt_context
@@ -32,6 +37,17 @@ from ...ops.srs import DeviceSRS
 from ...rng import Rng
 from ...transcript import Transcript
 from ..kzg import KZG
+
+
+ROUNDS = ("wire_poly", "z_poly", "to_coset_evals", "quotient_coeffs",
+          "round3", "eval_dev", "open_dev", "combine_weighted")
+
+
+def _validated(be, method, op: str):
+    """``method`` with every tensor of its output validated under ``op``."""
+    def checked(*args, **kwargs):
+        return validate_tree_canonical(be, method(*args, **kwargs), op)
+    return checked
 
 
 class PlonkDeviceCore:
@@ -42,7 +58,7 @@ class PlonkDeviceCore:
 
     def __new__(cls, curve_type: str, n: int, device):
         device = canonical_device(device)
-        key = (curve_type, n, str(device))
+        key = (curve_type, n, str(device), checked_enabled())
         if key in cls._CACHE:
             return cls._CACHE[key]
         self = super().__new__(cls)
@@ -73,6 +89,10 @@ class PlonkDeviceCore:
         denom = be.mul(be.sub(self.x4, be.one_mont), be.scalar(n))
         self.L1_4 = be.mul(vh4, be.inv(denom))
         self.h_pows = self.ntt_n.powers(self.g)
+        if isinstance(be, CheckedFieldBackend):
+            for name in ROUNDS:
+                setattr(self, name, _validated(be, getattr(self, name),
+                                               f"plonk.{name}"))
 
     # ------------------------------------------------------------------
     def wire_poly(self, values, b_hi, b_lo):

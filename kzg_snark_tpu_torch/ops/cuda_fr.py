@@ -81,7 +81,10 @@ def _by_ints(a: torch.Tensor) -> bool:
 def _int_op(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor, op: str,
             n_add: int = 0) -> torch.Tensor:
     """(L, n) a (op) b over Python ints: op "mul" (Montgomery), "add",
-    "sub", or "addsub" (columns [0, n_add) added, the rest subtracted)."""
+    "sub", or "addsub" (columns [0, n_add) added, the rest subtracted).
+    Adds and subtracts make one conditional correction by p in L words,
+    as the kernels and the digit path do: (a + b) mod p and (a - b) mod p
+    for canonical operands, and a non-canonical operand stays visible."""
     n, nb, p = a.shape[1], 4 * fc.num_limbs, fc.modulus
     buf = torch.cat([a, b], dim=1).t().contiguous().numpy().tobytes()
     v = [int.from_bytes(buf[i:i + nb], "little")
@@ -92,8 +95,11 @@ def _int_op(fc: FieldConsts, a: torch.Tensor, b: torch.Tensor, op: str,
         out = [u * w % p * r_inv % p for u, w in zip(x, y)]
     else:
         k = n if op == "add" else n_add if op == "addsub" else 0
-        out = [(u + w) % p for u, w in zip(x[:k], y[:k])] + \
-            [(u - w) % p for u, w in zip(x[k:], y[k:])]
+        mask = fc.R - 1
+        out = [(s - p if s >= p else s) & mask
+               for s in (u + w for u, w in zip(x[:k], y[:k]))] + \
+            [(d + p if d < 0 else d) & mask
+             for d in (u - w for u, w in zip(x[k:], y[k:]))]
     data = b"".join(u.to_bytes(nb, "little") for u in out)
     return torch.frombuffer(bytearray(data), dtype=torch.int32).reshape(
         n, fc.num_limbs).t().contiguous()

@@ -11,12 +11,20 @@ Elementwise mul/square/add/sub/neg go through the K1 wrappers of
 ``ops/scan.py`` (``fr_pow``, ``fr_scan``), where the JAX package ran
 ``lax.scan`` loops: the kernels for CUDA tensors, the plain versions for
 CPU tensors.  One backend serves one (modulus, device).
+
+Checked mode (``KZG_TPU_CHECKED``, read by ``fr_backend``/``fq_backend`` at
+call time): ``CheckedFieldBackend`` validates the output of every public
+ring op with ``validate_canonical``, so a kernel's non-canonical output
+traps at the op that produced it.  Every op here is an eager kernel call,
+so the check sees every kernel output on the card (the JAX checked backend
+skips traced values and never sees inside ``jit``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..config import checked_enabled
 from . import cuda_fr, scan
 from .limbs import (FieldConsts, ints_to_words, to_tensor, to_words,
                     words_to_ints)
@@ -38,7 +46,7 @@ class FieldBackend:
 
     def __new__(cls, modulus: int, device="cuda"):
         device = canonical_device(device)
-        key = (modulus, str(device))
+        key = (cls, modulus, str(device))
         if key in cls._CACHE:
             return cls._CACHE[key]
         self = super().__new__(cls)
@@ -133,6 +141,9 @@ class FieldBackend:
     def is_zero(self, a: torch.Tensor) -> torch.Tensor:
         return (a == 0).all(dim=0)
 
+    def equal(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return (a == b).all(dim=0)
+
     def select(self, cond, a, b):
         """where(cond, a, b) with cond broadcast over the limb axis."""
         return torch.where(cond[None], a, b)
@@ -189,6 +200,80 @@ class FieldBackend:
         return table[:, :count].contiguous()
 
 
+class CheckedFieldBackend(FieldBackend):
+    """Debug variant: every public ring op validates its output on the
+    tensor's device (``validate_canonical``: int32 words, leading axis L,
+    every value below p), so a missed final subtraction or a stray carry
+    traps at the op that produced it rather than as a wrong proof.  One
+    host sync an op: debug and CI only.  ``fr_backend``/``fq_backend``
+    return this class while ``KZG_TPU_CHECKED`` is on."""
+
+    def validate(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        return validate_canonical(self, x, op)
+
+
+CHECKED_OPS = ("mul", "square", "add", "sub", "neg", "double", "to_mont",
+               "from_mont", "pow_const", "inv", "batch_inv",
+               "exclusive_prefix_prod", "sum_reduce", "suffix_sums_exclusive",
+               "powers_of")
+
+
+def _checked_op(name: str):
+    plain = getattr(FieldBackend, name)
+
+    def op(self, *args, **kwargs):
+        return self.validate(plain(self, *args, **kwargs), name)
+    op.__name__ = name
+    op.__doc__ = plain.__doc__
+    return op
+
+
+for _name in CHECKED_OPS:
+    setattr(CheckedFieldBackend, _name, _checked_op(_name))
+
+
+def validate_canonical(backend: FieldBackend, x: torch.Tensor,
+                       op: str = "kernel") -> torch.Tensor:
+    """Check a tensor of field elements in the port's word layout: int32
+    holding uint32 bits, leading axis L = ``backend.num_limbs``, and every
+    value below p (words compared as unsigned, most significant first).
+    Runs on the tensor's own device: a few torch ops and one host sync.
+    Raises AssertionError naming ``op``; returns ``x``."""
+    L = backend.num_limbs
+    if not torch.is_tensor(x) or x.dtype != torch.int32:
+        raise AssertionError(f"{op}: expected an int32 word tensor, got "
+                             f"{getattr(x, 'dtype', type(x).__name__)}")
+    if x.dim() == 0 or x.shape[0] != L:
+        raise AssertionError(f"{op}: leading axis "
+                             f"{x.shape[0] if x.dim() else None} != L={L}")
+    flat = x.reshape(L, -1).to(torch.int64) & 0xFFFFFFFF
+    p = backend.consts.tensors(x.device)["p32"]              # (L, 1)
+    rows = torch.arange(L, device=x.device)[:, None]
+    # The most significant word that differs from p's decides x < p.
+    top = torch.where(flat != p, rows, -1).amax(dim=0)
+    below = (flat < p).gather(0, top.clamp(min=0)[None])[0] & (top >= 0)
+    if not bool(below.all()):
+        bad = int((~below).nonzero()[0, 0])
+        value = words_to_ints(to_words(x.reshape(L, -1)[:, bad:bad + 1]))[0]
+        raise AssertionError(f"{op}: non-canonical output {value} >= p at "
+                             f"column {bad}")
+    return x
+
+
+def validate_tree_canonical(backend: FieldBackend, tree, op: str):
+    """``validate_canonical`` over every leaf of nested lists, tuples and
+    dicts of tensors; returns ``tree``."""
+    if isinstance(tree, dict):
+        leaves = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        leaves = tree
+    else:
+        return validate_canonical(backend, tree, op)
+    for leaf in leaves:
+        validate_tree_canonical(backend, leaf, op)
+    return tree
+
+
 def _moduli(curve_type: str) -> tuple[int, int]:
     """(r, p): the curve's scalar and base field moduli."""
     from .. import constants as C
@@ -199,11 +284,17 @@ def _moduli(curve_type: str) -> tuple[int, int]:
     raise ValueError(f"unsupported curve type: {curve_type}")
 
 
+def _backend_class() -> type:
+    return CheckedFieldBackend if checked_enabled() else FieldBackend
+
+
 def fr_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
-    """The scalar field: 8 words on both curves."""
-    return FieldBackend(_moduli(curve_type)[0], device)
+    """The scalar field: 8 words on both curves; checked while
+    KZG_TPU_CHECKED is on."""
+    return _backend_class()(_moduli(curve_type)[0], device)
 
 
 def fq_backend(curve_type: str = "bn254", device="cuda") -> FieldBackend:
-    """The base field: 8 words at BN254, 12 at BLS12-381."""
-    return FieldBackend(_moduli(curve_type)[1], device)
+    """The base field: 8 words at BN254, 12 at BLS12-381; checked while
+    KZG_TPU_CHECKED is on."""
+    return _backend_class()(_moduli(curve_type)[1], device)

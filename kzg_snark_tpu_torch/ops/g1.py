@@ -14,6 +14,10 @@ the representative of the JAX ``add_mixed``.  ``scale`` and
 ``scale_const`` (the JAX ``g1.py:247-268``) run the double-and-add ladder
 in one ``g1_ladder`` launch, one scalar for every point, with the JAX
 representatives.
+
+Over a checked Fq backend (``KZG_TPU_CHECKED``, ``ops/fr.py``) ``add``,
+``double``, ``add_mixed`` and ``scale`` validate every output coordinate
+(``validate_canonical``, under ``"g1.<op>"``): K6, K7, K9 and the ladder.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import numpy as np
 import torch
 
 from . import cuda_fr
-from .fr import FieldBackend, fq_backend
+from .fr import CheckedFieldBackend, FieldBackend, fq_backend, \
+    validate_canonical
 from .limbs import to_tensor
 
 
@@ -32,6 +37,13 @@ class CurveOps:
     def __init__(self, backend: FieldBackend):
         self.f = backend
         self.num_limbs = backend.num_limbs
+        self.checked = isinstance(backend, CheckedFieldBackend)
+
+    def checked_output(self, pts: torch.Tensor, op: str) -> torch.Tensor:
+        """Validate every coordinate of a kernel's output when checked."""
+        if self.checked:
+            validate_canonical(self.f, pts.transpose(0, 1), f"g1.{op}")
+        return pts
 
     # -- constructors ---------------------------------------------------
     def _ones(self, batch_shape) -> torch.Tensor:
@@ -61,6 +73,9 @@ class CurveOps:
         inf = f.is_zero(Z).cpu().tolist()
         return [None if inf[i] else (ax[i], ay[i]) for i in range(len(ax))]
 
+    def is_identity(self, pts: torch.Tensor) -> torch.Tensor:
+        return self.f.is_zero(pts[2])
+
     # -- group law (K6 / K7) ----------------------------------------------
     def _flat(self, pts: torch.Tensor) -> torch.Tensor:
         return pts.reshape(3, self.num_limbs, -1).contiguous()
@@ -70,11 +85,11 @@ class CurveOps:
         shape = torch.broadcast_shapes(p.shape, q.shape)
         out = cuda_fr.g1_add(self.f.consts, self._flat(p.expand(shape)),
                              self._flat(q.expand(shape)))
-        return out.reshape(shape)
+        return self.checked_output(out.reshape(shape), "add")
 
     def double(self, pts: torch.Tensor) -> torch.Tensor:
         out = cuda_fr.g1_double(self.f.consts, self._flat(pts))
-        return out.reshape(pts.shape)
+        return self.checked_output(out.reshape(pts.shape), "double")
 
     def add_mixed(self, p: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor
                   ) -> torch.Tensor:
@@ -95,7 +110,7 @@ class CurveOps:
             qy = qy.expand((L,) + batch).reshape(L, -1)
         out = cuda_fr.g1_add_mixed(self.f.consts, self._flat(p),
                                    qx.contiguous(), qy.contiguous())
-        return out.reshape(p.shape)
+        return self.checked_output(out.reshape(p.shape), "add_mixed")
 
     # -- scalar multiplication (K7 and K6 as the ladder) ------------------
     def scale(self, pts: torch.Tensor, scalar_bits) -> torch.Tensor:
@@ -111,7 +126,7 @@ class CurveOps:
                        pts.device)
         out = cuda_fr.g1_ladder(self.f.consts, self._flat(pts), sc,
                                 tree=False)
-        return out.reshape(pts.shape)
+        return self.checked_output(out.reshape(pts.shape), "scale")
 
     def scale_const(self, pts: torch.Tensor, k: int) -> torch.Tensor:
         """Scalar multiple by a Python int k >= 0 (the JAX
@@ -134,6 +149,17 @@ class CurveOps:
             pts = self.add(pts[..., :half], pts[..., half:])
             n = half
         return pts
+
+    # -- validation -----------------------------------------------------
+    def on_curve(self, pts: torch.Tensor, b_int: int) -> torch.Tensor:
+        """Jacobian curve membership: Y^2 == X^3 + b Z^6 (or identity)."""
+        f = self.f
+        X, Y, Z = pts[0], pts[1], pts[2]
+        lhs = f.square(Y)
+        z2 = f.square(Z)
+        z6 = f.mul(f.square(z2), z2)
+        rhs = f.add(f.mul(f.square(X), X), f.mul(f.scalar(b_int), z6))
+        return f.equal(lhs, rhs) | f.is_zero(Z)
 
 
 def curve_ops(curve_type: str = "bn254", device="cuda") -> CurveOps:

@@ -22,6 +22,9 @@ Points are (3, L, n) over the curve's base field (L = 8 at BN254, 12 at
 BLS12-381); scalars are (8, n) canonical Fr limbs on both curves.
 ``complete=None`` reads ``KZG_TPU_COMPLETE_ADD`` at call time, as the JAX
 ``FusedMsm._resolve_complete`` does (``ops/msm_kernel.resolve_complete``).
+A context made while ``KZG_TPU_CHECKED`` is on (``msm_context`` keys its
+cache by the flag) computes over the checked Fq backend and validates each
+MSM's result.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import functools
 import torch
 
 from . import cuda_fr
-from .fr import canonical_device, fr_backend
+from .fr import canonical_device, checked_enabled, fr_backend
 from .g1 import CurveOps, generator
 from .limbs import SCALAR_LIMBS, ints_to_words, to_tensor
 from .msm_kernel import fused_msm, reduce_horner
@@ -152,13 +155,17 @@ class MsmContext:
         """
         route = self.route(points.shape[-1])
         if route == "bucket":
-            return self.fused.msm(points, scalars, complete)
-        sets = scalars if scalars.dim() == 3 else scalars[None]
-        if route == "small":
-            return cuda_fr.g1_ladder(self.curve.f.consts,
-                                     points.contiguous(), sets.contiguous())
-        return torch.cat([_scan_msm(self.curve, points, s, self._gen)
-                          for s in sets], dim=-1)
+            out = self.fused.msm(points, scalars, complete)
+        else:
+            sets = scalars if scalars.dim() == 3 else scalars[None]
+            if route == "small":
+                out = cuda_fr.g1_ladder(self.curve.f.consts,
+                                        points.contiguous(),
+                                        sets.contiguous())
+            else:
+                out = torch.cat([_scan_msm(self.curve, points, s, self._gen)
+                                 for s in sets], dim=-1)
+        return self.curve.checked_output(out, "msm")
 
     def scalars_to_limbs(self, scalar_ints) -> torch.Tensor:
         """Canonical ints -> (8, N) int32 limbs on the device."""
@@ -166,14 +173,24 @@ class MsmContext:
         return to_tensor(ints_to_words([int(s) % r for s in scalar_ints]),
                          self.device)
 
+    def msm_ints(self, affine_points: list, scalar_ints: list
+                 ) -> torch.Tensor:
+        """Host affine int pairs and int scalars -> the device MSM."""
+        pts = self.curve.from_affine_ints([p[0] for p in affine_points],
+                                          [p[1] for p in affine_points])
+        return self.msm(pts, self.scalars_to_limbs(scalar_ints))
+
 
 @functools.lru_cache(maxsize=None)
-def _context(curve_type: str, device: torch.device) -> MsmContext:
+def _context(curve_type: str, device: torch.device, checked: bool
+             ) -> MsmContext:
     return MsmContext(curve_type, device)
 
 
 def msm_context(curve_type: str = "bn254", device="cuda") -> MsmContext:
-    return _context(curve_type, canonical_device(device))
+    """The cached context of (curve, device), checked while
+    KZG_TPU_CHECKED is on."""
+    return _context(curve_type, canonical_device(device), checked_enabled())
 
 
 def affine_to_host(kzg, affine):

@@ -32,11 +32,11 @@ BN254, 12 at BLS12-381); scalars (8, n) Fr limbs on both curves.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import torch
 
+from ..config import env_complete_add
 from ..utils.build import check, count_launch, cuda_lib
 from . import cuda_fr
 from .fr import canonical_device, fr_backend
@@ -66,7 +66,7 @@ def resolve_complete(complete: bool | None) -> bool:
     are cached (the JAX ``FusedMsm._resolve_complete``)."""
     if complete is not None:
         return complete
-    return os.environ.get("KZG_TPU_COMPLETE_ADD", "0") in ("1", "true", "on")
+    return env_complete_add()
 
 
 def window_bits(n: int) -> int:

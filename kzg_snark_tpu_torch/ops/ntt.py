@@ -4,9 +4,12 @@ Counterpart of ``kzg_snark_tpu/ops/ntt.py`` ``NttContext``: natural-order
 input and output over (8, ..., n) Montgomery limb tensors, transformed
 along the last axis (the middle axes are a batch, as in the JAX
 ``_transform``), the deterministic domain root of ``ops/host/field``
-``nth_root_of_unity``.  Two modes, chosen by the caller:
+``nth_root_of_unity``.  Two modes, chosen by the caller or, with
+``mode=None``, by ``KZG_TPU_NTT_MODE`` read at call time (``resolve_mode``,
+the same for both: "auto" and "staged" mean staged, "scan" means scan; the
+JAX package's XLA-only "gather" and "unrolled", or any other value, raise):
 
-* ``"staged"`` (the default): ``ops/ntt_stage.staged_transform``, the
+* ``"staged"``: ``ops/ntt_stage.staged_transform``, the
   K2-K5 replacement ``ntt_pass`` (as many stages a launch as a
   shared-memory tile holds, the passes of a batch row after row), the
   bit reversal a torch index gather;
@@ -26,10 +29,21 @@ import functools
 
 import torch
 
+from ..config import NTT_MODE_VAR, env_ntt_mode
 from .fr import FieldBackend, canonical_device, fr_backend
 from .ntt_stage import fr_butterfly, staged_transform
 
-MODES = ("staged", "scan")
+MODES = {"auto": "staged", "staged": "staged", "scan": "scan"}
+
+
+def resolve_mode(mode: str | None) -> str:
+    """The transform that ``mode`` runs; None reads KZG_TPU_NTT_MODE now."""
+    given = env_ntt_mode() if mode is None else mode
+    if given not in MODES:
+        where = f"{NTT_MODE_VAR}=" if mode is None else "mode "
+        raise ValueError(f"{where}{given!r}: the port's NTT modes are "
+                         f"{sorted(MODES)}")
+    return MODES[given]
 
 
 def bit_reverse_indices(n: int) -> torch.Tensor:
@@ -48,7 +62,7 @@ class NttContext:
     _CACHE: dict = {}
 
     def __new__(cls, backend: FieldBackend, n: int, root: int):
-        key = (backend.modulus, str(backend.device), n, root)
+        key = (type(backend), backend.modulus, str(backend.device), n, root)
         if key in cls._CACHE:
             return cls._CACHE[key]
         self = super().__new__(cls)
@@ -72,10 +86,9 @@ class NttContext:
                                         half)
         self.n_inv = backend.scalar(pow(n, -1, p))
 
-    def _transform(self, values: torch.Tensor, forward: bool, mode: str
-                   ) -> torch.Tensor:
-        if mode not in MODES:
-            raise ValueError(f"NTT mode must be one of {MODES}, got {mode!r}")
+    def _transform(self, values: torch.Tensor, forward: bool,
+                   mode: str | None) -> torch.Tensor:
+        mode = resolve_mode(mode)
         if self.n == 1:
             return values
         if mode == "scan":
@@ -84,12 +97,14 @@ class NttContext:
         return staged_transform(self.backend.consts,
                                 values[..., self.bitrev], table)
 
-    def ntt(self, coeffs: torch.Tensor, mode: str = "staged") -> torch.Tensor:
+    def ntt(self, coeffs: torch.Tensor, mode: str | None = None
+            ) -> torch.Tensor:
         """Evaluate: out[..., i] = p(w^i).  coeffs (8, ..., n) Montgomery
-        form."""
+        form; ``mode`` as ``resolve_mode``."""
         return self._transform(coeffs, True, mode)
 
-    def intt(self, evals: torch.Tensor, mode: str = "staged") -> torch.Tensor:
+    def intt(self, evals: torch.Tensor, mode: str | None = None
+             ) -> torch.Tensor:
         """Interpolate: inverse transform scaled by n^-1."""
         out = self._transform(evals, False, mode)
         return self.backend.mul(out, _over(self.n_inv, out))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .fr import FieldBackend, canonical_device, fr_backend
+from .fr import FieldBackend, canonical_device, checked_enabled, fr_backend
 from .ntt import ntt_context
 
 SPLIT_BITS = 253            # lo = W mod 2^253 is below r (and p)
@@ -27,13 +27,14 @@ SPLIT_BITS = 253            # lo = W mod 2^253 is below r (and p)
 
 class PolyDev:
     """Per-(curve, device) polynomial operations; NTT contexts are cached
-    per size."""
+    per size.  One instance a KZG_TPU_CHECKED setting: made while the flag
+    is on, it computes over the checked backend."""
 
     _CACHE: dict = {}
 
     def __new__(cls, curve_type: str, device="cuda"):
         device = canonical_device(device)
-        key = (curve_type, str(device))
+        key = (curve_type, str(device), checked_enabled())
         if key in cls._CACHE:
             return cls._CACHE[key]
         self = super().__new__(cls)

@@ -46,6 +46,10 @@ class DeviceSRS:
         n = min(n, len(self))
         return self.points[..., :max(n, count)]
 
+    def affine(self, i: int):
+        """Host affine ints (x, y) of entry i, or None for the identity."""
+        return self._curve.to_affine_ints(self.points[..., i:i + 1])[0]
+
     def __getitem__(self, i: int):
         """Host projective tuple view (x, y, 1), cached after the first
         full transfer."""

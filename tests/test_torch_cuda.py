@@ -8,7 +8,8 @@ its plain version on small numpy-seeded inputs and counts its launch
 (K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
 bucket route's msm_accumulate and msm_reduce, the chains' fr_scan and
 fr_pow, and the small MSM's g1_ladder), at BN254 and at BLS12-381 (Fr in
-8 words, Fq in the kernels' 12-word instantiation).
+8 words, Fq in the kernels' 12-word instantiation); and checked mode
+(``KZG_TPU_CHECKED``) traps a planted non-canonical kernel output.
 The full-size comparison is ``python3 chip_smoke.py``.
 """
 
@@ -524,3 +525,57 @@ def test_chain_product_modulus_bound():
         cuda_fr._chain_check("g1_add", FieldConsts(p))
     with pytest.raises(ValueError):
         cuda_fr._chain_check("g1_add", FieldConsts(2 ** 255 - 19))
+
+
+def _plus_p(fc, t, col):
+    """Column ``col`` of an (L, ...) word tensor raised by p: the value a
+    missed final subtraction leaves (non-canonical, still L words)."""
+    from kzg_snark_tpu_torch.ops.limbs import (ints_to_words, to_tensor,
+                                               to_words, words_to_ints)
+    L = fc.num_limbs
+    v = words_to_ints(to_words(t.reshape(L, -1)[:, col:col + 1]))[0]
+    t.reshape(L, -1)[:, col] = to_tensor(
+        ints_to_words([v + fc.modulus], L), t.device)[:, 0]
+    return t
+
+
+@pytest.mark.cuda
+def test_checked_mode_traps_planted_kernel_outputs(cuda, monkeypatch):
+    """Under KZG_TPU_CHECKED, a fr_mul output with p added to one column
+    traps at "mul" and a g1_add output with one coordinate set to p at
+    "g1.add", on the card; clean outputs pass with the unchecked values."""
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.fr import CheckedFieldBackend
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
+
+    plain = fr_backend("bn254", cuda)
+    a, b = plain.to_mont(words(1000, 31, cuda)), plain.to_mont(
+        words(1000, 32, cuda))
+    want = plain.mul(a, b)
+    monkeypatch.setenv("KZG_TPU_CHECKED", "1")
+    be = fr_backend("bn254", cuda)
+    assert isinstance(be, CheckedFieldBackend)
+    assert torch.equal(be.mul(a, b), want)
+    curve = curve_ops("bn254", cuda)
+    pts, _ = random_point_basis("bn254", 256, seed=7, device=cuda)
+    clean = curve.add(pts, pts.flip(-1))
+    mul, add = cuda_fr.fr_mul, cuda_fr.g1_add
+    monkeypatch.setattr(cuda_fr, "fr_mul", lambda fc, x, y: _plus_p(
+        fc, mul(fc, x, y), 77))
+
+    def planted_add(fc, p, q):
+        out = add(fc, p, q)
+        out[0, :, 5] = to_tensor(ints_to_words([fc.modulus], fc.num_limbs),
+                                 out.device)[:, 0]
+        return out
+    monkeypatch.setattr(cuda_fr, "g1_add", planted_add)
+    before = LAUNCHES["fr_mul"]
+    with pytest.raises(AssertionError,
+                       match="^mul: non-canonical output .* at column 77$"):
+        be.mul(a, b)
+    assert LAUNCHES["fr_mul"] == before + 1
+    with pytest.raises(AssertionError,
+                       match="^g1.add: non-canonical output .* at column 5$"):
+        curve.add(pts, pts.flip(-1))
+    assert clean.shape == pts.shape

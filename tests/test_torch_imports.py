@@ -6,7 +6,11 @@ n = 16 PLONK circuit and the |H| = 16 Marlin circuit on the CPU, and the
 port's own host verifiers accept both proofs.  The card's machine has no
 JAX, and the port keeps its own host layer, so this is the check that it
 needs neither.  A source scan forbids both imports in the port and in
-``chip_smoke.py``.
+``chip_smoke.py``.  A second interpreter, with the same two imports
+blocked, imports the modules of the port's single-device surface by name
+(config, fixtures, serialization, profiling, the entry point), makes a
+host KZG through ``FrameworkConfig``, round-trips its SRS through a file
+and runs the entry point's KZG demo on the host backend.
 """
 
 import os
@@ -68,6 +72,41 @@ def test_port_proves_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PLONK PROVED WITHOUT JAX" in proc.stdout
     assert "MARLIN PROVED WITHOUT JAX" in proc.stdout
+
+
+SURFACE = r"""
+import sys, tempfile, os
+sys.modules["jax"] = None
+sys.modules["kzg_snark_tpu"] = None
+import torch
+torch.set_num_threads(1)
+from kzg_snark_tpu_torch import __main__ as entry
+from kzg_snark_tpu_torch.config import FrameworkConfig
+from kzg_snark_tpu_torch.ops.fr import CheckedFieldBackend, validate_canonical
+from kzg_snark_tpu_torch.utils import fixtures, profiling, serialization
+
+kzg = FrameworkConfig(backend="host", rng_seed=11).make_kzg()
+ck, rk = kzg.setup(4, tau=99)
+path = os.path.join(tempfile.mkdtemp(), "srs.npz")
+serialization.save_srs(path, kzg, ck, rk)
+ck2, _ = serialization.load_srs(path, kzg)
+assert [p[:2] for p in ck2][0] == tuple(ck[0][:2])
+with profiling.PhaseTimer().phase("kzg"):
+    assert entry.main(["--demo", "kzg", "--backend", "host",
+                       "--seed", "3"]) == 0
+assert sys.modules["jax"] is None and sys.modules["kzg_snark_tpu"] is None
+print("SURFACE WITHOUT JAX")
+"""
+
+
+def test_surface_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", SURFACE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "SURFACE WITHOUT JAX" in proc.stdout
+    assert "KZG verification: PASS" in proc.stdout
 
 
 def test_no_jax_import_in_port_sources():
