@@ -83,6 +83,24 @@ Phases, in order, one printed line or block each:
   entry          python -m kzg_snark_tpu_torch --synthetic 6 --seed 7
                  --timing on the card, then with KZG_TPU_CHECKED=1: exit
                  0, three PASS lines and the timing report
+  dist_nccl      the multi-device path (kzg_snark_tpu_torch/parallel) on
+                 one spawned rank over NCCL, BN254: the distributed NTT
+                 and iNTT at n = 2^20 equal word for word to the
+                 single-device NttContext, the distributed MSM at N =
+                 2^20 on random_point_basis equal to the host oracle and
+                 the single-device MSM, shards on the scan route, and
+                 msm_small at N = 1024 (parallel/dryrun.dryrun_target)
+  dist_gloo4     the same checks on four spawned ranks sharing the card
+                 over gloo (the four-step's all_to_all, the small fallback
+                 at n = 8), the (host=2, chip=2) mesh's msm_multihost at
+                 2^20 and two-axis NTT at 2^20, BLS12-381 NTT and MSM at
+                 2^16; both dist phases print each rank's device and wall
+                 ms a call, the collectives' own ms and bytes,
+                 collective_stats, rank 0's launches a call and the
+                 single-device ms, and fail unless one transform makes
+                 the column plan's ntt_pass launches and log2(D)
+                 fr_butterfly launches, or if a kernel of the dist path
+                 never launched
 
 The build phase also prints each kernel instantiation's registers, stack
 and spills (-Xptxas -v); for the curve kernels (K6, K7, K9 and the
@@ -99,7 +117,8 @@ coordinates near p).  Each path (ntt scan, msm_one, main, config_scan,
 marlin_parity, marlin, the bls paths, bls_marlin_parity and bls_marlin)
 runs with the launch counts set to 0 just before it and read just after;
 a kernel's "launches" in the kernels JSON line are those of the path it
-is listed under, and its
+is listed under, its "dist_launches" rank 0's launches on the two dist
+paths, and its
 "bls12_381" entry gives its launches on its BLS12-381 path (also by limb
 count) and its rows at BLS12-381; a kernel of OFF_PATH must launch no
 time on either.  The second-to-last lines are the kernels JSON and the
@@ -2152,6 +2171,92 @@ def phase_entry():
     log(f"[entry] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
+DIST_LOG_N = 20            # the distributed NTT's n, BN254
+DIST_LOG_MSM = 20          # the distributed MSM's points, BN254
+DIST_LOG_SMALL = 10        # msm_small's points
+DIST_BLS_LOG = 16          # the BLS12-381 NTT's n and MSM's points
+DIST_LAUNCHES: dict = {}   # dist phase -> {kernel: rank 0's launches}
+# Kernels each dist phase must launch (fr_butterfly and the fold's g1_add
+# need more than one rank).
+DIST_KERNELS = ("fr_mul", "ntt_pass", "g1_add_mixed", "g1_ladder",
+                "msm_accumulate", "msm_reduce")
+
+
+def phase_dist(torch, name: str, ranks: int, backend: str, hosts=None,
+               bls=None) -> None:
+    """The multi-device path (``kzg_snark_tpu_torch/parallel``) on
+    ``ranks`` spawned ranks of this card over ``backend``: the dry run's
+    checks (``parallel/dryrun.dryrun_target``: the four-step NTT and its
+    round trip equal to the single-device transform, the ``small``
+    fallback, the MSM against the host oracle and the single-device MSM,
+    the scan-route shards, ``msm_small``; with ``hosts`` the (host, chip)
+    mesh's ``msm_multihost`` and two-axis NTT; with ``bls`` the NTT and
+    MSM on BLS12-381).  Prints each rank's device and wall ms a call, the
+    collectives' ms and bytes, ``collective_stats``, rank 0's launches a
+    check and its single-device ms; ranks sharing one card time-share it,
+    so their times are no scaling result."""
+    from kzg_snark_tpu_torch.ops.ntt_stage import pass_plan, tile_bits
+    from kzg_snark_tpu_torch.parallel import dryrun
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    opts = {"log2n": DIST_LOG_N, "log2msm": DIST_LOG_MSM,
+            "log2small": DIST_LOG_SMALL, "hosts": hosts, "bls": bls}
+    recs = dryrun.launch(dryrun.dryrun_target, ranks, (opts,),
+                         backend=backend, device="cuda")
+    shared = " (ranks time-share one card: no scaling result)" \
+        if ranks > 1 else ""
+    checks = [k for k in recs[0] if isinstance(recs[0][k], dict)]
+    total: collections.Counter = collections.Counter()
+    for check in checks:
+        first = recs[0][check]
+        calls = [k for k in ("ntt", "intt", "msm") if k in first]
+        for call in calls:
+            rows = "; ".join(
+                f"rank {r['rank']} {r[check][call]['device_ms']:.3f} / "
+                f"{r[check][call]['wall_ms']:.3f}" for r in recs)
+            log(f"[{name}] {check} {call}: device ms / wall ms{shared}: "
+                f"{rows}; collectives "
+                f"{json.dumps(first[call]['collectives'])}")
+            log(f"[{name}] {check} {call}: rank 0 launches "
+                f"{json.dumps(first[call]['launches'], sort_keys=True)}")
+            total.update(first[call]["launches"])
+        if "collective" in first:
+            c = first["collective"]
+            log(f"[{name}] {check}: the collective alone "
+                f"{json.dumps(c['collectives'])}: device / wall ms "
+                f"{c['device_ms']:.4f} / {c['wall_ms']:.4f} (rank 0)")
+        if first.get("stats"):
+            log(f"[{name}] {check}: collective_stats "
+                f"{json.dumps(first['stats'])}")
+        if first.get("single_device"):
+            sd = first["single_device"]
+            log(f"[{name}] {check}: single-device (rank 0, the other ranks "
+                f"waiting) device / wall ms {sd['device_ms']:.3f} / "
+                f"{sd['wall_ms']:.3f}")
+    fwd = recs[0]["ntt"]
+    n2 = (1 << DIST_LOG_N) // ranks
+    want = {"ntt_pass": len(pass_plan(n2, tile_bits())),
+            "fr_butterfly": ranks.bit_length() - 1}
+    got = {k: fwd["ntt"]["launches"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"[{name}] one distributed transform "
+                             f"launched {got}, expected {want}")
+    need = DIST_KERNELS + (("fr_butterfly", "g1_add") if ranks > 1
+                           else ())
+    missing = [k for k in need if not total.get(k)]
+    if missing:
+        raise AssertionError(f"[{name}] the dist path launched no {missing}")
+    DIST_LAUNCHES[name] = dict(total)
+    log(f"[{name}] one transform at n = 2^{DIST_LOG_N} over {ranks} ranks: "
+        f"{json.dumps(got)} (the column step's plan at 2^"
+        f"{n2.bit_length() - 1}, log2 D butterflies); the dist path's "
+        f"launches (rank 0, every check's calls) "
+        f"{json.dumps(dict(sorted(total.items())))}")
+    log(f"[{name}] {ranks} ranks over {backend}: every check passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def tree_times(root: str) -> dict:
     """``curve_rows`` (K6, K7 and K9 at 2^16 points) and one small MSM (n =
     256, k = 1, held to the host oracle) on both curves, device and wall
@@ -2276,6 +2381,8 @@ def main() -> int:
     phase_bls(torch, dev, paths, rates, bls_rows)
     phase_bls_marlin(torch, dev, paths)
     phase_entry()
+    phase_dist(torch, "dist_nccl", 1, "nccl")
+    phase_dist(torch, "dist_gloo4", 4, "gloo", hosts=2, bls=DIST_BLS_LOG)
 
     kernels = []
     for name, (src, rep, path) in KERNELS.items():
@@ -2292,6 +2399,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "path": path, "launches": launches,
                         **results[name],
+                        "dist_launches": {p: DIST_LAUNCHES[p].get(name, 0)
+                                          for p in DIST_LAUNCHES},
                         "held_at": ["bn254"] + [
                             f"bls12_381 {r_['field']}" for r_ in
                             bls_rows[name]],

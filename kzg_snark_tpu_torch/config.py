@@ -29,15 +29,17 @@ complete_add   KZG_TPU_COMPLETE_ADD   ops/msm_kernel.resolve_complete
 
 Each consumer reads its variable at call time, never at construction:
 the backends and contexts are cached, and the checked flag is part of
-their cache keys.  ``curve``, ``backend``, ``device`` and ``rng_seed`` have
-no variable: they parameterize :meth:`make_kzg` and :meth:`make_rng`.
+their cache keys.  ``curve``, ``backend``, ``device``, ``rng_seed`` and
+``mesh_devices`` have no variable: they parameterize :meth:`make_kzg`,
+:meth:`make_rng` and :meth:`make_mesh` (the one-axis mesh of
+``parallel/mesh.py`` over the first ``mesh_devices`` ranks of the
+initialized process group, all of them when None, on ``device``'s type).
 
 The JAX-only knobs have no counterpart here: ``pallas`` (every field op is
 a CUDA kernel on the card), ``cache_dir`` and ``cache_force`` (the kernels'
 build cache ``.build/torch_kernels/`` plays the part of the XLA cache),
 ``runslow`` (the port has no conftest of its own) and the two bench knobs
-(the port has no bench).  ``mesh_devices`` waits for the multi-device
-port.
+(the port has no bench).
 """
 
 from __future__ import annotations
@@ -81,6 +83,9 @@ class FrameworkConfig:
     checked: bool = False             # validate every kernel output
     complete_add: bool = False        # complete (doubling-safe) MSM adds
 
+    # distribution
+    mesh_devices: int | None = None   # 1-axis mesh size (None = all ranks)
+
     @classmethod
     def from_env(cls) -> "FrameworkConfig":
         return cls(ntt_mode=env_ntt_mode(), checked=checked_enabled(),
@@ -105,6 +110,13 @@ class FrameworkConfig:
         kwargs.setdefault("rng", self.make_rng())
         return KZG(self.curve, backend=self.backend, device=self.device,
                    **kwargs)
+
+    def make_mesh(self):
+        """The one-axis ("shard",) mesh over ``mesh_devices`` ranks of the
+        initialized process group, on ``device``'s type."""
+        import torch
+        from .parallel.mesh import make_mesh
+        return make_mesh(self.mesh_devices, torch.device(self.device).type)
 
     def as_dict(self) -> dict:
         return asdict(self)

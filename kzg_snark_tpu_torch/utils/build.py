@@ -22,7 +22,8 @@ product policies' throughput loops and their instructions by opcode
 Every kernel wrapper calls :func:`count_launch` where it launches, so a run
 can show which kernels its main path went through, over how many elements
 or points (:func:`launch_widths`) and at which limb count
-(:func:`launch_limbs`).
+(:func:`launch_limbs`).  The multi-device layer counts its collectives
+beside them (:func:`count_collective`, :func:`collective_counts`).
 """
 
 from __future__ import annotations
@@ -102,6 +103,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_WIDTHS: collections.Counter = collections.Counter()
 # (name, limb count) -> launches.
 LAUNCH_LIMBS: collections.Counter = collections.Counter()
+# collective -> calls and bytes that crossed between ranks (parallel/mesh).
+COLLECTIVES: collections.Counter = collections.Counter()
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 
 
 def _width_class(width: int) -> str:
@@ -120,14 +124,30 @@ def count_launch(name: str, launches: int = 1, width: int | None = None,
         LAUNCH_LIMBS[name, limbs] += launches
 
 
+def count_collective(name: str, nbytes: int) -> None:
+    """Count one collective ``name`` that moved ``nbytes`` between this
+    rank and the others (not a kernel launch)."""
+    COLLECTIVES[name] += 1
+    COLLECTIVE_BYTES[name] += nbytes
+
+
 def reset_launches() -> None:
+    """Set the launch counts and the collective counts to 0."""
     LAUNCHES.clear()
     LAUNCH_WIDTHS.clear()
     LAUNCH_LIMBS.clear()
+    COLLECTIVES.clear()
+    COLLECTIVE_BYTES.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def collective_counts() -> dict[str, dict[str, int]]:
+    """{collective: {"calls": k, "bytes": b}} since the last reset."""
+    return {name: {"calls": k, "bytes": COLLECTIVE_BYTES[name]}
+            for name, k in sorted(COLLECTIVES.items())}
 
 
 def launch_widths() -> dict[str, dict[str, int]]:

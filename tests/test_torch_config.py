@@ -7,7 +7,9 @@ environment below both packages' ``from_env`` read the same values, and
 Every knob is read at call time: the NTT mode (``mode=None``) and the
 complete-add switch of a context made before the variable changed follow
 the variable, and the XLA-only NTT modes raise instead of becoming another
-mode.
+mode.  ``mesh_devices`` has no variable (``from_env`` leaves it None, as
+the JAX one does), and ``make_mesh`` gives the one-axis mesh over an
+initialized one-rank gloo group.
 """
 
 import numpy as np
@@ -78,7 +80,33 @@ def test_defaults_run_on_the_card_and_as_dict():
     d = cfg.as_dict()
     assert d["rng_seed"] == 11 and d["curve"] == "bn254"
     assert set(d) == {"curve", "backend", "device", "rng_seed", "ntt_mode",
-                      "checked", "complete_add"}
+                      "checked", "complete_add", "mesh_devices"}
+    assert d["mesh_devices"] is None
+    assert FrameworkConfig(mesh_devices=4).as_dict()["mesh_devices"] == 4
+
+
+def test_from_env_leaves_mesh_devices(clean_env):
+    # No variable: the JAX package's from_env leaves it None too.
+    assert FrameworkConfig.from_env().mesh_devices is None
+    assert JaxConfig.from_env().mesh_devices is None
+    FrameworkConfig(mesh_devices=2, checked=True).apply()
+    assert FrameworkConfig.from_env().mesh_devices is None
+
+
+def test_make_mesh_over_one_rank(tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = FrameworkConfig(device="cpu").make_mesh()
+        assert (mesh.device_type, mesh.mesh_dim_names, mesh.size()) == \
+            ("cpu", ("shard",), 1)
+        assert FrameworkConfig(device="cpu", mesh_devices=1).make_mesh() \
+            .size() == 1
+        with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+            FrameworkConfig(device="cpu", mesh_devices=2).make_mesh()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_make_kzg_host_and_cpu_device():

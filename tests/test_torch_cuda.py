@@ -8,9 +8,10 @@ its plain version on small numpy-seeded inputs and counts its launch
 (K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
 bucket route's msm_accumulate and msm_reduce, the chains' fr_scan and
 fr_pow, and the small MSM's g1_ladder), at BN254 and at BLS12-381 (Fr in
-8 words, Fq in the kernels' 12-word instantiation); and checked mode
-(``KZG_TPU_CHECKED``) traps a planted non-canonical kernel output.
-The full-size comparison is ``python3 chip_smoke.py``.
+8 words, Fq in the kernels' 12-word instantiation); checked mode
+(``KZG_TPU_CHECKED``) traps a planted non-canonical kernel output; and one
+rank over NCCL (``parallel/``) equals the single-device path.  The
+full-size comparison is ``python3 chip_smoke.py``.
 """
 
 import numpy as np
@@ -579,3 +580,32 @@ def test_checked_mode_traps_planted_kernel_outputs(cuda, monkeypatch):
                        match="^g1.add: non-canonical output .* at column 5$"):
         curve.add(pts, pts.flip(-1))
     assert clean.shape == pts.shape
+
+
+@pytest.mark.cuda
+def test_world_one_over_nccl_equals_single_device(cuda):
+    """One spawned rank over NCCL: the distributed NTT (2^12) and the
+    distributed MSM (4096 points, the bucket route) equal to the
+    single-device ones on the same inputs."""
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.limbs import to_tensor, to_words
+    from kzg_snark_tpu_torch.ops.msm import msm_context
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.parallel import dryrun
+
+    n, N = 1 << 12, 4096
+    pts, _ = random_point_basis("bn254", N, seed=9, device=cuda)
+    words, scalars = dryrun.random_words(n, 3), dryrun.random_words(N, 4)
+    cases = [{"op": "ntt", "curve": "bn254", "words": words},
+             {"op": "msm", "method": "msm", "curve": "bn254",
+              "points": pts.cpu().numpy(), "scalars": scalars}]
+    (rank,) = dryrun.launch(dryrun.run_cases, 1, (cases,), backend="nccl",
+                            device="cuda")
+    ctx = ntt_context("bn254", n, cuda)
+    x = ctx.backend.to_mont(to_tensor(words, cuda))
+    assert np.array_equal(rank["cases"][0]["natural"], to_words(ctx.ntt(x)))
+    assert np.array_equal(rank["cases"][0]["back"].reshape(8, n),
+                          to_words(x))
+    single = msm_context("bn254", cuda)
+    assert rank["cases"][1]["affine"] == single.curve.to_affine_ints(
+        single.msm(pts, to_tensor(scalars, cuda)))[0]

@@ -10,7 +10,12 @@ needs neither.  A source scan forbids both imports in the port and in
 blocked, imports the modules of the port's single-device surface by name
 (config, fixtures, serialization, profiling, the entry point), makes a
 host KZG through ``FrameworkConfig``, round-trips its SRS through a file
-and runs the entry point's KZG demo on the host backend.
+and runs the entry point's KZG demo on the host backend.  A third, with
+the same two imports blocked, imports ``kzg_snark_tpu_torch.parallel`` and
+runs it at D = 2 (two spawned gloo ranks on the CPU: the four-step NTT at
+n = 16, equal to the single-device transform, and ``msm_small`` at N = 8,
+equal to the single-device MSM); the ranks report that they imported no
+module of either package.
 """
 
 import os
@@ -122,3 +127,48 @@ def test_no_jax_import_in_port_sources():
                 if pattern.match(line):
                     offenders.append(f"{path}:{i}")
     assert offenders == []
+
+
+PARALLEL = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["kzg_snark_tpu"] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import kzg_snark_tpu_torch.parallel
+from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+from kzg_snark_tpu_torch.ops.limbs import to_tensor, to_words
+from kzg_snark_tpu_torch.ops.msm import msm_context
+from kzg_snark_tpu_torch.ops.ntt import ntt_context
+from kzg_snark_tpu_torch.parallel import dryrun
+
+pts, _ = random_point_basis("bn254", 8, seed=8, device="cpu")
+words = dryrun.random_words(16, 1)
+scalars = dryrun.random_words(8, 2)
+cases = [{"op": "ntt", "curve": "bn254", "words": words},
+         {"op": "msm", "method": "msm_small", "curve": "bn254",
+          "points": pts.numpy(), "scalars": scalars}]
+ranks = dryrun.launch(dryrun.run_cases, 2, (cases,), backend="gloo",
+                      device="cpu")
+ctx = ntt_context("bn254", 16, "cpu")
+want = to_words(ctx.ntt(ctx.backend.to_mont(to_tensor(words, "cpu"))))
+single = msm_context("bn254", "cpu")
+point = single.curve.to_affine_ints(single.msm(pts, to_tensor(scalars,
+                                                              "cpu")))[0]
+for rank in ranks:
+    assert rank["modules"] == [], rank["modules"]
+    assert np.array_equal(rank["cases"][0]["natural"], want)
+    assert rank["cases"][1]["affine"] == point
+assert sys.modules["jax"] is None and sys.modules["kzg_snark_tpu"] is None
+print("PARALLEL WITHOUT JAX")
+"""
+
+
+def test_parallel_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", PARALLEL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PARALLEL WITHOUT JAX" in proc.stdout
