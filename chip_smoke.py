@@ -31,6 +31,17 @@ Phases, in order, one printed line or block each:
                  all-equal, one-nonzero scalars and k = 9 sets; the times of
                  its stages, the launches of one MSM, its operation bounds,
                  and MSM time by window width c at 2^11..2^18 points
+  msm_prepared   the bucket-route MSM through FusedMsm.prepare_points and
+                 msm_prepared: BN254 at 2^16 and 2^20 (the 2^18 basis
+                 tiled, complete adds), BLS12-381 at 2^16, k = 1 and 8
+                 sets, each equal to MsmContext.msm (Jacobian words) and
+                 to the host oracle (exact digit sums on the host); at
+                 2^20 the same MSMs cut into 6 point ranges by a lowered
+                 MAX_SCHEDULE_ENTRIES (equal to the unsplit and the
+                 oracle, launches per range checked, K6 adds the ranges),
+                 device ms split against unsplit; the peak device memory
+                 of one MSM at 2^20 and 2^22 points, k = 1 and 8, both
+                 curves, in bytes a point
   parity         PLONK at n = 2^6: the port's proof byte-identical to the
                  port's host prover's (normalized commitments)
   main           PLONK at n = 2^16: index, two proves, host verification,
@@ -113,12 +124,14 @@ once against the plain product; and the PROD_CHAIN product's and
 squaring's latency on a lone warp (the ladder's floor).  The
 kernels and bls phases also hold K6, K7 and K9 to their plain versions
 on edge batches (benchpoints.edge_batches: identities, P = Q, P = -Q,
-coordinates near p).  Each path (ntt scan, msm_one, main, config_scan,
-marlin_parity, marlin, the bls paths, bls_marlin_parity and bls_marlin)
+coordinates near p).  Each path (ntt scan, msm_one, msm_prepared and its
+splits, main, config_scan, marlin_parity, marlin, the bls paths,
+bls_marlin_parity and bls_marlin)
 runs with the launch counts set to 0 just before it and read just after;
 a kernel's "launches" in the kernels JSON line are those of the path it
 is listed under, its "dist_launches" rank 0's launches on the two dist
-paths, and its
+paths, its "prepared_launches" those of the msm_prepared paths (unsplit,
+and the two forced splits together), and its
 "bls12_381" entry gives its launches on its BLS12-381 path (also by limb
 count) and its rows at BLS12-381; a kernel of OFF_PATH must launch no
 time on either.  The second-to-last lines are the kernels JSON and the
@@ -204,6 +217,7 @@ EDGE_POINTS = 512           # points of each case in the curve edge batches
 LADDER_SIZES = (1, 7, 256)  # points of the ladder checks (256: the small
                             # MSM's most)
 LATENCY_REPS = 1024         # dependent products of the lone-warp latency
+PLAIN_ONCE_MS = 1000.0      # a plain version this slow is timed by one call
 MARLIN_TAU = 0xFEED5EED
 ENTRY_ARGS = ["--synthetic", "6", "--seed", "7", "--timing"]
 
@@ -334,15 +348,18 @@ def compare(torch, name, results, kernel_fn, plain_fn, args, work, reps=20,
             plain_reps=3):
     """Run kernel and plain version on the same CUDA inputs ``args``;
     demand exact equality; record both times (inputs rotated through
-    copies, see ``rotated``; ``plain_reps = 0``: the plain version's time
-    is that of the one call compared, host clock to a sync) and the bound
-    of ``work`` (a dict from ``bound``)."""
+    copies, see ``rotated``; ``plain_reps = 0``, or a compared plain call
+    of a second or more: the plain version's time is that of the one call
+    compared, host clock to a sync) and the bound of ``work`` (a dict
+    from ``bound``)."""
     got = kernel_fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = plain_fn(*args)
     torch.cuda.synchronize()
     plain_once = (time.perf_counter() - t0) * 1e3
+    if plain_once >= PLAIN_ONCE_MS:
+        plain_reps = 0
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain (max |diff| {err})")
@@ -1342,6 +1359,210 @@ def phase_msm(torch, dev, paths, rates):
             row.append(f"events {ev}: {d:.3f}")
         log(f"[msm] 2^{MAIN_LOG_N}, T = {T} (kernels device ms): "
             + ", ".join(row))
+
+
+PREPARED_LOG_N = (16, 20)       # BN254 sizes of the prepared MSM checks
+PREPARED_SETS = (1, 8)
+PREPARED_RANGES = 6             # ranges of the forced split at 2^20
+MEMORY_LOG_N = (20, 22)         # sizes of the peak-memory measurements
+PREPARED_BASIS_LOG_N = 18       # BN254 basis; tiled above it (complete adds)
+
+
+def random_sets(k: int, n: int, seed: int, top_bits: int = 29):
+    """(k, 8, n) uint32 scalar words, uniform below 2^(224 + top_bits)
+    (at 29 below both curves' r)."""
+    import numpy as np
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(k, 8, n),
+                                             dtype=np.uint64)
+    w[:, 7] &= (1 << top_bits) - 1
+    return w.astype(np.uint32)
+
+
+def digit_sums(words, ks):
+    """sum_i s_i k_i for each set, exact, on the host: words (k, 8, n)
+    uint32 and 128-bit multipliers k_i, as 16-bit digits, one float64
+    product of (16, n) by (n, 8) a set (each digit sum is below n 2^32 <=
+    2^52 for n <= 2^20, so every partial sum is an exact integer)."""
+    import numpy as np
+    from kzg_snark_tpu_torch.ops.limbs import ints_to_words
+    n = words.shape[-1]
+    if n > 1 << 20:
+        raise ValueError("digit_sums: at most 2^20 points")
+    kw = ints_to_words(ks)[:4]
+    kd = np.empty((len(ks), 8), dtype=np.float64)
+    kd[:, 0::2] = (kw & 0xFFFF).T
+    kd[:, 1::2] = (kw >> 16).T
+    kd = np.tile(kd, (n // len(ks), 1))
+    out = []
+    for wj in words:
+        sd = np.empty((16, n), dtype=np.float64)
+        sd[0::2] = wj & 0xFFFF
+        sd[1::2] = wj >> 16
+        m = sd @ kd
+        out.append(sum(int(m[a, b]) << (16 * (a + b))
+                       for a in range(16) for b in range(8)))
+    return out
+
+
+def phase_msm_prepared(torch, dev, paths):
+    """The bucket-route MSM through ``FusedMsm.prepare_points`` and
+    ``msm_prepared``: BN254 at 2^16 (the basis's first points) and 2^20
+    (the 2^18 basis tiled, complete adds), BLS12-381 at 2^16, k = 1 and 8
+    sets, each equal to ``MsmContext.msm`` (Jacobian words) and to the host
+    oracle; at 2^20 the same MSMs forced into ranges by a lowered
+    MAX_SCHEDULE_ENTRIES (equal affine points, K6 adds the ranges), device
+    ms split against unsplit; the peak device memory of one MSM at 2^20
+    and 2^22 points, k = 1 and 8, both curves.  Paths: msm_prepared (the
+    unsplit runs) and msm_prepared_split."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.g1 import generator
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
+    from kzg_snark_tpu_torch.ops.limbs import to_tensor
+    from kzg_snark_tpu_torch.ops.msm import msm_context
+
+    t_phase = time.perf_counter()
+    bases = {"bn254": random_point_basis("bn254", 1 << PREPARED_BASIS_LOG_N,
+                                         seed=20261017, device=dev),
+             "bls12_381": random_point_basis("bls12_381", 1 << BLS_MSM_LOG_N,
+                                             seed=20261018, device=dev)}
+
+    def points(curve, n):
+        pts, ks = bases[curve]
+        reps = max(1, n // pts.shape[-1])
+        return pts.repeat(1, 1, reps)[..., :n].contiguous(), ks[:n], reps > 1
+
+    def oracle(curve, words, ks):
+        r = C.BN254_R if curve == "bn254" else C.BLS12_381_R
+        Fp = base_field(curve)
+        gx, gy = generator(curve)
+        out = []
+        for total in digit_sums(words, ks):
+            a = hc.normalize(hc.multiply((Fp(gx), Fp(gy), Fp(1)), total % r))
+            out.append(None if a is None else (int(a[0]), int(a[1])))
+        return out
+
+    cases = [("bn254", lg, k) for lg in PREPARED_LOG_N for k in PREPARED_SETS]
+    cases += [("bls12_381", BLS_MSM_LOG_N, k) for k in PREPARED_SETS]
+    inputs = {}
+    for curve, lg, k in cases:
+        n = 1 << lg
+        pts, ks, tiled = points(curve, n)
+        words = random_sets(k, n, 9400 + lg + k)
+        sc = to_tensor(words, dev)
+        inputs[curve, lg, k] = (pts, ks, tiled, words,
+                                sc if k > 1 else sc[0])
+    results = {}
+    fused = {curve: msm_context(curve, dev).fused for curve in bases}
+
+    def unsplit():
+        for key, (pts, _, tiled, _, sc) in inputs.items():
+            fm = fused[key[0]]
+            results[key] = fm.msm_prepared(fm.prepare_points(pts), sc,
+                                           complete=tiled)
+    run_path(torch, paths, "msm_prepared", unsplit)
+    for key, (pts, ks, tiled, words, sc) in inputs.items():
+        curve, lg, k = key
+        ctx = msm_context(curve, dev)
+        if not torch.equal(results[key], ctx.msm(pts, sc, complete=tiled)):
+            raise AssertionError(f"msm_prepared {curve} 2^{lg} k = {k} "
+                                 f"differs from msm")
+        if ctx.curve.to_affine_ints(results[key]) != oracle(curve, words,
+                                                             ks):
+            raise AssertionError(f"msm_prepared {curve} 2^{lg} k = {k} "
+                                 f"differs from the host oracle")
+    want = {"msm_accumulate": len(inputs), "msm_reduce": 2 * len(inputs)}
+    if paths["msm_prepared"] != want:
+        raise AssertionError(f"the msm_prepared path launched "
+                             f"{paths['msm_prepared']}, expected {want}")
+    log(f"[msm_prepared] prepare_points + msm_prepared == msm (Jacobian "
+        f"words) == host oracle: " + ", ".join(
+            f"{c_} 2^{lg_} k = {k_}"
+            + (" (tiled, complete)" if inputs[c_, lg_, k_][2] else "")
+            for c_, lg_, k_ in inputs) + f"; launches "
+        f"{json.dumps(paths['msm_prepared'], sort_keys=True)}")
+
+    # The forced split at 2^20, k = 1 and 8.
+    lg = PREPARED_LOG_N[-1]
+    n = 1 << lg
+    fm = fused["bn254"]
+    rows, split_out = [], {}
+    limit0 = mk.MAX_SCHEDULE_ENTRIES
+    for k in PREPARED_SETS:
+        pts, ks, tiled, words, sc = inputs["bn254", lg, k]
+        table = fm.prepare_points(pts)
+        size = -(-n // PREPARED_RANGES)
+        c = mk.window_bits(size)
+        whole_ms, whole_wall = timed_ms(
+            torch, lambda: fm.msm_prepared(table, sc, complete=True), 3)
+        limit = k * mk.num_windows(fm.total_bits, c) * size
+        try:
+            mk.MAX_SCHEDULE_ENTRIES = limit
+            ranges = mk.point_ranges(n, k, fm.total_bits)
+            if not 4 <= len(ranges) <= 8:
+                raise AssertionError(f"the forced split gave {len(ranges)} "
+                                     f"ranges")
+            split_out[k] = run_path(
+                torch, paths, f"msm_prepared_split_k{k}",
+                lambda: fm.msm_prepared(table, sc, complete=True))
+            split_ms, split_wall = timed_ms(
+                torch, lambda: fm.msm_prepared(table, sc, complete=True), 3)
+        finally:
+            mk.MAX_SCHEDULE_ENTRIES = limit0
+        aff = fm.curve.to_affine_ints(split_out[k])
+        if aff != fm.curve.to_affine_ints(results["bn254", lg, k]) \
+                or aff != oracle("bn254", words, ks):
+            raise AssertionError(f"the split MSM 2^{lg} k = {k} differs from "
+                                 f"the unsplit one or the oracle")
+        launches = paths[f"msm_prepared_split_k{k}"]
+        want = {"msm_accumulate": len(ranges),
+                "msm_reduce": 2 * len(ranges), "g1_add": len(ranges) - 1}
+        if launches != want:
+            raise AssertionError(f"the split MSM k = {k} launched "
+                                 f"{launches}, expected {want}")
+        rows.append(f"k = {k}: {len(ranges)} ranges of "
+                    f"{sorted({b - a for a, b in ranges}, reverse=True)} "
+                    f"points (limit {limit}), "
+                    f"device ms split {split_ms:.3f} / unsplit "
+                    f"{whole_ms:.3f}, wall {split_wall:.3f} / "
+                    f"{whole_wall:.3f}; launches "
+                    f"{json.dumps(launches, sort_keys=True)}")
+    paths["msm_prepared_split"] = {
+        name: sum(paths[f"msm_prepared_split_k{k}"].get(name, 0)
+                  for k in PREPARED_SETS) for name in KERNELS}
+    log(f"[msm_prepared] 2^{lg} forced split (K6 adds the ranges) == "
+        f"unsplit == host oracle: " + "; ".join(rows))
+    del inputs, results, split_out
+
+    # Peak device memory of one MSM (the table and scalars already made).
+    for curve, fm in fused.items():
+        for lg_m in MEMORY_LOG_N:
+            n = 1 << lg_m
+            pts, _, tiled = points(curve, n)
+            table = fm.prepare_points(pts)
+            for k in PREPARED_SETS:
+                sc = to_tensor(random_sets(k, n, 9500 + lg_m + k), dev)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fm.msm_prepared(table, sc if k > 1 else sc[0],
+                                complete=tiled)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                held = pts.numel() * 4 + table.numel() * 4 + sc.numel() * 4
+                c = mk.window_bits(n)
+                log(f"[msm_prepared] peak memory {curve} 2^{lg_m} points, "
+                    f"k = {k} (c = {c}, W = "
+                    f"{mk.num_windows(fm.total_bits, c)}): "
+                    f"{peak} bytes above the inputs, {peak / n:.1f} bytes "
+                    f"a point, {peak / (n * k):.1f} a point a set; inputs "
+                    f"(points, table, scalars) {held} bytes, "
+                    f"{held / n:.1f} a point")
+                del sc
+            del pts, table
+    log(f"[msm_prepared] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
 # The BLS12-381 path where each kernel's BLS launches count.
@@ -2368,6 +2589,7 @@ def main() -> int:
     phase_chains(torch, dev, results, rates)
     phase_ntt(torch, dev, paths, rates)
     phase_msm(torch, dev, paths, rates)
+    phase_msm_prepared(torch, dev, paths)
     phase_parity(dev)
     main_run = phase_main(torch, dev, paths)
     phase_checked(torch, dev, main_run)
@@ -2401,6 +2623,9 @@ def main() -> int:
                         **results[name],
                         "dist_launches": {p: DIST_LAUNCHES[p].get(name, 0)
                                           for p in DIST_LAUNCHES},
+                        "prepared_launches": {
+                            p: paths[p].get(name, 0) for p in
+                            ("msm_prepared", "msm_prepared_split")},
                         "held_at": ["bn254"] + [
                             f"bls12_381 {r_['field']}" for r_ in
                             bls_rows[name]],

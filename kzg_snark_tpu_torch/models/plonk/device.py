@@ -40,7 +40,7 @@ from ..kzg import KZG
 
 
 ROUNDS = ("wire_poly", "z_poly", "to_coset_evals", "quotient_coeffs",
-          "round3", "eval_dev", "open_dev", "combine_weighted")
+          "round3", "eval_dev", "open_at", "open_dev", "combine_weighted")
 
 
 def _validated(be, method, op: str):
@@ -168,6 +168,23 @@ class PlonkDeviceCore:
         return be.sum_reduce(be.mul(coeffs, be.powers_of(point,
                                                          coeffs.shape[1])))
 
+    def open_at(self, coeffs, point: int):
+        """Witness (p - p(z)) / (X - z) at an int point by the suffix-scan
+        identity w_j = z^-(j+1) sum_{i>j} c_i z^i: coeffs (8, m) ->
+        (8, m - 1); z^-1 on the host."""
+        be = self.be
+        m = coeffs.shape[1]
+        z = point % be.modulus
+        z_inv = pow(z, -1, be.modulus)
+        return self._open(coeffs, be.powers_of(z, m),
+                          be.mul(be.powers_of(z_inv, m), be.scalar(z_inv)))
+
+    def _open(self, coeffs, pows, inv_pows):
+        """The witness from [1, z, ..] and [z^-1, z^-2, ..], (8, m) each."""
+        be = self.be
+        suffix = be.suffix_sums_exclusive(be.mul(coeffs, pows))
+        return be.mul(suffix, inv_pows)[:, :coeffs.shape[1] - 1]
+
     def powers_dev(self, z_scalar, count: int):
         """[1, z, ..., z^(count-1)] (8, count) from an (8, 1) scalar: a
         product scan of z repeated (read with step 0, never copied)."""
@@ -180,13 +197,11 @@ class PlonkDeviceCore:
             z_scalar, coeffs.shape[1])))
 
     def open_dev(self, coeffs, z_scalar):
-        be = self.be
+        """``open_at`` at an (8, 1) Montgomery device scalar."""
         m = coeffs.shape[1]
-        u = be.mul(coeffs, self.powers_dev(z_scalar, m))
-        suffix = be.suffix_sums_exclusive(u)
-        z_inv = be.inv(z_scalar)
-        inv_pows = be.mul(self.powers_dev(z_inv, m), z_inv)
-        return be.mul(suffix, inv_pows)[:, :m - 1]
+        z_inv = self.be.inv(z_scalar)
+        return self._open(coeffs, self.powers_dev(z_scalar, m),
+                          self.be.mul(self.powers_dev(z_inv, m), z_inv))
 
     def combine_weighted(self, arrays: list, weights: list):
         """sum_i weights[i] * arrays[i], arrays zero-padded to the longest;

@@ -28,6 +28,24 @@ default, None, reads ``KZG_TPU_COMPLETE_ADD`` at call time
 
 Points are (3, L, n) over the base field, L = ``fc.num_limbs`` (8 at
 BN254, 12 at BLS12-381); scalars (8, n) Fr limbs on both curves.
+``FusedMsm.prepare_points`` lays the points out once as the (n, 2 L)
+point-major table the accumulate reads, and ``FusedMsm.msm_prepared`` runs
+the MSM over such a table (the JAX pair of the same names; ``msm`` is the
+two in turn).  The table needs no padding: zero digits are dropped from
+the schedule, not routed to a trash bucket.
+
+The schedule's arrays are int32, as the kernels read them.  Each is
+bounded by B = k W max(n, 2^(c-1)) for k sets of W windows over n points:
+``entries`` holds index << 1 | sign < 2 n <= B (W >= 16); ``chunk_off``
+holds entry offsets up to E, the nonzero digits, at most k W n; the
+bucket keys and ``bucket_chunks`` stay below k W 2^(c-1) buckets and C <= E
+chunks.  ``bucket_schedule`` raises ValueError when B exceeds
+``MAX_SCHEDULE_ENTRIES`` (2^31 - 1), so no cast can wrap, and
+``msm_prepared`` cuts an MSM into contiguous point ranges whose own B
+stays at or under it (``point_ranges``, from the shapes alone): each range
+is its own schedule, accumulate and reduce over a row slice of the table,
+with point indices local to it, and the range results are summed in order
+with the complete add (K6).  The limit is read at call time.
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ MAX_WINDOW_THREADS = 1024
 REDUCE_BLOCK = 128          # most threads of a window-sum block
 MAG_MASK = 0xFFFF
 SIGN_SHIFT = 16
+MAX_SCHEDULE_ENTRIES = 2 ** 31 - 1  # bound of the schedule's int32 arrays
 
 
 # Window width c by log2 n: the c of least kernel time (accumulate and
@@ -145,6 +164,35 @@ class BucketSchedule(NamedTuple):
     window_threads: int
 
 
+def schedule_bound(sets: int, n: int, windows: int, c: int) -> int:
+    """B = k W max(n, 2^(c-1)): no value of the schedule's int32 arrays
+    (entry offsets up to the k W n nonzero digits, bucket keys, point
+    index << 1 | sign) reaches it."""
+    return sets * windows * max(n, 1 << (c - 1))
+
+
+def point_ranges(n: int, sets: int, total_bits: int) -> list:
+    """Contiguous (start, stop) ranges of n points, as few as keep each
+    range's ``schedule_bound`` (its c and W by ``window_bits`` of its own
+    length) at or under ``MAX_SCHEDULE_ENTRIES``; equal lengths but the
+    last.  From the shapes alone: no sync on the digits."""
+    limit = MAX_SCHEDULE_ENTRIES
+
+    def bound(m):
+        c = window_bits(m)
+        return schedule_bound(sets, m, num_windows(total_bits, c), c)
+
+    parts = max(1, -(-bound(n) // limit))
+    while parts <= n:
+        size = -(-n // parts)
+        last = n - (-(-n // size) - 1) * size
+        if bound(size) <= limit and bound(last) <= limit:
+            return [(a, min(a + size, n)) for a in range(0, n, size)]
+        parts += 1
+    raise ValueError(f"MSM of {sets} sets: even one point exceeds "
+                     f"MAX_SCHEDULE_ENTRIES = {limit}")
+
+
 def _pow2_floor(x: int) -> int:
     return 1 << (max(int(x), 1).bit_length() - 1)
 
@@ -154,9 +202,19 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
                     ) -> BucketSchedule:
     """Digits (k, W, n) -> the schedule of the accumulate and the reduce.
     The reduce threads a window follow the busiest window: its chunks
-    plus its 2^(c-1) steps over ``events_per_thread``."""
+    plus its 2^(c-1) steps over ``events_per_thread``.  Raises ValueError
+    when ``schedule_bound`` exceeds ``MAX_SCHEDULE_ENTRIES``: the int32
+    arrays would wrap (``point_ranges`` splits such an MSM)."""
     k, W, n = digits.shape
     half = 1 << (c - 1)
+    bound = schedule_bound(k, n, W, c)
+    if bound > MAX_SCHEDULE_ENTRIES:
+        raise ValueError(
+            f"bucket_schedule: {k} sets x {W} windows x {n} points give up "
+            f"to E = {k * W * n} entries ({k * W * half} buckets), bound "
+            f"{bound} > MAX_SCHEDULE_ENTRIES = {MAX_SCHEDULE_ENTRIES}: the "
+            f"int32 schedule would wrap; split the points into ranges "
+            f"(point_ranges)")
     dev = digits.device
     flat = digits.reshape(-1)
     sel = torch.nonzero(flat & MAG_MASK).squeeze(1)     # (set, window, i)
@@ -441,17 +499,55 @@ class FusedMsm:
         dig = signed_digits(sets, self.total_bits, c)
         return sets.shape[0], c, dig.shape[1], bucket_schedule(dig, c)
 
+    def prepare_points(self, points: torch.Tensor) -> torch.Tensor:
+        """(3, L, n) with Z = 1 on this context's device -> the (n, 2 L)
+        int32 point-major table of ``msm_prepared``; it can be kept for a
+        fixed basis."""
+        L = self.curve.num_limbs
+        if points.dim() != 3 or points.shape[:2] != (3, L) \
+                or points.dtype != torch.int32:
+            raise ValueError(f"prepare_points: expected (3, {L}, n) int32 "
+                             f"points, got {tuple(points.shape)} "
+                             f"{points.dtype}")
+        if points.device != self.device:
+            raise ValueError(f"prepare_points: points on {points.device}, "
+                             f"the context on {self.device}")
+        return point_table(points)
+
+    def msm_prepared(self, table: torch.Tensor, scalars: torch.Tensor,
+                     complete: bool | None = None) -> torch.Tensor:
+        """sum_i scalars[i] P_i over a ``prepare_points`` table: scalars
+        (8, n) -> (3, L, 1), (k, 8, n) -> (3, L, k).  Past
+        ``MAX_SCHEDULE_ENTRIES`` the points are cut into ``point_ranges``
+        and the ranges' results added in order (K6).  ``complete``: see
+        ``resolve_complete``."""
+        sets = scalars if scalars.dim() == 3 else scalars[None]
+        n = table.shape[0]
+        if table.dim() != 2 or table.shape[1] != 2 * self.curve.num_limbs \
+                or sets.dim() != 3 or sets.shape[1:] != (8, n):
+            raise ValueError(f"msm_prepared: table {tuple(table.shape)}, "
+                             f"scalars {tuple(scalars.shape)}")
+        complete = resolve_complete(complete)
+        out = None
+        for a, b in point_ranges(n, sets.shape[0], self.total_bits):
+            part = self._bucket_msm(table[a:b], sets[..., a:b], complete)
+            out = part if out is None else self.curve.add(out, part)
+        return out
+
+    def _bucket_msm(self, table, sets, complete: bool) -> torch.Tensor:
+        k, c, W, sched = self.schedule(sets, table.shape[0])
+        fc = self.curve.f.consts
+        partials = msm_accumulate(fc, table, sched.entries, sched.chunk_off,
+                                  complete)
+        return msm_reduce(fc, partials, sched.bucket_chunks, k, W, c,
+                          sched.window_threads)
+
     def msm(self, points: torch.Tensor, scalars: torch.Tensor,
             complete: bool | None = None) -> torch.Tensor:
         """sum_i scalars[i] points[i] -> (3, L, 1); scalars (k, 8, n)
-        give (3, L, k).  ``complete``: see ``resolve_complete``."""
-        k, c, W, sched = self.schedule(scalars, points.shape[-1])
-        fc = self.curve.f.consts
-        partials = msm_accumulate(fc, point_table(points), sched.entries,
-                                  sched.chunk_off,
-                                  resolve_complete(complete))
-        return msm_reduce(fc, partials, sched.bucket_chunks, k, W, c,
-                          sched.window_threads)
+        give (3, L, k): ``prepare_points``, then ``msm_prepared``."""
+        return self.msm_prepared(self.prepare_points(points), scalars,
+                                 complete)
 
     def msm_many(self, points: torch.Tensor, scalars: torch.Tensor,
                  complete: bool | None = None) -> torch.Tensor:

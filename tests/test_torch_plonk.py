@@ -10,17 +10,23 @@ proof and rejects a tampered copy.  An SRS in the JAX layout, built with JAX
 ``CurveOps``, converts through ``utils/convert.py`` and commits identically.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from kzg_snark_tpu.models.plonk.device import PlonkDeviceCore as JaxCore
 from kzg_snark_tpu.models.plonk.indexer import Indexer
 from kzg_snark_tpu.models.plonk.prover import Prover
+from kzg_snark_tpu.ops.fr import fr_backend as jax_fr_backend
 from kzg_snark_tpu.ops.host.field import scalar_field
 from kzg_snark_tpu.rng import Rng
 from kzg_snark_tpu_torch.models.kzg import KZG as PortKZG
-from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+from kzg_snark_tpu_torch.models.plonk.device import (DeviceProver,
+                                                     PlonkDeviceCore)
 from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
+from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
 from kzg_snark_tpu_torch.rng import Rng as PortRng
 from kzg_snark_tpu_torch.utils.convert import device_srs_from_jax, to_plain
 
@@ -145,3 +151,50 @@ def test_jax_layout_srs_commits_identically():
     coeffs = [int(v) for v in rng.integers(0, 1 << 62, size=8)]
     assert to_plain(port.commit(ck_j, [coeffs])) == \
         to_plain(host.commit(ck_h, [coeffs]))
+
+
+@pytest.mark.parametrize("curve, m", [("bn254", 17), ("bn254", 64),
+                                      ("bls12_381", 64)])
+def test_open_at_matches_jax(curve, m):
+    """``PlonkDeviceCore.open_at`` at an int point equals the JAX method
+    (canonical ints, exact) and the port's ``open_dev`` at the same point
+    as a device scalar.  The JAX ``PlonkDeviceCore.open_at`` runs on a
+    core that holds only its field backend, the one attribute it reads:
+    the real core's NTT tables cost 40 s of XLA compiles on the CPU."""
+    jax_be = jax_fr_backend(curve)
+    jax_core = SimpleNamespace(be=jax_be)
+    core = PlonkDeviceCore(curve, N, "cpu")
+    r = core.be.modulus
+    rng = np.random.default_rng(m)
+    ints = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(m)]
+    point = int.from_bytes(rng.bytes(32), "little") % r
+    want = jax_be.to_ints(JaxCore.open_at(jax_core, jax_be.from_ints(ints),
+                                          point))
+    coeffs = core.be.from_ints(ints)
+    got = core.open_at(coeffs, point)
+    assert got.shape == (8, m - 1)
+    assert core.be.to_ints(got) == want
+    assert torch.equal(core.open_dev(coeffs, core.be.scalar(point)), got)
+    # the witness divides exactly: p(X) - p(z) = w(X) (X - z)
+    pz = sum(c * pow(point, i, r) for i, c in enumerate(ints)) % r
+    w = want + [0]
+    assert [(ints[i] - (pz if i == 0 else 0)) % r for i in range(m)] == [
+        ((w[i - 1] if i else 0) - point * w[i]) % r for i in range(m)]
+
+
+def test_open_at_checked_validates_its_output(monkeypatch):
+    """Under KZG_TPU_CHECKED the core's open_at output is validated as
+    ``plonk.open_at``: a non-canonical witness traps by that name."""
+    monkeypatch.setenv("KZG_TPU_CHECKED", "1")
+    p = to_tensor(ints_to_words([scalar_field("bn254").modulus]), "cpu")
+
+    def planted(self, coeffs, pows, inv_pows):
+        out = coeffs[:, :-1].clone()
+        out[:, 2] = p[:, 0]
+        return out
+    monkeypatch.setattr(PlonkDeviceCore, "_open", planted)
+    core = PlonkDeviceCore("bn254", 8, "cpu")
+    with pytest.raises(AssertionError, match=r"^plonk\.open_at: "
+                                             r"non-canonical output .* "
+                                             r"at column 2$"):
+        core.open_at(core.be.from_ints(range(1, 6)), 5)
