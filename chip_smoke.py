@@ -14,7 +14,13 @@ Phases, in order, one printed line or block each:
                  ladder (g1_ladder) at n in {1, 7, 256}, k in {1, 3} on
                  edge scalar sets and scale_const(r - 1), then one small
                  MSM's ladder (n = 256, k = 1) timed, with its bound, its
-                 critical-path floor and one thread's products in turn
+                 critical-path floor and one thread's products in turn;
+                 msm_reduce's two launches apart, the window sums beside
+                 their depth and the fold beside its critical-path floor
+                 and serial cost (reduce_floor); the bucket kernels on
+                 edge cases (the fold on fold_edge_partials at W = 32,
+                 c = 8; the accumulate and both reduce launches on a
+                 random and an all-zero set at c = 8)
   chains         fr_scan and fr_pow (K1 as the provers' chains use it) at
                  their edge widths and exponents against their plain
                  versions, their times, one narrow K1 / K7 launch; the SRS
@@ -120,8 +126,12 @@ waves 2^16 points make; the instructions of one Montgomery product and
 squaring of the PROD_CIOS and PROD_CHAIN policies at 8 and 12 words
 (cuobjdump -sass of csrc/probe/mont_probe.cu, by opcode: IMAD-class and
 all); those products' throughput on the card (probe_loop), each checked
-once against the plain product; and the PROD_CHAIN product's and
-squaring's latency on a lone warp (the ladder's floor).  The
+once against the plain product; the PROD_CHAIN product's and
+squaring's latency on a lone warp (the ladder's and the fold's floor);
+the bucket MSM's kernels' registers, stack and spills, and the
+accumulate's blocks an SM and waves at 2^16 points; and the window-sum
+piece's c-bit double-and-add on one warp (csrc/probe, held to the plain
+version), the window-sum launch's depth.  The
 kernels and bls phases also hold K6, K7 and K9 to their plain versions
 on edge batches (benchpoints.edge_batches: identities, P = Q, P = -Q,
 coordinates near p).  Each path (ntt scan, msm_one, msm_prepared and its
@@ -147,8 +157,13 @@ archive` unpacked under a gitignored directory), and prints one JSON line
 (``tree_times``): K6, K7 and K9 at 2^16 points against their plain
 versions and one small MSM (n = 256, k = 1) held to the host oracle on
 both curves, device and wall ms, and the launches of the two parity
-paths' device runs.  Run it once a tree, in turns on one card (parent,
-change, change, parent), to compare two trees.
+paths' device runs; the bucket MSM (``tree_bucket``): msm_accumulate,
+msm_reduce and its window sums and fold at 2^16 on both curves, one
+BN254 MSM at 2^16 and 2^20 (k = 1 and 8) unsplit and, at 2^20, cut into
+6 ranges, and one steady Marlin |H| = 2^14 prove under torch.profiler
+(device busy ms, idle share, the bucket kernels' ms).  Run it once a
+tree, in turns on one card (parent, change, change, parent), to compare
+two trees.
 """
 
 from __future__ import annotations
@@ -443,6 +458,16 @@ def _madd_products(torch, fq, p, qx, qy) -> float:
     return float(per.sum())
 
 
+def _resource(resources: dict, kernel: str, args: tuple) -> dict:
+    """-Xptxas -v figures of ``kernel<args>`` (demangled or mangled name;
+    bool arguments as "true" / "false")."""
+    mangled = "".join(f"Lb{int(a == 'true')}E" if a in ("true", "false")
+                      else f"Li{a}E" for a in args)
+    return next(v for k, v in resources.items()
+                if f"{kernel}<{', '.join(map(str, args))}>" in k
+                or f"{len(kernel)}{kernel}I{mangled}E" in k)
+
+
 def curve_occupancy(torch, resources: dict, rates: dict) -> None:
     """The curve kernels' registers and spills (-Xptxas -v), their resident
     blocks an SM (the CUDA occupancy calculator) and the waves that 2^16
@@ -456,9 +481,7 @@ def curve_occupancy(torch, resources: dict, rates: dict) -> None:
     for idx, kernel in enumerate(("k_g1_add", "k_g1_add_mixed",
                                   "k_g1_double")):
         for limbs in (8, 12):
-            res = next(v for k, v in resources.items()
-                       if f"{kernel}<{limbs}>" in k      # demangled
-                       or f"{len(kernel)}{kernel}ILi{limbs}E" in k)
+            res = _resource(resources, kernel, (limbs,))
             per_sm = lib.kzg_g1_blocks_per_sm(idx, limbs)
             if per_sm <= 0:
                 raise RuntimeError(f"occupancy of {kernel}<{limbs}>: "
@@ -472,10 +495,7 @@ def curve_occupancy(torch, resources: dict, rates: dict) -> None:
     kernel = "k_g1_ladder"
     for limbs in (8, 12):
         for tree in ("true", "false"):
-            res = next(v for k, v in resources.items()
-                       if f"{kernel}<{limbs}, {tree}>" in k
-                       or f"{len(kernel)}{kernel}ILi{limbs}ELb"
-                          f"{int(tree == 'true')}E" in k)
+            res = _resource(resources, kernel, (limbs, tree))
             log(f"[build] {kernel}<{limbs}, {tree}>: {res['registers']} "
                 f"registers, spills {res['spill_stores']} B st / "
                 f"{res['spill_loads']} B ld" + (
@@ -566,6 +586,96 @@ def product_latency(torch, dev) -> None:
             f"product {LATENCY[limbs]['mul']:.4f} us, squaring "
             f"{LATENCY[limbs]['sqr']:.4f} us ({LATENCY_REPS} dependent, "
             f"32 elements)")
+
+
+PIECE_C = 10                # window width of the piece probe: 2^16's c
+PIECE_REPS = 64             # dependent double-and-adds an element
+PIECE: dict = {}            # limbs -> us of one piece double-and-add, a warp
+
+
+def piece_scale_latency(torch, dev) -> None:
+    """The window-sum piece's c-bit double-and-add (msm.cuh
+    msm_piece_scale, c = PIECE_C) on one warp: 32 random points, each with
+    a multiplier in [1, 2^(c-1)] as the pieces' offsets are, PIECE_REPS
+    times in a dependent chain (kzg_probe_piece_scale), at 8 and 12 words.
+    One rep is held to the plain double-and-add word for word; the device
+    time over the count goes into PIECE (the window-sum launch's depth)."""
+    import numpy as np
+    from kzg_snark_tpu_torch.ops import cuda_fr
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.fr import fq_backend
+    from kzg_snark_tpu_torch.utils.build import check, probe_lib
+    lib = probe_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c, half = PIECE_C, 1 << (PIECE_C - 1)
+    mult = torch.from_numpy(np.random.default_rng(75).integers(
+        1, half + 1, 32)).to(dev)
+    for curve, limbs in (("bn254", 8), ("bls12_381", 12)):
+        fc = fq_backend(curve, dev).consts
+        pts = random_point_basis(curve, 32, seed=76, device=dev)[0]
+        out = torch.empty_like(pts)
+
+        def run(reps):
+            check(lib.kzg_probe_piece_scale(pts.data_ptr(), mult.data_ptr(),
+                                            32, c, reps, out.data_ptr(),
+                                            fc.ptr, stream), "piece_scale")
+        run(1)
+        f = cuda_fr.PlainField(fc)
+        acc = mk._identity(f, (32,), dev)
+        for bit in range(c - 1, -1, -1):
+            acc = mk._double_finite(f, acc)
+            take = ((mult >> bit) & 1).bool()
+            acc = torch.where(take[None, None],
+                              cuda_fr.add_formula(f, acc, pts), acc)
+        torch.cuda.synchronize()
+        if not torch.equal(out, acc):
+            raise AssertionError(f"piece double-and-add at {limbs} words "
+                                 f"!= plain")
+        ms, _ = timed_ms(torch, lambda: run(PIECE_REPS), 5)
+        PIECE[limbs] = ms * 1e3 / PIECE_REPS
+        lat = LATENCY[limbs]
+        serial = c * (DOUBLE[0] + ADD[0]) * lat["sqr"] + c * (
+            DOUBLE[1] + ADD[1]) * lat["mul"]
+        log(f"[build] window-sum piece double-and-add (c = {c}, one warp, "
+            f"multipliers in [1, {half}]), {limbs} words: == plain; "
+            f"{PIECE[limbs]:.4f} us; c doublings and c adds product by "
+            f"product at the lone-warp latencies {serial:.4f} us")
+
+
+def msm_occupancy(torch, dev, resources: dict, rates: dict) -> None:
+    """The bucket MSM's kernels: every instance's registers, stack and
+    spills (-Xptxas -v); the accumulate's resident blocks an SM (the CUDA
+    occupancy calculator) and the waves of the main path's chunk count
+    (one random set of 2^16 scalars)."""
+    from kzg_snark_tpu_torch.utils.build import cuda_lib
+    lib = cuda_lib()
+    threads = lib.kzg_msm_acc_threads()
+    sched, _, _ = bucket_schedule(torch, random_canonical(
+        torch, 1 << MAIN_LOG_N, 3, dev)[None])
+    chunks = sched.chunk_off.numel() - 1
+    blocks = -(-chunks // threads)
+    for limbs in (8, 12):
+        for complete in ("false", "true"):
+            res = _resource(resources, "k_msm_accumulate", (complete, limbs))
+            per_sm = lib.kzg_msm_acc_blocks_per_sm(int(complete == "true"),
+                                                   limbs)
+            if per_sm <= 0:
+                raise RuntimeError(f"occupancy of k_msm_accumulate<"
+                                   f"{complete}, {limbs}>: {per_sm}")
+            resident = per_sm * rates["sms"]
+            log(f"[build] k_msm_accumulate<{complete}, {limbs}>: "
+                f"{res['registers']} registers, stack {res['stack']} B, "
+                f"spills {res['spill_stores']} B st / {res['spill_loads']} "
+                f"B ld; {per_sm} blocks of {threads} an SM, {resident} "
+                f"resident; 2^{MAIN_LOG_N} points, c = 10: {chunks} chunks "
+                f"= {blocks} blocks = {blocks / resident:.2f} waves "
+                f"({-(-blocks // resident)})")
+        for kernel in ("k_msm_window_sums", "k_msm_horner"):
+            res = _resource(resources, kernel, (limbs,))
+            log(f"[build] {kernel}<{limbs}>: {res['registers']} registers, "
+                f"stack {res['stack']} B, spills {res['spill_stores']} B st "
+                f"/ {res['spill_loads']} B ld")
 
 
 def check_edge_batches(torch, fq, curve: str, pts) -> None:
@@ -855,6 +965,9 @@ def phase_kernels(torch, dev, results, rates):
             (part, sched.bucket_chunks),
             bound(rates, *reduce_work(sched, 1, W, c)), reps=10,
             plain_reps=1)
+    results["msm_reduce"].update(
+        reduce_parts(torch, rates, fq, part, sched, W, c))
+    check_bucket_edges(torch, fq, "bn254", pts)
     m = 4096
     skew = random_canonical(torch, m, 8, dev)
     skew = torch.stack([skew, skew[:, :1].expand(8, m).contiguous()])
@@ -1040,6 +1153,156 @@ def reduce_work(sched, sets, W, c, limbs=8):
     return (pt * C + 4 * (per.numel() + 1) + pt * sets,
             formula_products(limbs, ADD) * (C + top + sets * W)
             + formula_products(limbs, DOUBLE) * sets * c * (W - 1))
+
+
+def fold_work(W, c, pieces, limbs=8, sets=1):
+    """(bytes, products) of the fold launch: the block partials read and
+    the results written; the window totals' W (pieces - 1) complete adds,
+    c (W - 1) doublings and W adds a set."""
+    pt = 12 * limbs
+    return (pt * sets * (W * pieces + 1),
+            sets * (formula_products(limbs, ADD) * W * pieces
+                    + formula_products(limbs, DOUBLE) * c * (W - 1)))
+
+
+def window_sums_work(sched, sets, W, c, limbs=8):
+    """(bytes, products) of the window-sum launch this data needs: the
+    chunk partials and bucket offsets read, the W window totals a set
+    written; the complete adds of ``reduce_work`` but the fold's."""
+    C = sched.chunk_off.numel() - 1
+    nb, prods = reduce_work(sched, sets, W, c, limbs)
+    pt = 12 * limbs
+    return (pt * C + 4 * sched.bucket_chunks.numel() + pt * sets * W,
+            prods - sets * (formula_products(limbs, ADD) * W
+                            + formula_products(limbs, DOUBLE) * c * (W - 1)))
+
+
+def reduce_floor(W: int, c: int, pieces: int, limbs: int) -> dict:
+    """Critical-path floor and serial cost of one set's fold launch at the
+    lone-warp latencies of LATENCY: the window totals' halving tree,
+    ceil(log2 pieces) complete adds deep, then the Horner fold's c (W - 1)
+    doublings and W complete adds, each dependent on the one before.
+    Floor (``floor_ms``): each at its dependent depth (DOUBLE_DEPTH,
+    ADD_DEPTH); serial (``serial_ms``): every product of each in turn
+    (DOUBLE, ADD), what one thread pays."""
+    lat = LATENCY[limbs]
+
+    def us(ops):
+        return ops[0] * lat["sqr"] + ops[1] * lat["mul"]
+
+    dbl, adds = c * (W - 1), W + (pieces - 1).bit_length()
+    return {"floor_ms": (dbl * us(DOUBLE_DEPTH) + adds * us(ADD_DEPTH)) / 1e3,
+            "serial_ms": (dbl * us(DOUBLE) + adds * us(ADD)) / 1e3}
+
+
+def check_bucket_edges(torch, fq, curve: str, pts) -> None:
+    """The bucket kernels against their plain versions, word for word, on
+    edge cases: the fold launch on ``benchpoints.fold_edge_partials`` (W =
+    32, c = 8, four sets: a window total equal to the accumulator, its
+    opposite, empty windows, all-identity partials; 1, 3 and 4 pieces a
+    window); the accumulate (both adds) on [(i + 1) G] with every scalar
+    1 (a running sum meets its next point); then the accumulate and both
+    reduce launches at c = 8 on 2^12 points, one set random and one all
+    zero."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.benchpoints import (fold_edge_partials,
+                                                      generator_multiples)
+    from kzg_snark_tpu_torch.ops.fr import fr_backend
+    c, W, n = 8, 32, 1 << 12
+    for pieces in (1, 3, 4):
+        wp = fold_edge_partials(curve, pts, c, W, pieces)
+        if not torch.equal(mk.reduce_horner(fq, wp, 4, W, c),
+                           mk.horner_plain(fq, wp, 4, W, c)):
+            raise AssertionError(f"{curve} fold != plain on the edge "
+                                 f"partials, {pieces} pieces")
+    g_mult = generator_multiples(curve, 136, pts.device)
+    ones = torch.zeros((1, 8, 136), dtype=torch.int32, device=pts.device)
+    ones[0, 0] = 1
+    s1, _, _ = bucket_schedule(torch, ones, c)
+    xy1 = mk.point_table(g_mult)
+    for complete in (False, True):
+        if not torch.equal(
+                mk.msm_accumulate(fq, xy1, s1.entries, s1.chunk_off,
+                                  complete),
+                mk.msm_accumulate_plain(fq, xy1, s1.entries, s1.chunk_off,
+                                        complete)):
+            raise AssertionError(f"{curve} msm_accumulate (complete "
+                                 f"{complete}) != plain on [(i + 1) G]")
+    sets = torch.stack([random_canonical(torch, n, 26, pts.device),
+                        torch.zeros((8, n), dtype=torch.int32,
+                                    device=pts.device)])
+    bits = fr_backend(curve, pts.device).modulus.bit_length()
+    sched, W2, _ = bucket_schedule(torch, sets, c, bits=bits)
+    xy = mk.point_table(pts[..., :n])
+    for complete in (False, True):
+        part = mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off,
+                                 complete)
+        if not torch.equal(part, mk.msm_accumulate_plain(
+                fq, xy, sched.entries, sched.chunk_off, complete)):
+            raise AssertionError(f"{curve} msm_accumulate (complete "
+                                 f"{complete}) != plain, c = 8, zero set")
+    wparts = mk.reduce_window_sums(fq, part, sched.bucket_chunks, 2 * W2, c,
+                                   sched.window_threads)
+    if not torch.equal(wparts, mk.window_sums_plain(
+            fq, part, sched.bucket_chunks, 2 * W2, c, sched.window_threads)):
+        raise AssertionError(f"{curve} window sums != plain, c = 8, zero set")
+    got = mk.reduce_horner(fq, wparts, 2, W2, c)
+    if not torch.equal(got, mk.horner_plain(fq, wparts, 2, W2, c)) \
+            or not bool((got[2, :, 1] == 0).all()):
+        raise AssertionError(f"{curve} fold != plain, c = 8, zero set")
+    log(f"[kernels] {curve} bucket kernels == plain on the edge cases: fold "
+        f"at W = {W}, c = {c}, 1 / 3 / 4 pieces (total == accumulator, its "
+        f"opposite, empty windows, identity partials); accumulate on "
+        f"[(i + 1) G] with every scalar 1 (G + 2G meets 3G), both adds; "
+        f"accumulate, window "
+        f"sums and fold at c = {c} (W = {W2}) on 2^12 points, a random and "
+        f"an all-zero set")
+
+
+def reduce_parts(torch, rates, fq, part, sched, W, c, tag="") -> dict:
+    """``msm_reduce``'s two launches apart at one scalar set: the window
+    sums and the fold, each equal to its plain version word for word and
+    timed (``compare``).  The fold beside its floor and serial cost
+    (``reduce_floor``); the window sums beside their depth: the longest
+    piece's events, its c-bit double-and-add (PIECE), its last add and the
+    block tree's levels, the adds at one thread's product-by-product
+    latency.  Returns the figures for the kernels line."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    L = fq.num_limbs
+    tpw = sched.window_threads
+    block, pieces = mk.reduce_shape(tpw)
+    wparts = mk.reduce_window_sums(fq, part, sched.bucket_chunks, W, c, tpw)
+    got: dict = {}
+    compare(torch, f"{tag}msm_reduce window sums", got,
+            lambda u, bc: mk.reduce_window_sums(fq, u, bc, W, c, tpw),
+            lambda u, bc: mk.window_sums_plain(fq, u, bc, W, c, tpw),
+            (part, sched.bucket_chunks),
+            bound(rates, *window_sums_work(sched, 1, W, c, L)), reps=10,
+            plain_reps=1)
+    compare(torch, f"{tag}msm_reduce fold", got,
+            lambda u: mk.reduce_horner(fq, u, 1, W, c),
+            lambda u: mk.horner_plain(fq, u, 1, W, c), (wparts,),
+            bound(rates, *fold_work(W, c, pieces, L)), reps=10, plain_reps=1)
+    sums = got[f"{tag}msm_reduce window sums"]["ms"]
+    fold = got[f"{tag}msm_reduce fold"]["ms"]
+    fl = reduce_floor(W, c, pieces, L)
+    half = 1 << (c - 1)
+    per = sched.bucket_chunks.diff().reshape(W, half).sum(dim=1)
+    events = -(-(int(per.max()) + half) // tpw)
+    lat = LATENCY[L]
+    add_us = ADD[0] * lat["sqr"] + ADD[1] * lat["mul"]
+    depth = ((events + 1 + (block - 1).bit_length()) * add_us
+             + PIECE[L]) / 1e3
+    log(f"[kernels] {tag}msm_reduce at {L} words, c = {c}, W = {W}, "
+        f"{tpw} threads a window ({pieces} blocks): window sums "
+        f"{sums:.4f} ms against a depth of {depth:.4f} ms ({events} events "
+        f"a piece, its double-and-add {PIECE[L]:.4f} us, "
+        f"{(block - 1).bit_length()} tree levels); fold {fold:.4f} ms "
+        f"against its floor {fl['floor_ms']:.4f} ms ({fold / fl['floor_ms']:.2f}"
+        f"x) and one thread's products in turn {fl['serial_ms']:.4f} ms")
+    return {"window_sums_ms": sums, "fold_ms": fold,
+            "fold_floor_ms": fl["floor_ms"], "fold_serial_ms": fl["serial_ms"],
+            "window_sums_depth_ms": depth}
 
 
 PATH_WIDTHS: dict = {}      # path -> {kernel: {width class: launches}}
@@ -1695,6 +1958,9 @@ def phase_bls_kernels(torch, dev, rows, rates, basis, ks):
         (part, sched.bucket_chunks),
         bound(rates, *reduce_work(sched, 1, W, c, L)), reps=10,
         plain_reps=1)
+    rows["msm_reduce"][-1].update(
+        reduce_parts(torch, rates, fq, part, sched, W, c, "bls "))
+    check_bucket_edges(torch, fq, "bls12_381", pts)
 
 
 def phase_bls(torch, dev, paths, rates, rows):
@@ -2091,22 +2357,29 @@ def phase_marlin(torch, dev, paths, curve="bn254", name="marlin"):
     return lambda: times["prover"].prove(ipk, x, w)
 
 
-def profile_run(torch, label, fn):
+def profile_run(torch, label, fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, device busy time
     (the union of the card's activity intervals), idle share and the
-    largest device times by kernel."""
+    largest device times by kernel, logged; returned with the bucket
+    MSM's kernels' device ms (``msm_ms``, by kernel name)."""
     wall_ms, spans, prof = trace(torch, fn)
     busy = busy_ms(spans)
     attr = ("self_device_time_total"
             if hasattr(prof.key_averages()[0], "self_device_time_total")
             else "self_cuda_time_total")
-    top = sorted(((getattr(k, attr) / 1e3, k.count, k.key)
-                  for k in prof.key_averages() if getattr(k, attr) > 0),
-                 reverse=True)[:8]
+    by_kernel = sorted(((getattr(k, attr) / 1e3, k.count, k.key)
+                        for k in prof.key_averages()
+                        if getattr(k, attr) > 0), reverse=True)
+    top = by_kernel[:8]
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiler on), device "
         f"busy {busy:.3f} ms over {len(spans)} device activities, idle "
         f"share {1 - busy / wall_ms:.4f}; device ms by kernel: "
         + "; ".join(f"{name[:48]} {ms:.3f} ({n})" for ms, n, name in top))
+    msm = {k: sum(ms for ms, _, name in by_kernel if k in name)
+           for k in ("k_msm_accumulate", "k_msm_window_sums",
+                     "k_msm_horner")}
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "msm_ms": msm}
 
 
 # ---------------------------------------------------------------------------
@@ -2546,6 +2819,119 @@ def tree_times(root: str) -> dict:
         fn(dev)
         torch.cuda.synchronize()
         out[name] = launch_counts()
+    out.update(tree_bucket(torch, dev, rates))
+    return out
+
+
+def tree_bucket(torch, dev, rates) -> dict:
+    """The bucket MSM with the package on sys.path (public entry points
+    only): on both curves the msm_accumulate and msm_reduce rows at 2^16
+    points and the reduction's two launches apart, each equal to its plain
+    version; BN254 one MSM at 2^16 and 2^20 (the 2^18 basis tiled,
+    complete adds), k = 1 and 8, through prepare_points and msm_prepared,
+    and the same 2^20 MSMs forced into PREPARED_RANGES point ranges; one
+    steady Marlin |H| = 2^14 prove under torch.profiler (after one
+    profiled prove that pays the profiler's start).  Device ms."""
+    from kzg_snark_tpu_torch.models.marlin.device import DeviceProver
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    from kzg_snark_tpu_torch.ops.limbs import to_tensor
+    from kzg_snark_tpu_torch.ops.msm import msm_context
+    from kzg_snark_tpu_torch.rng import Rng
+    from kzg_snark_tpu_torch.utils.fixtures import synthetic_r1cs
+
+    out: dict = {}
+    n = 1 << MAIN_LOG_N
+    for curve in ("bn254", "bls12_381"):
+        fq = fq_backend(curve, dev).consts
+        L = fq.num_limbs
+        pts, _ = random_point_basis(curve, n, seed=5, device=dev)
+        xy = mk.point_table(pts)
+        bits = fr_backend(curve, dev).modulus.bit_length()
+        sched, W, c = bucket_schedule(
+            torch, random_canonical(torch, n, 3, dev)[None], bits=bits)
+        tpw = sched.window_threads
+        rows: dict = {}
+        compare(torch, "msm_accumulate", rows,
+                lambda u, e, o: mk.msm_accumulate(fq, u, e, o, False),
+                lambda u, e, o: mk.msm_accumulate_plain(fq, u, e, o, False),
+                (xy, sched.entries, sched.chunk_off),
+                bound(rates, *accumulate_work(n, sched, L)), reps=10,
+                plain_reps=1)
+        part = mk.msm_accumulate(fq, xy, sched.entries, sched.chunk_off,
+                                 False)
+        compare(torch, "msm_reduce", rows,
+                lambda u, bc: mk.msm_reduce(fq, u, bc, 1, W, c, tpw),
+                lambda u, bc: mk.msm_reduce_plain(fq, u, bc, 1, W, c, tpw),
+                (part, sched.bucket_chunks),
+                bound(rates, *reduce_work(sched, 1, W, c, L)), reps=10,
+                plain_reps=1)
+        compare(torch, "window sums", rows,
+                lambda u, bc: mk.reduce_window_sums(fq, u, bc, W, c, tpw),
+                lambda u, bc: mk.window_sums_plain(fq, u, bc, W, c, tpw),
+                (part, sched.bucket_chunks),
+                bound(rates, *window_sums_work(sched, 1, W, c, L)), reps=10,
+                plain_reps=1)
+        wparts = mk.reduce_window_sums(fq, part, sched.bucket_chunks, W, c,
+                                       tpw)
+        compare(torch, "fold", rows,
+                lambda u: mk.reduce_horner(fq, u, 1, W, c),
+                lambda u: mk.horner_plain(fq, u, 1, W, c), (wparts,),
+                bound(rates, *fold_work(W, c, tpw // mk.reduce_shape(tpw)[0],
+                                        L)), reps=10, plain_reps=1)
+        out[f"{curve} bucket 2^16 ms"] = {k_: v["ms"]
+                                         for k_, v in rows.items()}
+
+    ctx = msm_context("bn254", dev)
+    fm = ctx.fused
+    base, _ = random_point_basis("bn254", 1 << PREPARED_BASIS_LOG_N,
+                                 seed=20261017, device=dev)
+    msm_ms: dict = {}
+    for lg in PREPARED_LOG_N:
+        m = 1 << lg
+        tiled = m > base.shape[-1]
+        table = fm.prepare_points(
+            base.repeat(1, 1, max(1, m // base.shape[-1]))[..., :m]
+            .contiguous())
+        for k in PREPARED_SETS:
+            sc = to_tensor(random_sets(k, m, 9400 + lg + k), dev)
+            sc = sc if k > 1 else sc[0]
+            msm_ms[f"2^{lg} k={k}"] = timed_ms(
+                torch, lambda: fm.msm_prepared(table, sc, complete=tiled),
+                3)[0]
+            if lg != PREPARED_LOG_N[-1]:
+                continue
+            want = fm.msm_prepared(table, sc, complete=tiled)
+            size = -(-m // PREPARED_RANGES)
+            limit0 = mk.MAX_SCHEDULE_ENTRIES
+            try:
+                mk.MAX_SCHEDULE_ENTRIES = k * mk.num_windows(
+                    fm.total_bits, mk.window_bits(size)) * size
+                ranges = len(mk.point_ranges(m, k, fm.total_bits))
+                got = fm.msm_prepared(table, sc, complete=True)
+                msm_ms[f"2^{lg} k={k} split"] = timed_ms(
+                    torch, lambda: fm.msm_prepared(table, sc, complete=True),
+                    3)[0]
+            finally:
+                mk.MAX_SCHEDULE_ENTRIES = limit0
+            if fm.curve.to_affine_ints(got) != fm.curve.to_affine_ints(want):
+                raise AssertionError(f"split MSM 2^{lg} k = {k} differs")
+            msm_ms[f"2^{lg} k={k} split ranges"] = ranges
+    out["msm_device_ms"] = msm_ms
+    del base, table
+
+    A, B, Cm, z = synthetic_r1cs(1 << MARLIN_LOG_H, curve_type="bn254")
+    x, w = z[:MARLIN_PUBLIC], z[MARLIN_PUBLIC:]
+    m = len(A.nonzero_positions())
+    keys = DeviceProver("bn254", rng=Rng(900), device=dev).preprocess(
+        A, B, Cm, 6 * m, tau=MARLIN_TAU)
+    prover = DeviceProver("bn254", rng=Rng(901), device=dev)
+    prover.prove(keys[0], x, w)
+    trace(torch, lambda: prover.prove(keys[0], x, w))   # the profiler's start
+    out["marlin_profile"] = profile_run(
+        torch, "Marlin |H|=2^14 steady prove",
+        lambda: prover.prove(keys[0], x, w))
     return out
 
 
@@ -2579,9 +2965,11 @@ def main() -> int:
     for name, res in sorted(resources.items()):
         log(f"[build] {json.dumps(res, sort_keys=True)} {name}")
     curve_occupancy(torch, resources, rates)
+    msm_occupancy(torch, dev, resources, rates)
     product_sass(lib_path)
     product_throughput(torch, dev, rates)
     product_latency(torch, dev)
+    piece_scale_latency(torch, dev)
 
     results: dict = {}
     paths: dict = {}

@@ -40,19 +40,17 @@ KZG_HD void g1_set_identity(G1J<NL>& P, const FieldConsts<NL>& F) {
 }
 
 // Product policies: which Montgomery product (and squaring) the formulas
-// run.  PROD_CIOS: fe_mul, straight-line (the default); PROD_COMPACT:
-// fe_mul_compact, the small loop body, for long chains on few threads (the
-// MSM reduction); PROD_CHAIN: fe_mul_chain and the true squaring
-// fe_sqr_chain (chain.cuh), for K6, K7, K9 and the ladder.
-enum { PROD_CIOS = 0, PROD_COMPACT = 1, PROD_CHAIN = 2 };
+// run.  PROD_CIOS: fe_mul, straight-line (the default); PROD_CHAIN:
+// fe_mul_chain and the true squaring fe_sqr_chain (chain.cuh), for K6, K7,
+// K9, the ladder and the bucket MSM.  (Value 1 was a rolled CIOS loop, no
+// longer used.)
+enum { PROD_CIOS = 0, PROD_CHAIN = 2 };
 
 template <int POL, int NL>
 KZG_HD void fmul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
                  const FieldConsts<NL>& F) {
   if (POL == PROD_CHAIN) {
     fe_mul_chain(r, a, b, F);
-  } else if (POL == PROD_COMPACT) {
-    fe_mul_compact(r, a, b, F);
   } else {
     fe_mul(r, a, b, F);
   }
@@ -161,92 +159,11 @@ KZG_HD void g1_add(G1J<NL>& R, const G1J<NL>& P, const G1J<NL>& Q,
   fe_copy<NL>(R.Z, Z3);
 }
 
-// Shared general case of madd-2007-bl: P + (qx, qy, 1).  Returns H and Rr so
-// the complete variant can classify the equal and opposite cases.
-template <int POL = PROD_CIOS, int NL>
-KZG_HD void g1_madd_general(G1J<NL>& R, uint32_t H[NL], uint32_t Rr[NL],
-                            const G1J<NL>& P, const uint32_t qx[NL],
-                            const uint32_t qy[NL], const FieldConsts<NL>& F) {
-  uint32_t Z1Z1[NL], U2[NL], S2[NL];
-  fsqr<POL>(Z1Z1, P.Z, F);
-  fmul<POL>(U2, qx, Z1Z1, F);
-  fmul<POL>(S2, qy, P.Z, F);
-  fmul<POL>(S2, S2, Z1Z1, F);
-  fe_sub(H, U2, P.X, F);
-  fe_sub(Rr, S2, P.Y, F);
-  uint32_t HH[NL], I[NL], J[NL], r2[NL], V[NL], X3[NL], Y3[NL], Z3[NL], t[NL];
-  fsqr<POL>(HH, H, F);
-  fe_double(I, HH, F);
-  fe_double(I, I, F);
-  fmul<POL>(J, H, I, F);
-  fe_double(r2, Rr, F);
-  fmul<POL>(V, P.X, I, F);
-  fsqr<POL>(X3, r2, F);
-  fe_sub(X3, X3, J, F);
-  fe_double(t, V, F);
-  fe_sub(X3, X3, t, F);
-  fe_sub(t, V, X3, F);
-  fmul<POL>(Y3, r2, t, F);
-  fmul<POL>(t, P.Y, J, F);
-  fe_double(t, t, F);
-  fe_sub(Y3, Y3, t, F);
-  fe_add(t, P.Z, H, F);
-  fsqr<POL>(t, t, F);
-  fe_sub(t, t, Z1Z1, F);
-  fe_sub(Z3, t, HH, F);
-  fe_copy<NL>(R.X, X3);
-  fe_copy<NL>(R.Y, Y3);
-  fe_copy<NL>(R.Z, Z3);
-}
-
-// Incomplete mixed add (RegCurve.add_mixed_fast): exact when P is the
-// identity and when P == -q; P == q yields the identity instead of 2q.
-template <int POL = PROD_CIOS, int NL>
-KZG_HD void g1_add_mixed_fast(G1J<NL>& R, const G1J<NL>& P,
-                              const uint32_t qx[NL], const uint32_t qy[NL],
-                              const FieldConsts<NL>& F) {
-  if (fe_is_zero<NL>(P.Z)) {
-    fe_copy<NL>(R.X, qx);
-    fe_copy<NL>(R.Y, qy);
-    fe_copy<NL>(R.Z, F.one);
-    return;
-  }
-  uint32_t H[NL], Rr[NL];
-  g1_madd_general<POL>(R, H, Rr, P, qx, qy, F);
-}
-
-// Complete mixed add (RegCurve.add_mixed); q must be a finite point.
-template <int POL = PROD_CIOS, int NL>
-KZG_HD void g1_add_mixed(G1J<NL>& R, const G1J<NL>& P, const uint32_t qx[NL],
-                         const uint32_t qy[NL], const FieldConsts<NL>& F) {
-  if (fe_is_zero<NL>(P.Z)) {
-    fe_copy<NL>(R.X, qx);
-    fe_copy<NL>(R.Y, qy);
-    fe_copy<NL>(R.Z, F.one);
-    return;
-  }
-  G1J<NL> S;
-  uint32_t H[NL], Rr[NL];
-  g1_madd_general<POL>(S, H, Rr, P, qx, qy, F);
-  if (fe_is_zero<NL>(H)) {
-    if (fe_is_zero<NL>(Rr)) {
-      g1_double<POL>(R, P, F);
-    } else {
-      fe_copy<NL>(R.X, F.one);
-      fe_copy<NL>(R.Y, F.one);
-      for (int k = 0; k < NL; k++) R.Z[k] = 0;
-    }
-    return;
-  }
-  R = S;
-}
-
 // Thread bodies of the K6 / K7 / K9 replacements: one point per thread.
 //
 // K6, K7 and K9 run the product policy PROD_CHAIN.  Their formulas are those
-// of g1_add (add-2007-bl) and
-// g1_add_mixed (madd-2007-bl) with the same case analysis, so every
-// representative is theirs; the order is the registers': each coordinate is
+// of g1_add (add-2007-bl) and of madd-2007-bl (RegCurve.add_mixed) with
+// RegCurve's case analysis, so every representative is theirs; the order is the registers': each coordinate is
 // loaded where it is first used, each output coordinate stored as soon as it
 // is known, so fewer field elements are live at once.  The rare cases (an
 // identity operand, P = Q, P = -Q) read their operands again from memory.

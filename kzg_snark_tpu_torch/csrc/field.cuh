@@ -194,52 +194,6 @@ KZG_HD void fe_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
   fe_select<NL>(r, borrow == 0 || t[NL] != 0, d, t);
 }
 
-// The same product as fe_mul with CIOS's outer loop kept rolled (b walks by
-// register shifts, so nothing goes to local memory): about a tenth of the
-// code, which the instruction cache holds.  For kernels whose time is a few
-// threads' long chains of curve operations (the MSM reduction's window sums
-// run in half the time with it on an H100); where many threads run,
-// fe_mul's straight-line code is faster.
-template <int NL>
-KZG_HD void fe_mul_compact(uint32_t r[NL], const uint32_t a[NL],
-                           const uint32_t b[NL], const FieldConsts<NL>& F) {
-  uint32_t t[NL + 2], bb[NL];
-#pragma unroll
-  for (int i = 0; i < NL + 2; i++) t[i] = 0;
-  fe_copy<NL>(bb, b);
-#pragma unroll 1
-  for (int i = 0; i < NL; i++) {
-    uint32_t bi = bb[0];
-#pragma unroll
-    for (int k = 0; k < NL - 1; k++) bb[k] = bb[k + 1];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; j++) {
-      uint64_t s = (uint64_t)a[j] * bi + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[NL] + c;
-    t[NL] = (uint32_t)s;
-    t[NL + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * F.pinv;
-    s = (uint64_t)m * F.p[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NL; j++) {
-      s = (uint64_t)m * F.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[NL] + c;
-    t[NL - 1] = (uint32_t)s;
-    t[NL] = t[NL + 1] + (uint32_t)(s >> 32);
-  }
-  uint32_t d[NL];
-  uint32_t borrow = fe_sub_raw<NL>(d, t, F.p);
-  fe_select<NL>(r, borrow == 0 || t[NL] != 0, d, t);
-}
-
 template <int NL>
 KZG_HD void fe_square(uint32_t r[NL], const uint32_t a[NL],
                       const FieldConsts<NL>& F) {

@@ -45,9 +45,9 @@
 // is one thread's chain of bit_length(e) squarings; at 2^18 it is bound by
 // its 32-bit products (about 380 x 136 an element for e = r - 2).
 //
-// Products: every pass uses the unrolled fe_mul.  The rolled
-// fe_mul_compact, which halved the latency-bound chains of the MSM
-// reduction, was slower here on an H100 80GB HBM3 at 700 W, both in the
+// Products: every pass uses the unrolled fe_mul.  A CIOS product with its
+// outer loop rolled (the MSM reduction's product until it took PROD_CHAIN)
+// was slower here on an H100 80GB HBM3 at 700 W, both in the
 // single-block totals pass and in fr_pow (fr_pow, e = r - 2: 0.398 against
 // 0.247 ms at width 1, 4.02 against 2.74 ms at 2^18; the product scan at
 // 2^16: 0.0401 against 0.0345 ms; chip_smoke.py, see PERF.md).

@@ -224,27 +224,32 @@ static int impl_msm_window_sums(const void* partials, int64_t chunks,
                        (const uint32_t*)partials, chunks,
                        (const int32_t*)bco, half, c, F);
     for (int64_t s = threads / 2; s > 0; s >>= 1)
-      for (int64_t t = 0; t < s; t++)
-        g1_add<PROD_COMPACT>(sh[t], sh[t], sh[t + s], F);
+      for (int64_t t = 0; t < s; t++) msm_block_tree_step(sh, t, s, F);
     g1_store((uint32_t*)wparts, blocks, blk, sh[0]);
   }
   delete[] sh;
   return 0;
 }
 
+// The fold launch: each set's block partials, the window totals' tree level
+// by level, then the Horner fold, whose lane-level products the host runs
+// one after another (msm.cuh lanes_level).
 template <int NL>
 static int impl_msm_horner(const void* wparts, int64_t sets, int windows,
                            int pieces, int c, void* out,
                            const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
-  G1J<NL>* S = new G1J<NL>[windows];
-  int64_t m = sets * windows * pieces;
+  const int per = windows * pieces;
+  G1J<NL>* S = new G1J<NL>[per];
+  int64_t m = sets * per;
   for (int64_t s = 0; s < sets; s++) {
-    for (int w = 0; w < windows; w++)
-      msm_window_total(S[w], (const uint32_t*)wparts, m, s * windows + w,
-                       pieces, F);
+    for (int i = 0; i < per; i++)
+      g1_load(S[i], (const uint32_t*)wparts, m, s * per + i);
+    for (int k = pieces; k > 1; k = (k + 1) / 2)
+      for (int i = 0; i < windows * (k / 2); i++)
+        msm_total_pair(S, pieces, k, i, F);
     G1J<NL> acc;
-    msm_horner(acc, S, windows, c, F);
+    msm_horner(acc, S, windows, pieces, c, 0, F);
     g1_store((uint32_t*)out, sets, s, acc);
   }
   delete[] S;

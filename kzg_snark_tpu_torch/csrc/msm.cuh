@@ -15,6 +15,10 @@
 //            chunk_off[c + 1]); chunks are in bucket order.
 // bco:       (nb + 1,) int32, bucket b owns chunks [bco[b], bco[b + 1]).
 // partials:  (3, NL, C) uint32 Jacobian, one per chunk.
+//
+// Every product and squaring is the carry-chain one (PROD_CHAIN,
+// chain.cuh); the formulas are curve.cuh's, so every Jacobian
+// representative is that of the plain versions.
 #pragma once
 
 #include "curve.cuh"
@@ -26,10 +30,10 @@ KZG_HD void g1_select(G1J<NL>& R, bool c, const G1J<NL>& A, const G1J<NL>& B) {
   fe_select<NL>(R.Z, c, A.Z, B.Z);
 }
 
-// Entry -> the affine point (x, y), y negated for a negative digit.
+// Entry -> its point's affine words (x, y), the sign not applied.
 template <int NL>
-KZG_HD void msm_load_entry(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
-                           int32_t entry, const FieldConsts<NL>& F) {
+KZG_HD void msm_load_point(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
+                           int32_t entry) {
   const uint32_t* p = xy + (int64_t)((uint32_t)entry >> 1) * 2 * NL;
 #ifdef __CUDA_ARCH__
   // 16-byte loads: a row is 8 NL bytes (64 or 96), so each stays aligned.
@@ -50,40 +54,203 @@ KZG_HD void msm_load_entry(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
     y[k] = p[NL + k];
   }
 #endif
-  if (entry & 1) fe_neg(y, y, F);
+}
+
+// The adds of the accumulate and the window sums, in place on a point in
+// registers: the formulas and case analysis of RegCurve.add_mixed /
+// add_mixed_fast (madd-2007-bl) and g1_add (add-2007-bl), so every
+// representative is theirs, in the order of K6's and K9's thread bodies:
+// each input is used up as early as it can be and Z3 is known before X3,
+// so fewer field elements are live at once (the carry chains are asm
+// blocks, which the compiler keeps in source order).  P is kept whole up
+// to the case split: its doubling is the P = Q case.
+
+// P = 2 P (dbl-2009-l, g1_double's values), Z3 = 2 Y Z first.
+template <int NL>
+KZG_HD void g1_double_acc(G1J<NL>& P, const FieldConsts<NL>& F) {
+  uint32_t A[NL], B[NL], C[NL], D[NL];
+  fsqr<PROD_CHAIN>(B, P.Y, F);
+  fmul<PROD_CHAIN>(P.Z, P.Y, P.Z, F);
+  fe_double(P.Z, P.Z, F);                          // Z3
+  fsqr<PROD_CHAIN>(A, P.X, F);
+  fsqr<PROD_CHAIN>(C, B, F);
+  fe_add(D, P.X, B, F);
+  fsqr<PROD_CHAIN>(D, D, F);
+  fe_sub(D, D, A, F);
+  fe_sub(D, D, C, F);
+  fe_double(D, D, F);                              // D
+  fe_double(B, A, F);
+  fe_add(A, B, A, F);                              // E = 3A
+  fsqr<PROD_CHAIN>(P.X, A, F);
+  fe_double(B, D, F);
+  fe_sub(P.X, P.X, B, F);                          // X3 = E^2 - 2D
+  fe_sub(D, D, P.X, F);
+  fmul<PROD_CHAIN>(D, A, D, F);
+  fe_double(C, C, F);
+  fe_double(C, C, F);
+  fe_double(C, C, F);                              // 8C
+  fe_sub(P.Y, D, C, F);                            // Y3
+}
+
+// P += (qx, qy), q finite; COMPLETE: RegCurve.add_mixed, else
+// add_mixed_fast (exact but where P = q, which gives the identity).
+// next() runs once, where qx and qy are used up (after the rare doubling
+// of the complete add): the accumulate loads its next point into their
+// registers there.
+template <bool COMPLETE, int NL, typename Next>
+KZG_HD void g1_madd_acc(G1J<NL>& P, const uint32_t qx[NL],
+                        const uint32_t qy[NL], const FieldConsts<NL>& F,
+                        Next next) {
+  if (fe_is_zero<NL>(P.Z)) {
+    fe_copy<NL>(P.X, qx);
+    fe_copy<NL>(P.Y, qy);
+    fe_copy<NL>(P.Z, F.one);
+    next();
+    return;
+  }
+  uint32_t Z1Z1[NL], H[NL], Rr[NL];
+  fsqr<PROD_CHAIN>(Z1Z1, P.Z, F);
+  fmul<PROD_CHAIN>(H, qx, Z1Z1, F);                // U2
+  fe_sub(H, H, P.X, F);                            // H = U2 - X1
+  fmul<PROD_CHAIN>(Rr, qy, P.Z, F);
+  fmul<PROD_CHAIN>(Rr, Rr, Z1Z1, F);               // S2
+  fe_sub(Rr, Rr, P.Y, F);                          // S2 - Y1
+  if (COMPLETE && fe_is_zero<NL>(H)) {
+    if (fe_is_zero<NL>(Rr)) {
+      g1_double_acc(P, F);
+    } else {
+      g1_set_identity(P, F);
+    }
+    next();
+    return;
+  }
+  next();
+  uint32_t HH[NL], t[NL];
+  fsqr<PROD_CHAIN>(HH, H, F);
+  fe_add(t, P.Z, H, F);
+  fsqr<PROD_CHAIN>(t, t, F);
+  fe_sub(t, t, Z1Z1, F);
+  fe_sub(P.Z, t, HH, F);                           // Z3
+  fe_double(HH, HH, F);
+  fe_double(HH, HH, F);                            // I = 4 HH
+  uint32_t* const J = Z1Z1;
+  fmul<PROD_CHAIN>(J, H, HH, F);
+  fmul<PROD_CHAIN>(t, P.X, HH, F);                 // V
+  fe_double(Rr, Rr, F);                            // r
+  fsqr<PROD_CHAIN>(P.X, Rr, F);
+  fe_sub(P.X, P.X, J, F);
+  fe_double(H, t, F);
+  fe_sub(P.X, P.X, H, F);                          // X3
+  fe_sub(t, t, P.X, F);
+  fmul<PROD_CHAIN>(t, Rr, t, F);
+  fmul<PROD_CHAIN>(J, P.Y, J, F);
+  fe_double(J, J, F);
+  fe_sub(P.Y, t, J, F);                            // Y3
+}
+
+// Complete P += Q (g1_add); Q may alias P.
+template <int NL>
+KZG_HD void g1_add_acc(G1J<NL>& P, const G1J<NL>& Q,
+                       const FieldConsts<NL>& F) {
+  if (fe_is_zero<NL>(P.Z)) {
+    P = Q;
+    return;
+  }
+  if (fe_is_zero<NL>(Q.Z)) return;
+  uint32_t Z1Z1[NL], Z2Z2[NL], ZZ[NL], U1[NL], H[NL], S1[NL], Rr[NL];
+  fsqr<PROD_CHAIN>(Z1Z1, P.Z, F);
+  fsqr<PROD_CHAIN>(Z2Z2, Q.Z, F);
+  fe_add(ZZ, P.Z, Q.Z, F);
+  fsqr<PROD_CHAIN>(ZZ, ZZ, F);
+  fe_sub(ZZ, ZZ, Z1Z1, F);
+  fe_sub(ZZ, ZZ, Z2Z2, F);                         // (Z1 + Z2)^2 - Z1Z1 - Z2Z2
+  fmul<PROD_CHAIN>(U1, P.X, Z2Z2, F);
+  fmul<PROD_CHAIN>(H, Q.X, Z1Z1, F);               // U2
+  fe_sub(H, H, U1, F);                             // H = U2 - U1
+  fmul<PROD_CHAIN>(S1, P.Y, Q.Z, F);
+  fmul<PROD_CHAIN>(S1, S1, Z2Z2, F);
+  fmul<PROD_CHAIN>(Rr, Q.Y, P.Z, F);
+  fmul<PROD_CHAIN>(Rr, Rr, Z1Z1, F);               // S2
+  fe_sub(Rr, Rr, S1, F);                           // S2 - S1
+  if (fe_is_zero<NL>(H)) {
+    if (fe_is_zero<NL>(Rr)) {
+      g1_double_acc(P, F);
+    } else {
+      g1_set_identity(P, F);
+    }
+    return;
+  }
+  fmul<PROD_CHAIN>(P.Z, ZZ, H, F);                 // Z3
+  uint32_t* const I = Z1Z1;
+  uint32_t* const J = Z2Z2;
+  fsqr<PROD_CHAIN>(I, H, F);
+  fe_double(I, I, F);
+  fe_double(I, I, F);                              // I = 4 HH
+  fmul<PROD_CHAIN>(J, H, I, F);
+  fmul<PROD_CHAIN>(U1, U1, I, F);                  // V
+  fe_double(Rr, Rr, F);                            // r
+  fsqr<PROD_CHAIN>(P.X, Rr, F);
+  fe_sub(P.X, P.X, J, F);
+  fe_double(H, U1, F);
+  fe_sub(P.X, P.X, H, F);                          // X3
+  fe_sub(U1, U1, P.X, F);
+  fmul<PROD_CHAIN>(U1, Rr, U1, F);
+  fmul<PROD_CHAIN>(J, S1, J, F);
+  fe_double(J, J, F);
+  fe_sub(P.Y, U1, J, F);                           // Y3
 }
 
 // Chunk c: its first point is loaded with Z = 1 (not added to the identity,
 // so the incomplete add never meets acc == q on a duplicate-free basis),
-// the rest are mixed-added in entry order.
+// the rest are mixed-added in entry order, y negated for a negative digit.
+// The next entry's gather is issued inside the current add, once the
+// current point is used up (into the same registers), so its random read
+// overlaps the add's products.
 template <bool COMPLETE, int NL>
 KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
                                   const int32_t* entries,
                                   const int32_t* chunk_off, uint32_t* partials,
                                   int64_t chunks, const FieldConsts<NL>& F) {
-  int32_t s = chunk_off[c], e = chunk_off[c + 1];
+  const int32_t s = chunk_off[c], e = chunk_off[c + 1];
   G1J<NL> acc;
-  msm_load_entry(acc.X, acc.Y, xy, entries[s], F);
+  int32_t ent = entries[s];
+  msm_load_point<NL>(acc.X, acc.Y, xy, ent);
+  if (ent & 1) fe_neg(acc.Y, acc.Y, F);
   fe_copy<NL>(acc.Z, F.one);
+  uint32_t x[NL], y[NL];
+  if (s + 1 < e) {
+    ent = entries[s + 1];
+    msm_load_point<NL>(x, y, xy, ent);
+  }
+#pragma unroll 1
   for (int32_t j = s + 1; j < e; j++) {
-    uint32_t x[NL], y[NL];
-    msm_load_entry(x, y, xy, entries[j], F);
-    if (COMPLETE) {
-      g1_add_mixed(acc, acc, x, y, F);
-    } else {
-      g1_add_mixed_fast(acc, acc, x, y, F);
-    }
+    if (ent & 1) fe_neg(y, y, F);
+    const bool more = j + 1 < e;
+    const int32_t next = more ? entries[j + 1] : 0;
+    g1_madd_acc<COMPLETE>(acc, x, y, F, [&] {
+      if (more) msm_load_point<NL>(x, y, xy, next);
+    });
+    ent = next;
   }
   g1_store(partials, chunks, c, acc);
 }
 
-// The reduction runs long chains of curve operations on few threads, so it
-// takes the product with the small loop body (PROD_COMPACT): same values.
-//
 // Doubling that leaves the identity alone (its X, Y stay as they are).
 template <int NL>
 KZG_HD void g1_double_finite(G1J<NL>& P, const FieldConsts<NL>& F) {
-  if (!fe_is_zero<NL>(P.Z)) g1_double<PROD_COMPACT>(P, P, F);
+  if (!fe_is_zero<NL>(P.Z)) g1_double_acc(P, F);
+}
+
+// acc = m R by the c-bit double-and-add from the top bit: the end of a
+// window-sum piece (csrc/probe/mont_probe.cu times it on a lone warp).
+template <int NL>
+KZG_HD void msm_piece_scale(G1J<NL>& acc, const G1J<NL>& R, int64_t m, int c,
+                            const FieldConsts<NL>& F) {
+  g1_set_identity(acc, F);
+  for (int bit = c - 1; bit >= 0; bit--) {
+    g1_double_finite(acc, F);
+    if ((m >> bit) & 1) g1_add_acc(acc, R, F);
+  }
 }
 
 // One thread's share of a window sum sum_m m B_m (B_m: the sum of bucket m's
@@ -137,7 +304,7 @@ KZG_HD void msm_window_piece(G1J<NL>& V, int64_t wi, int64_t g, int64_t tpw,
         g1_load(Q, partials, chunks, cb + p - m);
       }
       g1_select(X, st, Wt, R);
-      g1_add<PROD_COMPACT>(X, X, Q, F);
+      g1_add_acc(X, Q, F);
       if (st) {
         Wt = X;
         m--;
@@ -148,33 +315,182 @@ KZG_HD void msm_window_piece(G1J<NL>& V, int64_t wi, int64_t g, int64_t tpw,
     }
   }
   G1J<NL> acc;
-  g1_set_identity(acc, F);
-  for (int bit = c - 1; bit >= 0; bit--) {
-    g1_double_finite(acc, F);
-    if ((m >> bit) & 1) g1_add<PROD_COMPACT>(acc, acc, R, F);
-  }
-  g1_add<PROD_COMPACT>(V, Wt, acc, F);
+  msm_piece_scale(acc, R, m, c, F);
+  V = Wt;
+  g1_add_acc(V, acc, F);
 }
 
-// Window wi's total: the sum of its P block partials in order.
+// One step of the window-sum block's tree: thread t < s adds sh[t + s].
 template <int NL>
-KZG_HD void msm_window_total(G1J<NL>& S, const uint32_t* wparts, int64_t m,
-                             int64_t wi, int pieces, const FieldConsts<NL>& F) {
-  g1_load(S, wparts, m, wi * pieces);
-  for (int j = 1; j < pieces; j++) {
-    G1J<NL> Q;
-    g1_load(Q, wparts, m, wi * pieces + j);
-    g1_add<PROD_COMPACT>(S, S, Q, F);
-  }
+KZG_HD void msm_block_tree_step(G1J<NL>* sh, int t, int s,
+                                const FieldConsts<NL>& F) {
+  G1J<NL> A = sh[t];
+  g1_add_acc(A, sh[t + s], F);
+  sh[t] = A;
 }
 
-// acc = 2^c acc + S_w from the top window down.
+// ---------------------------------------------------------------------------
+// The Horner fold on the lanes of one warp.
+//
+// Its chain is c (W - 1) doublings and W complete adds, each dependent on the
+// one before: a single thread pays every product in turn.  Here the
+// independent products of each curve operation run side by side, one a lane,
+// in levels; after a level every lane holds every result (__shfl_sync), and
+// every lane runs the add / sub steps itself, so the warp never diverges.
+// dbl-2009-l is three levels (2, 3 and 2 products), add-2007-bl five (5, 4,
+// 2, 3 and 2): the depth of 2 squarings and a product, and of a squaring and
+// four products.  On the host (g++) a level computes its products one after
+// another: the same formula and operand lists, lane by lane.
+// ---------------------------------------------------------------------------
+
+// x = a[k]: lane k's operand among the K of a level.
+template <int K, int NL>
+KZG_HD void lane_operand(uint32_t x[NL], const uint32_t* const (&a)[K],
+                         int k) {
+  fe_copy<NL>(x, a[0]);
+#pragma unroll
+  for (int j = 1; j < K; j++) fe_select<NL>(x, k == j, a[j], x);
+}
+
+// One level of K independent products out[k] = a[k] b[k] (SQR: a[k]^2).
+// Lane k < K computes out[k] (lanes past K repeat the last); then every lane
+// of the warp holds all K.  out may alias an operand.
+template <bool SQR, int K, int NL>
+KZG_HD void lanes_level(uint32_t* const (&out)[K],
+                        const uint32_t* const (&a)[K],
+                        const uint32_t* const (&b)[K], int lane,
+                        const FieldConsts<NL>& F) {
+#ifdef __CUDA_ARCH__
+  uint32_t x[NL], r[NL];
+  const int k = lane < K ? lane : K - 1;
+  lane_operand<K, NL>(x, a, k);
+  if (SQR) {
+    fsqr<PROD_CHAIN>(r, x, F);
+  } else {
+    uint32_t y[NL];
+    lane_operand<K, NL>(y, b, k);
+    fmul<PROD_CHAIN>(r, x, y, F);
+  }
+#pragma unroll
+  for (int j = 0; j < K; j++)
+#pragma unroll
+    for (int w = 0; w < NL; w++) out[j][w] = __shfl_sync(0xFFFFFFFFu, r[w], j);
+#else
+  (void)lane;
+  uint32_t r[K][NL];
+  for (int k = 0; k < K; k++) {
+    uint32_t x[NL];
+    lane_operand<K, NL>(x, a, k);
+    if (SQR) {
+      fsqr<PROD_CHAIN>(r[k], x, F);
+    } else {
+      uint32_t y[NL];
+      lane_operand<K, NL>(y, b, k);
+      fmul<PROD_CHAIN>(r[k], x, y, F);
+    }
+  }
+  for (int k = 0; k < K; k++) fe_copy<NL>(out[k], r[k]);
+#endif
+}
+
+// dbl-2009-l (g1_double's values) on the lanes; the identity maps to Z = 0.
 template <int NL>
-KZG_HD void msm_horner(G1J<NL>& acc, const G1J<NL>* S, int windows, int c,
+KZG_HD void g1_double_lanes(G1J<NL>& P, int lane, const FieldConsts<NL>& F) {
+  uint32_t A[NL], B[NL], C[NL], t[NL], E[NL], FF[NL], D[NL], u[NL];
+  lanes_level<true, 2, NL>({A, B}, {P.X, P.Y}, {P.X, P.Y}, lane, F);
+  fe_add(t, P.X, B, F);
+  fe_double(E, A, F);
+  fe_add(E, E, A, F);
+  lanes_level<true, 3, NL>({C, t, FF}, {B, t, E}, {B, t, E}, lane, F);
+  fe_sub(D, t, A, F);
+  fe_sub(D, D, C, F);
+  fe_double(D, D, F);
+  fe_double(u, D, F);
+  fe_sub(FF, FF, u, F);                            // X3
+  fe_sub(t, D, FF, F);
+  lanes_level<false, 2, NL>({t, u}, {E, P.Y}, {t, P.Z}, lane, F);
+  fe_double(C, C, F);
+  fe_double(C, C, F);
+  fe_double(C, C, F);                              // 8C
+  fe_sub(P.Y, t, C, F);
+  fe_double(P.Z, u, F);
+  fe_copy<NL>(P.X, FF);
+}
+
+// Complete P += Q (g1_add's values and case analysis) on the lanes.
+template <int NL>
+KZG_HD void g1_add_lanes(G1J<NL>& P, const G1J<NL>& Q, int lane,
+                         const FieldConsts<NL>& F) {
+  if (fe_is_zero<NL>(P.Z)) {
+    P = Q;
+    return;
+  }
+  if (fe_is_zero<NL>(Q.Z)) return;
+  uint32_t Z1Z1[NL], Z2Z2[NL], ZZ[NL], S1[NL], S2[NL], U1[NL], U2[NL];
+  fe_add(ZZ, P.Z, Q.Z, F);
+  lanes_level<false, 5, NL>({Z1Z1, Z2Z2, ZZ, S1, S2},
+                            {P.Z, Q.Z, ZZ, P.Y, Q.Y},
+                            {P.Z, Q.Z, ZZ, Q.Z, P.Z}, lane, F);
+  lanes_level<false, 4, NL>({U1, U2, S1, S2}, {P.X, Q.X, S1, S2},
+                            {Z2Z2, Z1Z1, Z2Z2, Z1Z1}, lane, F);
+  fe_sub(U2, U2, U1, F);                           // H
+  fe_sub(S2, S2, S1, F);                           // Rr
+  if (fe_is_zero<NL>(U2)) {
+    if (fe_is_zero<NL>(S2)) {
+      g1_double_lanes(P, lane, F);
+    } else {
+      g1_set_identity(P, F);
+    }
+    return;
+  }
+  fe_sub(ZZ, ZZ, Z1Z1, F);
+  fe_sub(ZZ, ZZ, Z2Z2, F);
+  fe_double(S2, S2, F);                            // r = 2 Rr
+  uint32_t HH[NL], X3[NL];
+  lanes_level<true, 2, NL>({HH, X3}, {U2, S2}, {U2, S2}, lane, F);
+  fe_double(HH, HH, F);
+  fe_double(HH, HH, F);                            // I = 4 HH
+  uint32_t* const J = Z1Z1;
+  uint32_t* const V = Z2Z2;
+  lanes_level<false, 3, NL>({J, V, P.Z}, {U2, U1, ZZ}, {HH, HH, U2}, lane,
+                            F);
+  fe_sub(X3, X3, J, F);
+  fe_double(U1, V, F);
+  fe_sub(X3, X3, U1, F);
+  fe_sub(V, V, X3, F);
+  lanes_level<false, 2, NL>({V, J}, {S2, S1}, {V, J}, lane, F);
+  fe_double(J, J, F);
+  fe_sub(P.Y, V, J, F);
+  fe_copy<NL>(P.X, X3);
+}
+
+// Window totals of one scalar set: S holds its W windows' P partials each
+// (window w's at S[w P ..]); one level of the halving tree, m partials a
+// window now and h = ceil(m / 2) after: pair i (of W (m - h)) adds
+// S[w P + j + h] into S[w P + j].
+template <int NL>
+KZG_HD void msm_total_pair(G1J<NL>* S, int pieces, int m, int i,
+                           const FieldConsts<NL>& F) {
+  const int h = (m + 1) / 2;
+  const int w = i / (m - h), j = i % (m - h);
+  G1J<NL>* s = S + w * pieces;
+  G1J<NL> A = s[j];
+  g1_add_acc(A, s[j + h], F);
+  s[j] = A;
+}
+
+// acc = 2^c acc + S_w from the top window down (window totals at S[w P]),
+// on the lanes of one warp.
+template <int NL>
+KZG_HD void msm_horner(G1J<NL>& acc, const G1J<NL>* S, int windows,
+                       int pieces, int c, int lane,
                        const FieldConsts<NL>& F) {
   g1_set_identity(acc, F);
+#pragma unroll 1
   for (int w = windows - 1; w >= 0; w--) {
-    for (int i = 0; i < c; i++) g1_double_finite(acc, F);
-    g1_add<PROD_COMPACT>(acc, acc, S[w], F);
+#pragma unroll 1
+    for (int i = 0; i < c; i++)
+      if (!fe_is_zero<NL>(acc.Z)) g1_double_lanes(acc, lane, F);
+    g1_add_lanes(acc, S[w * pieces], lane, F);
   }
 }

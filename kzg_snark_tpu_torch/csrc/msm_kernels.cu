@@ -11,28 +11,41 @@
 // with n (10 at 2^16: 26 windows), and each thread accumulates one chunk of
 // at most T points of one bucket in registers: one thread per chunk (about
 // 1.1e5 at 2^16), one (3, NL) partial written per chunk, no table and no
-// atomics.  What bounds it: the mixed adds (11 Montgomery products each,
-// about 1.5e3 32-bit products) are integer-multiply bound; the gathers read
-// 64 bytes of a point-major table per entry.
+// atomics.  What bounds it: integer products.  A mixed add is 4 squarings
+// and 7 products (about 1.4e3 32-bit products at 8 words) for 64 bytes
+// gathered, so the card's multipliers, not its memory, set the time.  The
+// design: the carry-chained product (PROD_CHAIN, chain.cuh: 184
+// instructions a product at 8 words against CIOS's 448), K9's launch
+// bounds (4 blocks of 128 threads an SM at 8 words, 3 for the complete
+// add; no bound at 12), an in-place mixed add that uses each input up
+// early (msm.cuh g1_madd_acc), and each chunk's next gather issued inside
+// the current add, so the random read overlaps the products.
 //
 // msm_reduce replaces the K6 / K7 reduction of
 // kzg_snark_tpu/ops/msm_kernel.py:360-438 (lane fold, suffix ladder, Horner:
 // about 300 launches of a few points each).  Launch 1, one group of blocks
 // per (set, window): running sums over the window's chunk partials, cut into
-// equal pieces of events (msm.cuh), each piece's Wt + off R, then a tree in
-// shared memory in a fixed order.  Launch 2, one block per scalar set: the
-// window totals, then the Horner fold acc = 2^c acc + S_w on one thread.
-// No atomics on points, so the plain version gives the same
-// representatives.  What bounds it: not operations (a few hundred thousand
-// curve operations) but each thread's chain of dependent curve operations,
-// a few microseconds each on one thread; the Horner fold is one chain of
-// about 254 doublings.  Its curve formulas take fe_mul_compact, whose small
-// loop body the instruction cache holds.
+// equal pieces of events (msm.cuh), each piece's Wt + off R by a c-bit
+// double-and-add, then a tree in shared memory in a fixed order; every
+// product PROD_CHAIN, and up to 255 registers a thread (the launch is a
+// block or two an SM, so occupancy does not matter).  What bounds it: each
+// thread's chain of dependent curve operations (about 8 events, c
+// doublings and the tree's 7 levels), not the card's operations.  Launch
+// 2, one block per scalar set: the window totals as a halving tree over
+// each window's block partials (one add a thread a level), then the Horner
+// fold acc = 2^c acc + S_w on the 32 lanes of one warp.  What bounds it:
+// its depth, c (W - 1) doublings and W adds one after another (about 250
+// doublings at 2^16), which one thread ran product by product.  Here each
+// curve operation's independent products run on separate lanes, a level at
+// a time, the results exchanged by __shfl_sync (msm.cuh): a doubling costs
+// the latency of 2 squarings and a product, an add that of a squaring and
+// 4 products.  No atomics on points, so the plain version gives the same
+// representatives.
 //
 // Both are instantiated at NL = 8 (BN254 Fq) and NL = 12 (BLS12-381 Fq, 144
 // bytes a Jacobian point: the window-sum tree's 128 points take 18 KB of
-// shared memory); the entry points take the limb count from the consts
-// block.
+// shared memory, the fold's up to 256 partials 36 KB); the entry points
+// take the limb count from the consts block.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -42,10 +55,20 @@ namespace {
 
 constexpr int kAccThreads = 128;
 constexpr int kReduceThreads = 128;  // most threads of a window-sum block
-constexpr int kHornerThreads = 32;   // windows a set (c >= 8: at most 32)
+constexpr int kFoldThreads = 128;    // threads of a fold block
+constexpr int kFoldWindows = 32;     // windows a set (c >= 8: at most 32)
+constexpr int kFoldPoints = 256;     // block partials a set (W x pieces)
+
+// Blocks an SM that the accumulate's registers must allow: K9's bound, 4
+// at 8 words (128 registers); the complete add's case split costs a few
+// registers more, and at 128 it spilled, so it asks for 3 (170).  At 12
+// words no bound.
+constexpr int acc_min_blocks(int NL, bool complete) {
+  return NL == 8 ? (complete ? 3 : 4) : 1;
+}
 
 template <bool COMPLETE, int NL>
-__global__ void __launch_bounds__(kAccThreads)
+__global__ void __launch_bounds__(kAccThreads, acc_min_blocks(NL, COMPLETE))
     k_msm_accumulate(const uint32_t* __restrict__ xy,
                      const int32_t* __restrict__ entries,
                      const int32_t* __restrict__ chunk_off,
@@ -58,7 +81,7 @@ __global__ void __launch_bounds__(kAccThreads)
 }
 
 template <int NL>
-__global__ void __launch_bounds__(kReduceThreads)
+__global__ void __launch_bounds__(kReduceThreads, 1)
     k_msm_window_sums(const uint32_t* __restrict__ partials, int64_t chunks,
                       const int32_t* __restrict__ bco, int64_t half, int c,
                       int64_t tpw, int pieces, uint32_t* __restrict__ wparts,
@@ -72,32 +95,46 @@ __global__ void __launch_bounds__(kReduceThreads)
   sh[t] = V;
   __syncthreads();
   for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      G1J<NL> A = sh[t], B = sh[t + s];
-      g1_add<PROD_COMPACT>(A, A, B, F);
-      sh[t] = A;
-    }
+    if (t < s) msm_block_tree_step(sh, t, s, F);
     __syncthreads();
   }
   if (t == 0) g1_store(wparts, gridDim.x, blockIdx.x, sh[0]);
 }
 
+// Block j folds set j: its W x pieces block partials into shared memory,
+// the window totals' halving tree, then the Horner fold on warp 0.
 template <int NL>
-__global__ void __launch_bounds__(kHornerThreads)
+__global__ void __launch_bounds__(kFoldThreads, 1)
     k_msm_horner(const uint32_t* __restrict__ wparts, int windows, int pieces,
                  int c, uint32_t* __restrict__ out, int64_t sets,
                  FieldConsts<NL> F) {
-  __shared__ G1J<NL> S[kHornerThreads];
-  int w = threadIdx.x;
-  int64_t m = sets * windows * pieces;
-  if (w < windows)
-    msm_window_total(S[w], wparts, m, blockIdx.x * windows + w, pieces, F);
+  __shared__ G1J<NL> S[kFoldPoints];
+  const int t = threadIdx.x, per = windows * pieces;
+  const int64_t m = sets * per;
+  for (int i = t; i < per; i += blockDim.x)
+    g1_load(S[i], wparts, m, (int64_t)blockIdx.x * per + i);
   __syncthreads();
-  if (w == 0) {
-    G1J<NL> acc;
-    msm_horner(acc, S, windows, c, F);
-    g1_store(out, sets, blockIdx.x, acc);
+  for (int k = pieces; k > 1; k = (k + 1) / 2) {
+    for (int i = t; i < windows * (k / 2); i += blockDim.x)
+      msm_total_pair(S, pieces, k, i, F);
+    __syncthreads();
   }
+  if (t < 32) {
+    G1J<NL> acc;
+    msm_horner(acc, S, windows, pieces, c, t, F);
+    if (t == 0) g1_store(out, sets, blockIdx.x, acc);
+  }
+}
+
+template <int NL>
+int acc_blocks_per_sm(int complete) {
+  int blocks = 0;
+  cudaError_t rc =
+      complete ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, k_msm_accumulate<true, NL>, kAccThreads, 0)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, k_msm_accumulate<false, NL>, kAccThreads, 0);
+  return rc == cudaSuccess ? blocks : -(int)rc;
 }
 
 template <int NL>
@@ -135,7 +172,7 @@ int launch_window_sums(const void* partials, int64_t chunks, const void* bco,
 template <int NL>
 int launch_horner(const void* wparts, int64_t sets, int windows, int pieces,
                   int c, void* out, const void* consts, void* stream) {
-  k_msm_horner<NL><<<(unsigned)sets, kHornerThreads, 0,
+  k_msm_horner<NL><<<(unsigned)sets, kFoldThreads, 0,
                      (cudaStream_t)stream>>>(
       (const uint32_t*)wparts, windows, pieces, c, (uint32_t*)out, sets,
       consts_of<NL>(consts));
@@ -143,6 +180,17 @@ int launch_horner(const void* wparts, int64_t sets, int windows, int pieces,
 }
 
 }  // namespace
+
+// Resident blocks an SM of the accumulate (complete or incomplete add) at
+// `limbs` words, blocks of kzg_msm_acc_threads(), from the CUDA occupancy
+// calculator; negative on error.
+extern "C" int kzg_msm_acc_blocks_per_sm(int complete, int limbs) {
+  return limbs == 8    ? acc_blocks_per_sm<8>(complete)
+         : limbs == 12 ? acc_blocks_per_sm<12>(complete)
+                       : KZG_BAD_LIMBS;
+}
+
+extern "C" int kzg_msm_acc_threads() { return kAccThreads; }
 
 extern "C" int kzg_msm_accumulate(const void* xy, const void* entries,
                                   const void* chunk_off, int64_t chunks,
@@ -167,11 +215,15 @@ extern "C" int kzg_msm_window_sums(const void* partials, int64_t chunks,
                       windows, half, c, tpw, threads, wparts, consts, stream);
 }
 
+// windows <= 32 and windows * pieces <= 256 (the window-sum launch gives
+// at most 8 pieces a window).
 extern "C" int kzg_msm_horner(const void* wparts, int64_t sets, int windows,
                               int pieces, int c, void* out,
                               const void* consts, void* stream) {
   if (sets <= 0) return 0;
-  if (windows > kHornerThreads) return -1;
+  if (windows < 1 || windows > kFoldWindows || pieces < 1 ||
+      windows * pieces > kFoldPoints)
+    return -1;
   return KZG_BY_LIMBS(consts, launch_horner, wparts, sets, windows, pieces, c,
                       out, consts, stream);
 }

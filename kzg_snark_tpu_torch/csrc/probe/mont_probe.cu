@@ -9,9 +9,12 @@
 //   squarings (x = x^2) on its own element, so a launch over many threads
 //   times the product's throughput on the card (kzg_probe_loop, timed by
 //   chip_smoke.py's build phase).
+// * probe_piece_scale: the window-sum piece's c-bit double-and-add
+//   (msm.cuh msm_piece_scale), `reps` times in a dependent chain on each
+//   thread's point (kzg_probe_piece_scale): on one warp, its latency.
 #include <cuda_runtime.h>
 
-#include "../curve.cuh"
+#include "../msm.cuh"
 
 template <int NL>
 __global__ void probe_copy(uint32_t* r, const uint32_t* a, const uint32_t* b,
@@ -110,5 +113,43 @@ extern "C" int kzg_probe_loop(int sqr, int pol, const void* x, const void* y,
                               void* out, int64_t n, int reps,
                               const void* consts, void* stream) {
   return KZG_BY_LIMBS(consts, loop_by_policy, sqr, pol, x, y, out, n, reps,
+                      consts, stream);
+}
+
+// Thread i < n: R = point i of pts (3, NL, n), then `reps` times
+// R = mult_i R by msm_piece_scale over c bits; R to column i of out.
+template <int NL>
+__global__ void __launch_bounds__(128)
+    probe_piece_scale(const uint32_t* __restrict__ pts,
+                      const int64_t* __restrict__ mult, int64_t n, int c,
+                      int reps, uint32_t* __restrict__ out,
+                      FieldConsts<NL> F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  G1J<NL> R, acc;
+  g1_load(R, pts, n, i);
+#pragma unroll 1
+  for (int r = 0; r < reps; r++) {
+    msm_piece_scale(acc, R, mult[i], c, F);
+    R = acc;
+  }
+  g1_store(out, n, i, R);
+}
+
+template <int NL>
+static int launch_piece_scale(const void* pts, const void* mult, int64_t n,
+                              int c, int reps, void* out, const void* consts,
+                              void* stream) {
+  probe_piece_scale<NL><<<(unsigned)((n + 127) / 128), 128, 0,
+                          (cudaStream_t)stream>>>(
+      (const uint32_t*)pts, (const int64_t*)mult, n, c, reps,
+      (uint32_t*)out, consts_of<NL>(consts));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_probe_piece_scale(const void* pts, const void* mult,
+                                     int64_t n, int c, int reps, void* out,
+                                     const void* consts, void* stream) {
+  return KZG_BY_LIMBS(consts, launch_piece_scale, pts, mult, n, c, reps, out,
                       consts, stream);
 }

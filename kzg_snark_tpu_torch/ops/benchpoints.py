@@ -139,3 +139,69 @@ def edge_batches(curve_type: str, pts: torch.Tensor) -> dict:
     mixed.append((acc1.contiguous(), x[:, :1].contiguous(),
                   y[:, :1].contiguous()))
     return {"add": (p.contiguous(), q.contiguous()), "mixed": mixed}
+
+
+def fold_edge_partials(curve_type: str, pts: torch.Tensor, c: int,
+                       windows: int, pieces: int) -> torch.Tensor:
+    """Block partials (3, L, 4 windows pieces) of four scalar sets for the
+    MSM's fold launch (``msm_kernel.reduce_horner`` with ``windows``
+    windows of c bits), from points ``pts`` (3, L, k > windows pieces)
+    with Z = 1, each doubled to a representative with Z != 1:
+
+    * set 0: the top window's total P, the next window's 2^c P, so at that
+      Horner step the total equals the accumulator (the complete add's
+      doubling); every other window's total the identity;
+    * set 1: the same with -2^c P (the opposite case: the accumulator
+      turns into the identity, and the doublings after it skip);
+    * set 2: every partial the identity (all-zero scalars);
+    * set 3: distinct points in every partial.
+
+    In sets 0 and 1 a window's total T lies in its pieces as T - Q, Q and
+    identities (pieces > 1), so the window totals' tree meets P + (-P) in
+    the empty windows.  Plain formulas only: no kernel launches."""
+    from . import cuda_fr
+
+    curve = curve_ops(curve_type, pts.device)
+    f = cuda_fr.PlainField(curve.f.consts)
+    k = windows * pieces
+    jac = cuda_fr.double_formula(f, pts[..., :k + 1].contiguous())
+    ident = curve.identity((1,))
+    P = jac[..., k:]
+    scaled = P
+    for _ in range(c):
+        scaled = cuda_fr.double_formula(f, scaled)
+
+    def neg(T):
+        return torch.stack([T[0], f.neg(T[1]), T[2]])
+
+    def window(T):
+        if pieces == 1:
+            return T
+        Q = jac[..., :1]
+        return torch.cat([cuda_fr.add_formula(f, T, neg(Q)), Q]
+                         + [ident] * (pieces - 2), dim=-1)
+
+    sets = []
+    for top in (scaled, neg(scaled)):
+        sets += [window(ident)] * (windows - 2) + [window(top), window(P)]
+    sets += [ident.expand(-1, -1, k), jac[..., :k]]
+    return torch.cat(sets, dim=-1).contiguous()
+
+
+def generator_multiples(curve_type: str, n: int, device) -> torch.Tensor:
+    """The structured basis [(i + 1) G] (3, L, n) with Z = 1, by host adds:
+    with equal scalars a bucket's running sum meets its next point (G + 2G
+    = 3G), the complete add's doubling and the incomplete add's fault."""
+    from .host import curve as hc
+    from .host.field import base_field
+
+    Fp = base_field(curve_type)
+    gx, gy = generator(curve_type)
+    g = (Fp(gx), Fp(gy), Fp(1))
+    pt, xs, ys = g, [], []
+    for _ in range(n):
+        a = hc.normalize(pt)
+        xs.append(int(a[0]))
+        ys.append(int(a[1]))
+        pt = hc.add(pt, g)
+    return curve_ops(curve_type, device).from_affine_ints(xs, ys).contiguous()

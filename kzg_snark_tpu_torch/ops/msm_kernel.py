@@ -12,8 +12,9 @@ for the H100 (``csrc/msm_kernels.cu``, ``csrc/msm.cuh``):
 3. ``msm_accumulate`` (K8): one thread a chunk mixed-adds its points into a
    Jacobian accumulator in registers and writes one partial;
 4. ``msm_reduce`` (in place of the K6 / K7 chains): window sums
-   sum_m m B_m from the chunk partials (one launch), then the Horner fold
-   over windows, one thread a scalar set (a second launch).
+   sum_m m B_m from the chunk partials (one launch), then the window
+   totals (a halving tree) and the Horner fold over windows, one warp a
+   scalar set (a second launch).
 
 Each kernel has its plain PyTorch version here, with the same task list
 and combine order, so the two give the same Jacobian representatives.  A
@@ -66,6 +67,7 @@ CHUNK = 16                  # most entries a chunk (one accumulate thread)
 EVENTS_PER_THREAD = 8       # window-sum events a reduce thread, busiest window
 MAX_WINDOW_THREADS = 1024
 REDUCE_BLOCK = 128          # most threads of a window-sum block
+MAX_FOLD_PARTIALS = 256     # most block partials a set of the fold launch
 MAG_MASK = 0xFFFF
 SIGN_SHIFT = 16
 MAX_SCHEDULE_ENTRIES = 2 ** 31 - 1  # bound of the schedule's int32 arrays
@@ -397,13 +399,18 @@ def window_sums_plain(fc: FieldConsts, partials: torch.Tensor,
 def horner_plain(fc: FieldConsts, wparts: torch.Tensor, sets: int,
                  windows: int, c: int) -> torch.Tensor:
     """Plain version of the Horner launch: window totals from the block
-    partials (3, L, sets * windows * blocks) in order, then
-    acc = 2^c acc + S_w from the top window -> (3, L, sets)."""
+    partials (3, L, sets * windows * blocks) by the launch's halving tree
+    (with m partials left and h = ceil(m / 2), partial j < m - h takes
+    partial j + h), then acc = 2^c acc + S_w from the top window -> (3, L,
+    sets)."""
     f = cuda_fr.PlainField(fc)
-    parts = wparts.reshape(3, fc.num_limbs, sets, windows, -1)
-    S = parts[..., 0]
-    for j in range(1, parts.shape[-1]):
-        S = cuda_fr.add_formula(f, S, parts[..., j])
+    S = wparts.reshape(3, fc.num_limbs, sets, windows, -1)
+    while S.shape[-1] > 1:
+        m = S.shape[-1]
+        h = (m + 1) // 2
+        S = torch.cat([cuda_fr.add_formula(f, S[..., :m - h], S[..., h:]),
+                       S[..., m - h:h]], dim=-1)
+    S = S[..., 0]
     acc = _identity(f, (sets,), wparts.device)
     for w in range(windows - 1, -1, -1):
         for _ in range(c):
@@ -449,7 +456,8 @@ def reduce_horner(fc: FieldConsts, wparts: torch.Tensor, sets: int,
         return horner_plain(fc, wparts, sets, windows, c)
     cuda_fr._require_cuda("msm_reduce", wparts)
     if wparts.dim() != 3 or wparts.shape[:2] != (3, fc.num_limbs) \
-            or wparts.shape[-1] % (sets * windows) or windows > 32:
+            or wparts.shape[-1] % (sets * windows) or windows > 32 \
+            or wparts.shape[-1] // sets > MAX_FOLD_PARTIALS:
         raise ValueError(f"msm_reduce: block partials "
                          f"{tuple(wparts.shape)} for {sets} sets of "
                          f"{windows} windows")

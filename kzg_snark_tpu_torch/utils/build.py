@@ -69,6 +69,8 @@ CUDA_ENTRIES = {
     "kzg_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
     "kzg_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
     "kzg_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P, _P],
+    "kzg_msm_acc_blocks_per_sm": [_INT, _INT],
+    "kzg_msm_acc_threads": [],
     "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
     "kzg_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P, _P],
     "kzg_scan_tile": [],
@@ -303,15 +305,17 @@ def kernel_resources(lib_path: str) -> dict[str, dict[str, int]]:
 
 def probe_lib() -> ctypes.CDLL:
     """``csrc/probe/mont_probe.cu`` built apart from the kernel library:
-    the product policies' throughput loops (``kzg_probe_loop``)."""
+    the product policies' throughput loops (``kzg_probe_loop``) and the
+    window-sum piece's double-and-add (``kzg_probe_piece_scale``)."""
     src = os.path.join(_CSRC, "probe", "mont_probe.cu")
 
     def build():
         return _build("torch_probe", "libmont_probe.so", [src], NVCC_FLAGS,
                       lambda out_dir, tmp: [[[_nvcc()] + NVCC_FLAGS + [
                           "-I", _CSRC, "-shared", "-o", tmp, src]]])
-    return _load("torch_probe", build, {"kzg_probe_loop": [
-        _INT, _INT, _P, _P, _P, _I64, _INT, _P, _P]})
+    return _load("torch_probe", build, {
+        "kzg_probe_loop": [_INT, _INT, _P, _P, _P, _I64, _INT, _P, _P],
+        "kzg_probe_piece_scale": [_P, _P, _I64, _INT, _INT, _P, _P, _P]})
 
 
 def sass_product_counts(lib_path: str) -> dict[str, dict[str, int]]:

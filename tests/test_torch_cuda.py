@@ -414,6 +414,63 @@ def test_bls_bucket_kernels_match_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_bucket_kernels_match_plain_on_edge_cases(cuda, curve_type):
+    """The fold launch (the window totals' tree and the Horner fold on a
+    warp's lanes) on ``fold_edge_partials`` at W = 32, c = 8 with 1, 3 and
+    4 pieces a window: a total equal to the accumulator (the complete
+    add's doubling), its opposite, empty windows, all-identity partials,
+    four sets.  msm_accumulate (both adds) on [(i + 1) G] with every
+    scalar 1, where a running sum meets its next point.  Then
+    msm_accumulate and both reduce launches at c = 8 on 2^12 points, one
+    set random and one all zero.  Word for word against the plain
+    versions, the fold's launch counted."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops.benchpoints import (fold_edge_partials,
+                                                      generator_multiples,
+                                                      random_point_basis)
+
+    n, c = 1 << 12, 8
+    fq = fq_backend(curve_type, cuda).consts
+    pts, _ = random_point_basis(curve_type, n, seed=4, device=cuda)
+    for pieces in (1, 3, 4):
+        wp = fold_edge_partials(curve_type, pts, c, 32, pieces)
+        before = LAUNCHES["msm_reduce"]
+        got = mk.reduce_horner(fq, wp, 4, 32, c)
+        assert LAUNCHES["msm_reduce"] == before + 1
+        assert torch.equal(got, mk.horner_plain(fq, wp, 4, 32, c)), pieces
+    r = C.BN254_R if curve_type == "bn254" else C.BLS12_381_R
+    ones = torch.zeros((1, 8, 136), dtype=torch.int32)
+    ones[0, 0] = 1
+    s1 = mk.bucket_schedule(mk.signed_digits(ones.to(cuda), r.bit_length(),
+                                             c), c)
+    xy1 = mk.point_table(generator_multiples(curve_type, 136, cuda))
+    for complete in (False, True):
+        assert torch.equal(
+            mk.msm_accumulate(fq, xy1, s1.entries, s1.chunk_off, complete),
+            mk.msm_accumulate_plain(fq, xy1, s1.entries, s1.chunk_off,
+                                    complete))
+    sets = torch.stack([words(n, 26), torch.zeros((8, n), dtype=torch.int32)
+                        ]).to(cuda)
+    dig = mk.signed_digits(sets, r.bit_length(), c)
+    W = dig.shape[1]
+    assert W == 32
+    s = mk.bucket_schedule(dig, c)
+    xy = mk.point_table(pts)
+    for complete in (False, True):
+        part = mk.msm_accumulate(fq, xy, s.entries, s.chunk_off, complete)
+        assert torch.equal(part, mk.msm_accumulate_plain(
+            fq, xy, s.entries, s.chunk_off, complete))
+    wparts = mk.reduce_window_sums(fq, part, s.bucket_chunks, 2 * W, c,
+                                   s.window_threads)
+    assert torch.equal(wparts, mk.window_sums_plain(
+        fq, part, s.bucket_chunks, 2 * W, c, s.window_threads))
+    got = mk.reduce_horner(fq, wparts, 2, W, c)
+    assert torch.equal(got, mk.horner_plain(fq, wparts, 2, W, c))
+    assert bool((got[2, :, 1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
 def test_curve_kernels_match_plain_on_edge_batches(cuda, curve_type):
     """K6 and K9 (the carry-chain product in PTX) against their plain
     versions on ``edge_batches``: identity operands, P = Q, P = -Q, the

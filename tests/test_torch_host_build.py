@@ -21,6 +21,8 @@ from kzg_snark_tpu_torch.ops import cuda_fr
 from kzg_snark_tpu_torch.ops.benchpoints import (adversarial_values,
                                                   edge_batches,
                                                   edge_scalar_sets,
+                                                  fold_edge_partials,
+                                                  generator_multiples,
                                                   random_point_basis)
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops.limbs import (FieldConsts, ints_to_words,
@@ -505,6 +507,35 @@ def _check_accumulate(lib, complete, curve_type):
     assert np.array_equal(out, _words(part))
 
 
+@pytest.mark.parametrize("complete", [False, True])
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_accumulate_structured(lib, curve_type, complete):
+    """The accumulate on [(i + 1) G] with every scalar 1: window 0's bucket
+    1 holds every point in index order, so the running sum G + 2G meets
+    3G (the complete add's doubling; the incomplete add's identity), and
+    the other windows are empty."""
+    n = 136
+    pts = generator_multiples(curve_type, n, "cpu")
+    fc = fq_backend(curve_type, "cpu").consts
+    ones = torch.zeros((1, 8, n), dtype=torch.int32)
+    ones[0, 0] = 1
+    c = 8
+    bits = fr_backend(curve_type, "cpu").modulus.bit_length()
+    s = bucket_schedule(signed_digits(ones, bits, c), c)
+    xy = point_table(pts)
+    part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, complete)
+    out = np.empty(tuple(part.shape), dtype=np.uint32)
+    lib.host_msm_accumulate(_ptr(_words(xy)), _ptr(_words(s.entries)),
+                            _ptr(_words(s.chunk_off)), part.shape[-1],
+                            _ptr(out), int(complete), fc.ptr)
+    assert np.array_equal(out, _words(part))
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    first = curve_ops(curve_type, "cpu").to_affine_ints(part[..., :1])[0]
+    want = curve_ops(curve_type, "cpu").to_affine_ints(
+        pts[..., 135:136])[0]                     # G + ... + 16 G = 136 G
+    assert (first == want) == complete
+
+
 @pytest.mark.parametrize("n, sets, chunk, events",
                          [(64, 2, 4, 4), (64, 1, 2, 32), (256, 1, 1, 1)],
                          ids=["two-sets", "few-threads", "two-blocks"])
@@ -540,6 +571,86 @@ def _check_reduce(lib, n, sets, chunk, events, curve_type):
     lib.host_msm_horner(_ptr(out), sets, W, wp.shape[-1] // (sets * W), c,
                         _ptr(got), fc.ptr)
     assert np.array_equal(got, _words(res))
+
+
+FOLD_C, FOLD_W, FOLD_SETS = 8, 32, 4   # c = 8: W = ceil(255 / 8) = 32
+
+
+@pytest.mark.parametrize("pieces", [1, 3, 4])
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_fold_edge_cases(lib, curve_type, pieces):
+    """The fold launch (the window totals' halving tree, then the Horner
+    fold on a warp's lanes) at W = 32, c = 8 on the four sets of
+    ``fold_edge_partials``: a window total equal to the running
+    accumulator (the complete add's doubling), its opposite, empty windows,
+    every partial the identity, distinct points; one, three (an odd tree
+    level) and four pieces a window.  Word for word against
+    ``horner_plain``, and by the host curve: set 0 is
+    2^(c (W - 1) + 1) P, sets 1 and 2 the identity, set 3 the sum of
+    2^(c w) times its window's partials."""
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops, generator
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
+
+    c, W, sets = FOLD_C, FOLD_W, FOLD_SETS
+    k = W * pieces
+    pts, ks = random_point_basis(curve_type, k + 1, seed=12, device="cpu")
+    curve = curve_ops(curve_type, "cpu")
+    fc = curve.f.consts
+    wp = fold_edge_partials(curve_type, pts, c, W, pieces)
+    want = horner_plain(fc, wp, sets, W, c)
+    got = np.empty(tuple(want.shape), dtype=np.uint32)
+    lib.host_msm_horner(_ptr(_words(wp)), sets, W, pieces, c, _ptr(got),
+                        fc.ptr)
+    assert np.array_equal(got, _words(want))
+    r = C.BN254_R if curve_type == "bn254" else C.BLS12_381_R
+    Fp = base_field(curve_type)
+    gx, gy = generator(curve_type)
+
+    def times_g(e):
+        a = hc.normalize(hc.multiply((Fp(gx), Fp(gy), Fp(1)), e % r))
+        return None if a is None else (int(a[0]), int(a[1]))
+
+    # The partials are 2 P_i (doubled), P_i = k_i G.
+    set3 = sum((2 * ks[j]) << (c * (j // pieces)) for j in range(k))
+    assert curve.to_affine_ints(want) == [
+        times_g(2 * ks[k] << (c * (W - 1) + 1)), None, None, times_g(set3)]
+
+
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_reduce_zero_set_w32(lib, curve_type):
+    """Both reduce launches at c = 8 (W = 32 windows) on two sets, one of
+    random scalars and one all zero (every window empty)."""
+    n = 256
+    pts = _basis(n, curve_type)
+    rng = np.random.default_rng(13)
+    words = rng.integers(0, 1 << 32, size=(2, 8, n), dtype=np.uint64)
+    words[:, 7] &= (1 << 29) - 1
+    words[1] = 0
+    scalars = to_tensor(words.astype(np.uint32), "cpu")
+    c = FOLD_C
+    bits = fr_backend(curve_type, "cpu").modulus.bit_length()
+    dig = signed_digits(scalars, bits, c)
+    W = dig.shape[1]
+    assert W == FOLD_W
+    s = bucket_schedule(dig, c, 4, 4)
+    fc = fq_backend(curve_type, "cpu").consts
+    part = msm_accumulate_plain(fc, point_table(pts), s.entries, s.chunk_off,
+                                True)
+    wp = window_sums_plain(fc, part, s.bucket_chunks, 2 * W, c,
+                           s.window_threads)
+    out = np.empty(tuple(wp.shape), dtype=np.uint32)
+    lib.host_msm_window_sums(_ptr(_words(part)), part.shape[-1],
+                             _ptr(_words(s.bucket_chunks)), 2 * W,
+                             1 << (c - 1), c, s.window_threads, _ptr(out),
+                             fc.ptr)
+    assert np.array_equal(out, _words(wp))
+    res = horner_plain(fc, wp, 2, W, c)
+    got = np.empty(tuple(res.shape), dtype=np.uint32)
+    lib.host_msm_horner(_ptr(out), 2, W, wp.shape[-1] // (2 * W), c,
+                        _ptr(got), fc.ptr)
+    assert np.array_equal(got, _words(res))
+    assert (res[2, :, 1] == 0).all() and not (res[2, :, 0] == 0).all()
 
 
 def test_chain_ptx_is_generated():
