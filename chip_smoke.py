@@ -23,13 +23,21 @@ Phases, in order, one printed line or block each:
                  random and an all-zero set at c = 8)
   chains         fr_scan and fr_pow (K1 as the provers' chains use it) at
                  their edge widths and exponents against their plain
-                 versions, their times, one narrow K1 / K7 launch; the SRS
-                 table kernel's one-thread doubling chain at 8, 64 and 248
-                 doublings
+                 versions (fr_pow: check_pow, both routes, zeros at the
+                 inversion route's tile edges, 8 and 12 words to 2^18 +
+                 3), their
+                 times (fr_pow at widths 1, 8, 256 and 2^18 beside the
+                 bound of batch inversion's need, the route's own work,
+                 the design's width-1 floor and the square-and-multiply
+                 bound), one
+                 narrow K1 / K7 launch; the SRS table kernel's one-thread
+                 doubling chain at 8, 64 and 248 doublings
   ntt            ntt_pass against its plain version for every pass of the
-                 plan at n in {2, T, 2T, 2^15, 2^16, 2^18}, forward and
-                 inverse tables; per-transform device and wall ms at 2^15,
-                 2^16 and 2^18 for each tile size tried, beside the bound;
+                 plan (the tile tile_bits(n) chooses) at n in {2, 2^8, 2^9,
+                 2^11, 2^14..2^18}, forward and inverse tables;
+                 per-transform device and wall ms at 2^14..2^18 (the main
+                 and Marlin sizes) for each tile size tried, beside the
+                 bound;
                  at n = 2^18 "scan" mode (K10) equal to "staged", forward
                  and inverse; round trip, host spot checks
   msm            bucket-route MSM at 2^16 points on a random-multiplier basis
@@ -129,9 +137,11 @@ all); those products' throughput on the card (probe_loop), each checked
 once against the plain product; the PROD_CHAIN product's and
 squaring's latency on a lone warp (the ladder's and the fold's floor);
 the bucket MSM's kernels' registers, stack and spills, and the
-accumulate's blocks an SM and waves at 2^16 points; and the window-sum
+accumulate's blocks an SM and waves at 2^16 points; the window-sum
 piece's c-bit double-and-add on one warp (csrc/probe, held to the plain
-version), the window-sum launch's depth.  The
+version), the window-sum launch's depth; and one inversion's latency on a
+lone warp by safegcd and by Fermat's chain on PROD_CHAIN (kzg_probe_inv,
+held to fr_pow_plain), fr_pow's floor at width 1.  The
 kernels and bls phases also hold K6, K7 and K9 to their plain versions
 on edge batches (benchpoints.edge_batches: identities, P = Q, P = -Q,
 coordinates near p).  Each path (ntt scan, msm_one, msm_prepared and its
@@ -161,9 +171,12 @@ paths' device runs; the bucket MSM (``tree_bucket``): msm_accumulate,
 msm_reduce and its window sums and fold at 2^16 on both curves, one
 BN254 MSM at 2^16 and 2^20 (k = 1 and 8) unsplit and, at 2^20, cut into
 6 ranges, and one steady Marlin |H| = 2^14 prove under torch.profiler
-(device busy ms, idle share, the bucket kernels' ms).  Run it once a
-tree, in turns on one card (parent, change, change, parent), to compare
-two trees.
+(device busy ms, idle share, the bucket kernels' ms and those of fr_pow
+and the NTT pass); the chains (``tree_chains``): fr_pow at widths 1, 8,
+256 and 2^18 and the staged transform at 2^14..2^18, and PLONK n = 2^16's
+second prove's phase map (round3_quotient_ntt, round5_openings).  Run it
+once a tree, in turns on one card (parent, change, change, parent), to
+compare two trees.
 """
 
 from __future__ import annotations
@@ -225,6 +238,8 @@ MARLIN_PARITY_LOG_H = 6
 MARLIN_PUBLIC = 5
 MSM_TABLE_LOG_N = (11, 12, 13, 14, 15, 16, 18)
 NTT_TILES_TRIED = (8, 9, 10, 11)
+NTT_TIMED_LOG_N = (14, 15, 16, 17, 18)   # 2^15..2^18 and the Marlin sizes
+                                         # (2^14, 2^15, 2^16, 2^18)
 SRS_WINDOW_BITS = 8
 SRS_WINDOWS = 32            # ceil(254 / 8): the SRS build's table
 TAU = 0xABCDEF12345
@@ -267,6 +282,56 @@ ADD = (5, 11)
 MADD = (4, 7)
 DOUBLE_DEPTH = (2, 1)
 ADD_DEPTH = (2, 3)
+
+
+# Montgomery products an element of a batch inversion by Montgomery's trick:
+# the prefix products, then two a step back (the element's inverse and the
+# next prefix's).  The function's need: these and one inversion.
+INV_NEED_PRODUCTS = 3
+# Montgomery products an element of fr_pow's inversion route (csrc/scan.cuh),
+# the design's own cost: a thread's 4 elements take 3 up their pair tree,
+# 10 in the warp's butterfly, 1 for the thread's inverse total and 6 down
+# the tree; a tile adds 21 (warp totals and the R^3 product) and one
+# safegcd.
+INV_TREE_PRODUCTS = 5
+INV_TILE_PRODUCTS = 21
+INV_TILE_DEPTH = 13     # dependent products on a tile's path: 2 up, 5 and 2
+                        # butterfly levels, R^3, the thread's, 2 down
+
+
+def safegcd_products(limbs: int) -> int:
+    """32x32-bit products of one safegcd inversion (csrc/inv.cuh): a batch
+    of 30 divsteps a limb's 4 for f, g and 6 for d, e, over S = ceil(32 L /
+    30) limbs and ceil(floor((49 * 32 L + 57) / 17) / 30) batches."""
+    s30 = (32 * limbs + 29) // 30
+    batches = ((49 * 32 * limbs + 57) // 17 + 29) // 30
+    return batches * 10 * s30
+
+
+def inv_need(w: int, limbs: int) -> tuple[int, int]:
+    """(bytes, 32x32-bit products) that inverting w elements needs, the
+    row's bound: each read and written once; Montgomery's trick,
+    INV_NEED_PRODUCTS an element, around one inversion (a safegcd's
+    products, the cheapest inversion here)."""
+    return 8 * limbs * w, INV_NEED_PRODUCTS * mont_products(limbs) * w + \
+        safegcd_products(limbs)
+
+
+def inv_route_work(w: int, limbs: int, tile: int = 512) -> tuple[int, int]:
+    """(bytes, 32x32-bit products) of fr_pow's inversion route on w
+    elements, the design's own work: each read and written once; the
+    route's products an element, a tile's, and a safegcd a tile."""
+    tiles = -(-w // tile)
+    return 8 * limbs * w, INV_TREE_PRODUCTS * mont_products(limbs) * w + \
+        tiles * (INV_TILE_PRODUCTS * mont_products(limbs)
+                 + safegcd_products(limbs))
+
+
+def sqmul_products(e: int, limbs: int) -> int:
+    """32x32-bit products of square-and-multiply for e on one element:
+    bit_length(e) - 1 squarings and popcount(e) products."""
+    return (e.bit_length() - 1) * sqr_products(limbs) + \
+        bin(e).count("1") * mont_products(limbs)
 
 
 def formula_products(limbs: int, ops: tuple) -> int:
@@ -357,6 +422,40 @@ def rotated(torch, fn, args):
                            for a in args) for _ in range(copies - 1)]
     turn = itertools.cycle(sets)
     return lambda: fn(*next(turn))
+
+
+def dev_ms(torch, fn, *args, reps=20):
+    """Device ms of one call of ``fn`` over rotated copies of ``args``."""
+    return timed_ms(torch, rotated(torch, fn, args), reps)[0]
+
+
+def fr_pow_ms(torch, fc, a, e, widths, wide=1 << (MAIN_LOG_N + 2)):
+    """Device ms of one fr_pow launch with exponent ``e`` on the columns
+    2 .. 2 + m of ``a``, for each width m of ``widths`` (5 reps from
+    ``wide`` up, else 20); ``a`` holds at least max(widths) + 2 columns."""
+    from kzg_snark_tpu_torch.ops import scan
+    return {m: dev_ms(torch, lambda u: scan.fr_pow(fc, u, e),
+                      a[:, 2:2 + m].contiguous(),
+                      reps=5 if m >= wide else 20) for m in widths}
+
+
+def plonk_index_prove_twice(torch, prover, circuit, n: int):
+    """PLONK on ``circuit`` (``_circuit``) at n: the index (max_degree n +
+    5, TAU), then two proves with its keys, the device synced after each.
+    Returns the keys and {"index": s, "prove": [s, s], "proofs": [proof,
+    proof]}; ``prover.timings`` then holds the second prove's phases."""
+    qM, qZ, qO, perm, w = circuit
+    t0 = time.perf_counter()
+    keys = prover.preprocess(qM, qZ, qZ, qO, qZ, perm, max_degree=n + 5,
+                             tau=TAU)
+    torch.cuda.synchronize()
+    times = {"index": time.perf_counter() - t0, "prove": [], "proofs": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        times["proofs"].append(prover.prove(keys[0], [], w))
+        torch.cuda.synchronize()
+        times["prove"].append(time.perf_counter() - t0)
+    return keys, times
 
 
 def compare(torch, name, results, kernel_fn, plain_fn, args, work, reps=20,
@@ -586,6 +685,59 @@ def product_latency(torch, dev) -> None:
             f"product {LATENCY[limbs]['mul']:.4f} us, squaring "
             f"{LATENCY[limbs]['sqr']:.4f} us ({LATENCY_REPS} dependent, "
             f"32 elements)")
+
+
+INV_REPS = 64               # dependent safegcd inversions of the probe
+FERMAT_REPS = 8             # dependent Fermat chains of the probe
+INV_LATENCY: dict = {}      # limbs -> {"safegcd": us, "fermat": us}, a warp
+
+
+def inversion_latency(torch, dev) -> None:
+    """One inversion's latency on a lone warp at 8 words (BN254 Fr) and 12
+    (BLS12-381 Fq), by safegcd (fr_pow's inversion route, csrc/inv.cuh)
+    and by Fermat's chain x^(p-2) on PROD_CHAIN: kzg_probe_inv over 32
+    elements (a zero among them), one rep held to fr_pow_plain, then the
+    device time of INV_REPS / FERMAT_REPS dependent inversions over the
+    count, into INV_LATENCY (fr_pow's floor at width 1)."""
+    import ctypes
+    from kzg_snark_tpu_torch.ops import scan
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    from kzg_snark_tpu_torch.ops.limbs import ints_to_words
+    from kzg_snark_tpu_torch.utils.build import check, probe_lib
+    lib = probe_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for be in (fr_backend("bn254", dev), fq_backend("bls12_381", dev)):
+        fc = be.consts
+        L = fc.num_limbs
+        e = fc.modulus - 2
+        ew = (ctypes.c_uint32 * L)(*[int(w) for w in ints_to_words([e], L)[
+            :, 0]])
+        ic = scan.inv_consts(fc.modulus)
+        x = random_canonical(torch, 32, 77, dev, L)
+        x[:, 5] = 0
+        out = torch.empty_like(x)
+        want = scan.fr_pow_plain(fc, x, e)
+        for route, name, reps in ((0, "safegcd", INV_REPS),
+                                  (1, "fermat", FERMAT_REPS)):
+            def run(r, route=route):
+                check(lib.kzg_probe_inv(route, x.data_ptr(), out.data_ptr(),
+                                        32, r, ctypes.addressof(ew),
+                                        e.bit_length(), ctypes.addressof(ic),
+                                        fc.ptr, stream), "probe_inv")
+            run(1)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"probe inversion ({name}) at {L} words "
+                                     f"!= fr_pow_plain")
+            ms, _ = timed_ms(torch, lambda: run(reps), 5)
+            INV_LATENCY.setdefault(L, {})[name] = ms * 1e3 / reps
+        lat = INV_LATENCY[L]
+        log(f"[build] one inversion on a lone warp, {L} words: == plain; "
+            f"safegcd {lat['safegcd']:.4f} us "
+            f"({((49 * 32 * L + 57) // 17 + 29) // 30 * 30} divsteps), "
+            f"Fermat's chain on PROD_CHAIN {lat['fermat']:.4f} us "
+            f"({e.bit_length() - 1} squarings, {bin(e).count('1')} "
+            f"products)")
 
 
 PIECE_C = 10                # window width of the piece probe: 2^16's c
@@ -991,13 +1143,16 @@ def phase_kernels(torch, dev, results, rates):
 def phase_chains(torch, dev, results, rates):
     """fr_scan and fr_pow (K1 as the provers' chains use it) against their
     plain versions, exactly: fr_scan at the edge widths, both operations,
-    both directions, the total alone, a column read with step 0; fr_pow at
-    widths 1, 256 and 2^18 with e in {0, 1, 2, 2^16, r - 2} and p - 2 under
-    Fq.  The sums and powers take zero entries; the products none, since a
-    zero forces every later prefix to zero and would leave the tiles after
-    it unchecked.  Then the two rows (kernel, plain and bound), the times
-    at the paths' widths, and the device time of one narrow K1 and K7
-    launch."""
+    both directions, the total alone, a column read with step 0; fr_pow as
+    ``check_pow`` holds it.  The sums and powers take zero entries; the
+    products none, since a zero forces every later prefix to zero and would
+    leave the tiles after it unchecked.  Then the two rows (kernel, plain
+    and bound: fr_pow's what inverting the batch needs, 64 bytes and
+    INV_NEED_PRODUCTS products an element and one inversion; the route's
+    own work and square-and-multiply's beside it), the times at the paths'
+    widths (fr_pow's beside the design's width-1 floor: its safegcd's
+    lone-warp latency from the build phase and INV_TILE_DEPTH dependent
+    products), and the device time of one narrow K1 and K7 launch."""
     from kzg_snark_tpu_torch import constants as C
     from kzg_snark_tpu_torch.ops import cuda_fr, scan
     from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
@@ -1005,7 +1160,7 @@ def phase_chains(torch, dev, results, rates):
 
     fr = fr_backend("bn254", dev).consts
     fq = fq_backend("bn254", dev).consts
-    r, p = C.BN254_R, C.BN254_P
+    r = C.BN254_R
     n = 1 << MAIN_LOG_N
     n_big = (1 << (MAIN_LOG_N + 2)) + 3
     am = random_canonical(torch, n_big, 30, dev)      # no zero column
@@ -1040,16 +1195,7 @@ def phase_chains(torch, dev, results, rates):
         f"reverse, with the total alone, and a column repeated "
         f"2^{MAIN_LOG_N} times (step 0)")
 
-    for fc, exps in ((fr, (0, 1, 2, 1 << 16, r - 2)), (fq, (p - 2,))):
-        for m, off in ((1, 0), (1, 2), (256, 0), (1 << (MAIN_LOG_N + 2), 0)):
-            x = a[:, off:off + m].contiguous()
-            for e in exps:
-                want = scan.fr_pow_plain(fc, x, e)
-                if not torch.equal(scan.fr_pow(fc, x, e), want):
-                    raise AssertionError(
-                        f"fr_pow differs from plain at width {m}, e = {e}")
-    log("[chains] fr_pow == plain at widths 1 (a zero and a nonzero), 256 "
-        "and 2^18, e in {0, 1, 2, 2^16, r - 2} under Fr and p - 2 under Fq")
+    check_pow(torch, dev, a)
 
     cat = lambda pair: torch.cat(pair, dim=1)                  # noqa: E731
     xs = am[:, :n].contiguous()
@@ -1058,40 +1204,60 @@ def phase_chains(torch, dev, results, rates):
             lambda u: cat(scan.fr_scan_plain(fr, u, scan.MUL)), (xs,),
             bound(rates, 64 * n + 32, MONT_PRODUCTS * (n - 1)))
     e = r - 2
-    steps = e.bit_length() - 1 + bin(e).count("1")
     w18 = 1 << (MAIN_LOG_N + 2)
     x18 = a[:, :w18].contiguous()
     compare(torch, "fr_pow", results, lambda u: scan.fr_pow(fr, u, e),
             lambda u: scan.fr_pow_plain(fr, u, e), (x18,),
-            bound(rates, 64 * w18, MONT_PRODUCTS * steps * w18), reps=5,
-            plain_reps=1)
-
-    def dev_ms(fn, *args, reps=20):
-        return timed_ms(torch, rotated(torch, fn, args), reps)[0]
+            bound(rates, *inv_need(w18, 8)), reps=5, plain_reps=1)
 
     row = []
     for m in (n, n_big):
         for op, name, src in ((scan.MUL, "product", am), (scan.ADD, "sum", a)):
             row.append(f"n = {m} {name}: " + "%.4f" % dev_ms(
-                lambda u: scan.fr_scan(fr, u, op), src[:, :m].contiguous()))
+                torch, lambda u: scan.fr_scan(fr, u, op),
+                src[:, :m].contiguous()))
         row.append(f"n = {m} sum, total alone: %.4f" % dev_ms(
-            lambda u: scan.fr_scan(fr, u, scan.ADD, want_scan=False),
+            torch, lambda u: scan.fr_scan(fr, u, scan.ADD, want_scan=False),
             a[:, :m].contiguous()))
     log("[chains] fr_scan device ms: " + "; ".join(row))
-    row = []
-    for m in (1, 256, w18):
-        x = a[:, 2:2 + m].contiguous()
-        row.append(f"width {m}: " + "%.4f" % dev_ms(
-            lambda u: scan.fr_pow(fr, u, e), x, reps=5 if m == w18 else 20))
-    log(f"[chains] fr_pow (e = r - 2, {steps} products a chain) device ms: "
-        + "; ".join(row))
+    pow_ms = fr_pow_ms(torch, fr, a, e, (1, 8, 256, w18))
+    general = fr_pow_ms(torch, fr, a, 1 << 16, (1, w18))
+    lat = INV_LATENCY[8]
+    floor_us = lat["safegcd"] + INV_TILE_DEPTH * LATENCY[8]["mul"]
+    sqmul = bound(rates, 64 * w18, sqmul_products(e, 8) * w18)
+    route = bound(rates, *inv_route_work(w18, 8))
+    need1 = bound(rates, *inv_need(1, 8))
+    results["fr_pow"].update(
+        width1_ms=pow_ms[1], width8_ms=pow_ms[8], width256_ms=pow_ms[256],
+        width1_bound_ms=need1["bound_ms"],
+        width1_design_floor_ms=floor_us / 1e3,
+        fermat_floor_ms=lat["fermat"] / 1e3,
+        route_bound_ms=route["bound_ms"],
+        square_multiply_bound_ms=sqmul["bound_ms"],
+        e_2_16_ms={"width 1": general[1], "2^18": general[w18]})
+    log(f"[chains] fr_pow (e = r - 2, the inversion route) device ms: "
+        + "; ".join(f"width {m}: {ms:.4f}" for m, ms in pow_ms.items())
+        + f"; width 1's bound {need1['bound_ms']:.7f} ms "
+        f"({need1['bound_by']}: {INV_NEED_PRODUCTS} products and one "
+        f"safegcd), the design's own floor {floor_us / 1e3:.4f} ms (its "
+        f"safegcd on a lone warp, {lat['safegcd']:.2f} us as measured, and "
+        f"{INV_TILE_DEPTH} dependent products), Fermat's chain alone "
+        f"{lat['fermat'] / 1e3:.4f} ms; at 2^18 the bound "
+        f"{results['fr_pow']['bound_ms']:.4f} ms "
+        f"({results['fr_pow']['bound_by']}: 64 B and {INV_NEED_PRODUCTS} "
+        f"products an element, one safegcd), the route's own work "
+        f"{route['bound_ms']:.4f} ms ({INV_TREE_PRODUCTS} products an "
+        f"element, a safegcd a tile), square-and-multiply's "
+        f"{sqmul['bound_ms']:.4f} ms; e = 2^16 (square-and-multiply): width "
+        f"1 {general[1]:.4f}, 2^18 {general[w18]:.4f}")
     pts = torch.stack([a[:, 3:4], a[:, 4:5], a[:, 5:6]]).contiguous()
     log("[chains] one narrow launch, device ms: fr_mul (8, 1) %.4f, "
         "(8, 256) %.4f; g1_double of 1 point %.4f" % (
-            dev_ms(lambda u: cuda_fr.fr_mul(fr, u, u), a[:, :1].contiguous()),
-            dev_ms(lambda u: cuda_fr.fr_mul(fr, u, u),
+            dev_ms(torch, lambda u: cuda_fr.fr_mul(fr, u, u),
+                   a[:, :1].contiguous()),
+            dev_ms(torch, lambda u: cuda_fr.fr_mul(fr, u, u),
                    a[:, :256].contiguous()),
-            dev_ms(lambda u: cuda_fr.g1_double(fq, u), pts)))
+            dev_ms(torch, lambda u: cuda_fr.g1_double(fq, u), pts)))
 
     # The SRS table kernel with W = 2, 9 and 32 windows of c = 8: its
     # one-thread chain is c (W - 1) = 8, 64 and 248 doublings; its levels
@@ -1107,7 +1273,8 @@ def phase_chains(torch, dev, results, rates):
             raise AssertionError(f"g1_fixed_base_table differs from plain "
                                  f"at c = {c}, W = {w}")
         chain_ms[c * (w - 1)] = dev_ms(
-            lambda u, w=w: g1_fixed_base_table(fq, u, c, w), base, reps=5)
+            torch, lambda u, w=w: g1_fixed_base_table(fq, u, c, w), base,
+            reps=5)
     lo, hi = min(chain_ms), max(chain_ms)
     log("[chains] g1_fixed_base_table (c = 8) == plain at W = 2, 9, 32; "
         "device ms by chain length: " + "; ".join(
@@ -1115,6 +1282,57 @@ def phase_chains(torch, dev, results, rates):
             for d, ms in sorted(chain_ms.items()))
         + f"; slope {(chain_ms[hi] - chain_ms[lo]) / (hi - lo) * 1e3:.3f} "
         f"us a doubling ({lo}..{hi}, levels included)")
+
+
+def check_pow(torch, dev, a) -> None:
+    """fr_pow against fr_pow_plain, exactly, at widths 1 (a zero and a
+    nonzero), 2, 255, 256, 257, T - 1, T + 1 (T = scan.tile(), the
+    inversion route's tile) and 2^18 + 3 under BN254 Fr with e in {0, 1, 2,
+    2^16, r - 2, a random 254-bit e}, under BN254 Fq (8 words) and under
+    BLS12-381 Fq (12 words) with p - 2.  The widths are prefixes of one
+    array a field (the plain version is elementwise, so it runs once an
+    exponent) holding zeros every 997 columns, at both sides of the first
+    tile edge, over all of the third tile and in the ragged last tile."""
+    import random
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import scan
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    T = scan.tile()
+
+    def zeros(x):
+        w = x.shape[1]
+        x = x.clone()
+        x[:, ::997] = 0
+        x[:, T - 1:T + 1] = 0
+        x[:, 2 * T:3 * T] = 0
+        x[:, w - 2] = 0
+        return x
+
+    e_rand = random.Random(20261018).getrandbits(254) | 1 << 253
+    w = (1 << (MAIN_LOG_N + 2)) + 3
+    big = zeros(a[:, :w])
+    fq12 = fq_backend("bls12_381", dev).consts
+    cases = [(fr_backend("bn254", dev).consts, big,
+              (0, 1, 2, 1 << 16, C.BN254_R - 2, e_rand)),
+             (fq_backend("bn254", dev).consts, big, (C.BN254_P - 2,)),
+             (fq12, zeros(random_canonical(torch, w, 31, dev, 12)),
+              (fq12.modulus - 2,))]
+    for fc, x, exps in cases:
+        w = x.shape[1]
+        widths = (1, 2, 255, 256, 257, T - 1, T + 1, w)
+        for e in exps:
+            want = scan.fr_pow_plain(fc, x, e)
+            for m, off in [(1, 2)] + [(m, 0) for m in widths]:
+                got = scan.fr_pow(fc, x[:, off:off + m].contiguous(), e)
+                if not torch.equal(got, want[:, off:off + m]):
+                    raise AssertionError(
+                        f"fr_pow differs from plain at {fc.num_limbs} words, "
+                        f"width {m}, e = {e}")
+    log(f"[chains] fr_pow == plain at widths 1 (a zero and a nonzero), 2, "
+        f"255, 256, 257, {T - 1}, {T + 1} and {w} (zeros at tile edges, an "
+        f"all-zero tile, the ragged last tile), e in {{0, 1, 2, 2^16, r - 2, "
+        f"a random 254-bit e}} under BN254 Fr and p - 2 under BN254 Fq (8 "
+        f"words) and BLS12-381 Fq (12 words)")
 
 
 def bucket_schedule(torch, sets, c=None, chunk=None, events=None, bits=254):
@@ -1345,18 +1563,18 @@ def run_path(torch, paths, name, fn):
 
 def check_ntt_passes(name: str, counts: dict) -> None:
     """ntt_pass on the path made ceil(log2 n / t) launches a staged
-    transform, and at most 2."""
+    transform of n, t = tile_bits(n), and at most 2."""
     from kzg_snark_tpu_torch.ops.ntt_stage import pass_plan, tile_bits
     tf = PATH_TRANSFORMS[name]
-    t = tile_bits()
-    want = sum(k * len(pass_plan(n, t)) for n, k in tf.items())
+    want = sum(k * len(pass_plan(n, tile_bits(n))) for n, k in tf.items())
     got = counts.get("ntt_pass", 0)
     if not tf or got != want or got > 2 * sum(tf.values()):
         raise AssertionError(f"the {name} path launched ntt_pass {got} "
                              f"times for staged transforms {tf} (expected "
                              f"{want}, at most 2 a transform)")
+    tiles = {n: tile_bits(n) for n in tf}
     log(f"[{name}] staged transforms by n: {json.dumps(tf)}; ntt_pass "
-        f"launches {got} (tiles of 2^{t})")
+        f"launches {got} (tile bits by n: {json.dumps(tiles)})")
 
 
 def phase_ntt(torch, dev, paths, rates):
@@ -1367,13 +1585,13 @@ def phase_ntt(torch, dev, paths, rates):
                                                    staged_transform,
                                                    tile_bits)
 
-    T = tile_bits()
-    sizes = sorted({2, 1 << T, 2 << T, 1 << 15, 1 << MAIN_LOG_N,
-                    1 << (MAIN_LOG_N + 2)})
+    sizes = sorted({2, 1 << 8, 1 << 9, 1 << 11, *(1 << lg for lg in
+                                                  NTT_TIMED_LOG_N)})
     for m in sizes:
         cm = ntt_context("bn254", m, dev)
         fr = cm.backend.consts
         xm = random_canonical(torch, m, 40 + m.bit_length(), dev)
+        T = tile_bits(m)
         for tw in (cm.tw_fwd, cm.tw_inv):
             y = xm
             for s0, g in pass_plan(m, T):
@@ -1384,11 +1602,11 @@ def phase_ntt(torch, dev, paths, rates):
                                          f"n = {m}, stages {s0}..+{g}")
             if not torch.equal(staged_transform(fr, xm, tw), y):
                 raise AssertionError(f"staged transform at n = {m} differs")
-    log(f"[ntt] ntt_pass == plain for every pass of the plan (tile 2^{T}) "
-        f"at n = {sizes}, forward and inverse tables, and the whole staged "
-        f"transform")
+    log(f"[ntt] ntt_pass == plain for every pass of the plan at n = "
+        f"{sizes} (tile bits {[tile_bits(m) for m in sizes]}), forward and "
+        f"inverse tables, and the whole staged transform")
 
-    for lg in (15, MAIN_LOG_N, MAIN_LOG_N + 2):
+    for lg in NTT_TIMED_LOG_N:
         m = 1 << lg
         cm = ntt_context("bn254", m, dev)
         fr = cm.backend.consts
@@ -1406,11 +1624,12 @@ def phase_ntt(torch, dev, paths, rates):
                 raise AssertionError(f"NTT 2^{lg} with 2^{t} tiles differs")
             d, w = timed_ms(torch, rotated(torch, passes, (xm, cm.tw_fwd)),
                             10)
-            cells.append(f"t = {t}{'*' if t == T else ''}: {d:.4f} / "
-                         f"{w:.4f} ({len(pass_plan(m, t))} launches)")
+            cells.append(f"t = {t}{'*' if t == tile_bits(m) else ''}: "
+                         f"{d:.4f} / {w:.4f} ({len(pass_plan(m, t))} "
+                         f"launches)")
         b = ntt_bound(rates, m)
         log(f"[ntt] 2^{lg} forward transform, device ms / wall ms by tile "
-            f"bits (* = NTT_TILE_BITS): " + "; ".join(cells)
+            f"bits (* = the plan's, tile_bits(n)): " + "; ".join(cells)
             + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
 
     n = 1 << (MAIN_LOG_N + 2)
@@ -1889,14 +2108,16 @@ def phase_bls_kernels(torch, dev, rows, rates, basis, ks):
             (xs,), bound(rates, 8 * L * n + 4 * L,
                          mont_products(L) * (n - 1)))
         e = be.modulus - 2
-        steps = e.bit_length() - 1 + bin(e).count("1")
         w = 1 << (BLS_POW_LOG_N if field == "Fr" else BLS_POW_LOG_N - 2)
         xp = a[:, :w].contiguous()
         row("fr_pow", field, f"({L}, 2^{w.bit_length() - 1}), e = p - 2",
             lambda u, fc=fc, e=e: scan.fr_pow(fc, u, e),
             lambda u, fc=fc, e=e: scan.fr_pow_plain(fc, u, e), (xp,),
-            bound(rates, 8 * L * w, mont_products(L) * steps * w), reps=5,
-            plain_reps=1)
+            bound(rates, *inv_need(w, L)), reps=5, plain_reps=1)
+        rows["fr_pow"][-1].update(
+            route_bound_ms=bound(rates, *inv_route_work(w, L))["bound_ms"],
+            square_multiply_bound_ms=bound(
+                rates, 8 * L * w, sqmul_products(e, L) * w)["bound_ms"])
 
     fr = fr_be.consts
     a = random_canonical(torch, n_field, 63, dev)
@@ -2139,26 +2360,16 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
     from kzg_snark_tpu_torch.rng import Rng
 
     n = 1 << MAIN_LOG_N
-    qM, qZ, qO, perm, w = _circuit(scalar_field(curve), n)
+    circuit = _circuit(scalar_field(curve), n)
     prover = DeviceProver(curve, rng=Rng(77), collect_timings=True,
                           device=dev)
     torch.cuda.reset_peak_memory_stats()
     times = {}
 
     def run():
-        t0 = time.perf_counter()
-        keys = prover.preprocess(qM, qZ, qZ, qO, qZ, perm,
-                                 max_degree=n + 5, tau=TAU)
-        torch.cuda.synchronize()
-        times["index"] = time.perf_counter() - t0
-        times["prove"], times["proofs"] = [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            proof = prover.prove(keys[0], [], w)
-            torch.cuda.synchronize()
-            times["prove"].append(time.perf_counter() - t0)
-            times["proofs"].append(proof)
-        return keys, proof
+        keys, t = plonk_index_prove_twice(torch, prover, circuit, n)
+        times.update(t)
+        return keys, t["proofs"][-1]
 
     (ipk, ivk), proof = run_path(torch, paths, name, run)
     counts = paths[name]
@@ -2205,7 +2416,7 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
                              f"and fr_scan + fr_pow {chains} (limit 600)")
     return {"keys": (ipk, ivk), "proofs": times["proofs"],
             "index_s": times["index"], "prove_s": times["prove"],
-            "circuit": (qM, qZ, qO, perm, w)}
+            "circuit": circuit}
 
 
 def check_ladder_path(name: str, counts: dict) -> None:
@@ -2378,8 +2589,14 @@ def profile_run(torch, label, fn) -> dict:
     msm = {k: sum(ms for ms, _, name in by_kernel if k in name)
            for k in ("k_msm_accumulate", "k_msm_window_sums",
                      "k_msm_horner")}
+    chains = {k: [sum(ms for ms, _, name in by_kernel if k in name),
+                  sum(c for _, c, name in by_kernel if k in name)]
+              for k in ("k_fr_pow", "k_fr_inv", "k_ntt_pass")}
+    log(f"[profile] {label}: device ms (launches) of fr_pow's kernels and "
+        f"the NTT pass: {json.dumps(chains)}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
-            "idle_share": 1 - busy / wall_ms, "msm_ms": msm}
+            "idle_share": 1 - busy / wall_ms, "msm_ms": msm,
+            "chain_ms": chains}
 
 
 # ---------------------------------------------------------------------------
@@ -2730,7 +2947,7 @@ def phase_dist(torch, name: str, ranks: int, backend: str, hosts=None,
                 f"{sd['wall_ms']:.3f}")
     fwd = recs[0]["ntt"]
     n2 = (1 << DIST_LOG_N) // ranks
-    want = {"ntt_pass": len(pass_plan(n2, tile_bits())),
+    want = {"ntt_pass": len(pass_plan(n2, tile_bits(n2))),
             "fr_butterfly": ranks.bit_length() - 1}
     got = {k: fwd["ntt"]["launches"].get(k, 0) for k in want}
     if got != want:
@@ -2820,6 +3037,68 @@ def tree_times(root: str) -> dict:
         torch.cuda.synchronize()
         out[name] = launch_counts()
     out.update(tree_bucket(torch, dev, rates))
+    out.update(tree_chains(torch, dev, rates))
+    return out
+
+
+def tree_chains(torch, dev, rates) -> dict:
+    """fr_pow and ntt_pass with the package on sys.path (public entry
+    points only): fr_pow under BN254 Fr with e = r - 2 at widths 1, 8, 256
+    and 2^18 and e = 2^16 at 2^18, under BLS12-381 Fq (12 words) with
+    p - 2 at 2^14, equal to fr_pow_plain at widths 1 and 256; the staged
+    transform (the tree's own plan) at the NTT_TIMED_LOG_N sizes, equal
+    to the plain stages at 2^14; PLONK n = 2^16 indexed and proved twice
+    (BN254), the second prove's phase map.  Device ms."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+    from kzg_snark_tpu_torch.ops import scan
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    from kzg_snark_tpu_torch.ops.host.field import scalar_field
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import (ntt_pass_plain,
+                                                   staged_transform)
+    from kzg_snark_tpu_torch.rng import Rng
+
+    out: dict = {}
+    w18 = 1 << (MAIN_LOG_N + 2)
+    fr = fr_backend("bn254", dev).consts
+    a = random_canonical(torch, w18 + 3, 30, dev)
+    a[:, ::997] = 0
+    e = C.BN254_R - 2
+    for m in (1, 256):
+        x = a[:, :m].contiguous()
+        if not torch.equal(scan.fr_pow(fr, x, e), scan.fr_pow_plain(fr, x, e)):
+            raise AssertionError(f"fr_pow differs from plain at width {m}")
+    pow_ms = {f"r-2 width {m}": ms for m, ms in
+              fr_pow_ms(torch, fr, a, e, (1, 8, 256, w18)).items()}
+    pow_ms["2^16 width 2^18"] = fr_pow_ms(torch, fr, a, 1 << 16, (w18,))[w18]
+    fq = fq_backend("bls12_381", dev).consts
+    x12 = random_canonical(torch, (1 << 14) + 2, 31, dev, 12)
+    pow_ms["bls fq p-2 width 2^14"] = fr_pow_ms(
+        torch, fq, x12, fq.modulus - 2, (1 << 14,), wide=1 << 14)[1 << 14]
+    out["fr_pow_device_ms"] = pow_ms
+    ntt_ms = {}
+    for lg in NTT_TIMED_LOG_N:
+        ctx = ntt_context("bn254", 1 << lg, dev)
+        x = random_canonical(torch, 1 << lg, 50 + lg, dev)
+        if lg == NTT_TIMED_LOG_N[0] and not torch.equal(
+                staged_transform(ctx.backend.consts, x, ctx.tw_fwd),
+                ntt_pass_plain(ctx.backend.consts, x, ctx.tw_fwd, 0, lg)):
+            raise AssertionError(f"staged transform 2^{lg} differs")
+        ntt_ms[f"2^{lg}"] = dev_ms(
+            torch, lambda u, tw, c=ctx: staged_transform(c.backend.consts, u,
+                                                         tw),
+            x, ctx.tw_fwd, reps=10)
+    out["ntt_transform_device_ms"] = ntt_ms
+    n = 1 << MAIN_LOG_N
+    prover = DeviceProver("bn254", rng=Rng(77), collect_timings=True,
+                          device=dev)
+    _, times = plonk_index_prove_twice(
+        torch, prover, _circuit(scalar_field("bn254"), n), n)
+    out["plonk_2^16_second_prove"] = {
+        "prove_s": times["prove"],
+        "phases_ms": {k: round(v * 1e3, 3)
+                      for k, v in prover.timings.items()}}
     return out
 
 
@@ -2969,6 +3248,7 @@ def main() -> int:
     product_sass(lib_path)
     product_throughput(torch, dev, rates)
     product_latency(torch, dev)
+    inversion_latency(torch, dev)
     piece_scale_latency(torch, dev)
 
     results: dict = {}

@@ -125,7 +125,7 @@ static int impl_fr_butterfly(const void* xl, const void* xu, const void* tw,
   return 0;
 }
 
-extern "C" int host_ntt_tile() { return NTT_TILE_BITS; }
+extern "C" int host_ntt_tile(int log_n) { return ntt_tile_bits(log_n); }
 
 // One pass as k_ntt_pass runs it, block after block: the tile and every
 // stage's twiddles loaded, the stages in radix-4 pairs (a radix-2 stage
@@ -310,14 +310,100 @@ static int impl_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
   return 0;
 }
 
+// The inversion route's tile as k_fr_inv runs it: each thread's 4 elements
+// (one past n, zeros as one) up the pair tree, the butterflies across each
+// warp's lanes and across the warp totals level by level, the tile total
+// inverted (safegcd and the R^3 product), then down the trees.
+template <int NL>
+static void host_inv_tile(const uint32_t* a, uint32_t* out, int64_t n,
+                          int64_t base, const InvConsts<NL>& I,
+                          const FieldConsts<NL>& F) {
+  constexpr int T = SCAN_THREADS, W = SCAN_THREADS / 32;
+  static uint32_t c[T][4][NL], p01[T][NL], p23[T][NL], acc[T][NL],
+      oth[T][NL], y[T][NL];
+  unsigned zero[T];
+  for (int t = 0; t < T; t++) {
+    zero[t] = 0;
+    for (int j = 0; j < 4; j++) {
+      const int64_t l = base + t * SCAN_PER + j;
+      if (l < n) {
+        fe_load<NL>(c[t][j], a, n, l);
+      } else {
+        fe_copy<NL>(c[t][j], F.one);
+      }
+      zero[t] |= (unsigned)inv_zero_as_one(c[t][j], F) << j;
+    }
+    inv_chunk_up(c[t][0], c[t][1], c[t][2], c[t][3], p01[t], p23[t], acc[t],
+                 F);
+    fe_copy<NL>(oth[t], F.one);
+  }
+  for (int d = 1; d < 32; d <<= 1) {
+    for (int t = 0; t < T; t++) fe_copy<NL>(y[t], acc[t ^ d]);
+    for (int t = 0; t < T; t++) inv_others_step(acc[t], oth[t], y[t], F);
+  }
+  uint32_t wacc[32][NL], woth[32][NL], wy[32][NL];
+  for (int l = 0; l < 32; l++) {
+    fe_copy<NL>(wacc[l], l < W ? acc[32 * l] : F.one);
+    fe_copy<NL>(woth[l], F.one);
+  }
+  for (int d = 1; d < W; d <<= 1) {
+    for (int l = 0; l < 32; l++) fe_copy<NL>(wy[l], wacc[l ^ d]);
+    for (int l = 0; l < 32; l++) inv_others_step(wacc[l], woth[l], wy[l], F);
+  }
+  uint32_t itile[NL];
+  fe_inv_mont(itile, wacc[0], F, I);
+  for (int l = 0; l < W; l++) fe_mul_chain(woth[l], woth[l], itile, F);
+  for (int t = 0; t < T; t++) {
+    uint32_t itot[NL];
+    fe_mul_chain(itot, oth[t], woth[t >> 5], F);
+    inv_chunk_down(c[t][0], c[t][1], c[t][2], c[t][3], p01[t], p23[t], itot,
+                   zero[t], F);
+    for (int j = 0; j < 4; j++) {
+      const int64_t l = base + t * SCAN_PER + j;
+      if (l < n) fe_store<NL>(out, n, l, c[t][j]);
+    }
+  }
+}
+
+// fr_pow by its route: the inversion's tiles when the exponent is p - 2,
+// else every thread's square-and-multiply.
 template <int NL>
 static int impl_fr_pow(const void* a, int64_t n, const void* exponent,
-                       int nbits, void* out, const void* consts) {
+                       int nbits, const void* inv_consts, void* out,
+                       const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
   const uint32_t* e = (const uint32_t*)exponent;
+  if (pow_is_inversion<NL>(e, F)) {
+    InvConsts<NL> I;
+    memcpy(&I, inv_consts, sizeof(I));
+    for (int64_t b = 0; b < scan_tiles(n); b++)
+      host_inv_tile<NL>((const uint32_t*)a, (uint32_t*)out, n,
+                        b * SCAN_TILE, I, F);
+    return 0;
+  }
   for (int64_t i = 0; i < n; i++)
     fe_pow_thread(i, (const uint32_t*)a, (uint32_t*)out, n, e, nbits, F);
   return 0;
+}
+
+// The safegcd alone: out[i] = a[i]^-1 mod p on plain integers (0 -> 0).
+template <int NL>
+static int impl_fe_inv(const void* a, void* out, int64_t n, uint32_t pinv30,
+                       const void* consts) {
+  const FieldConsts<NL> F = consts_of<NL>(consts);
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t x[NL];
+    fe_load<NL>(x, (const uint32_t*)a, n, i);
+    fe_inv_raw<NL>(x, x, F, pinv30);
+    fe_store<NL>((uint32_t*)out, n, i, x);
+  }
+  return 0;
+}
+
+template <int NL>
+static int impl_pow_route(const void* exponent, const void* consts) {
+  return pow_is_inversion<NL>((const uint32_t*)exponent,
+                              consts_of<NL>(consts));
 }
 
 // The entries, each dispatching on the consts block's limb count.
@@ -409,6 +495,18 @@ extern "C" int host_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
 }
 
 extern "C" int host_fr_pow(const void* a, int64_t n, const void* exponent,
-                           int nbits, void* out, const void* consts) {
-  return KZG_BY_LIMBS(consts, impl_fr_pow, a, n, exponent, nbits, out, consts);
+                           int nbits, const void* inv_consts, void* out,
+                           const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_fr_pow, a, n, exponent, nbits, inv_consts,
+                      out, consts);
+}
+
+extern "C" int host_fe_inv(const void* a, void* out, int64_t n,
+                           uint32_t pinv30, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_fe_inv, a, out, n, pinv30, consts);
+}
+
+// 1 if fr_pow takes the inversion route for this exponent, else 0.
+extern "C" int host_pow_route(const void* exponent, const void* consts) {
+  return KZG_BY_LIMBS(consts, impl_pow_route, exponent, consts);
 }

@@ -7,13 +7,15 @@
 // kzg_snark_tpu/ops/ntt.py NttContext._transform.
 #pragma once
 
-#include "field.cuh"
+#include "chain.cuh"
 
+// (lo, hi) = (lo + w hi, lo - w hi), the product on PROD_CHAIN
+// (chain.cuh): the passes are bound by the product's instructions.
 template <int NL>
 KZG_HD void ntt_butterfly(uint32_t lo[NL], uint32_t hi[NL],
                           const uint32_t w[NL], const FieldConsts<NL>& F) {
   uint32_t prod[NL];
-  fe_mul(prod, hi, w, F);
+  fe_mul_chain(prod, hi, w, F);
   fe_sub(hi, lo, prod, F);
   fe_add(lo, lo, prod, F);
 }
@@ -29,11 +31,20 @@ KZG_HD void ntt_butterfly(uint32_t lo[NL], uint32_t hi[NL],
 // elements; it needs S twiddles, which the block stages in shared memory,
 // every stage's at once, stage s at offset S - 2^lcb of an (NL, E) array.
 //
-// The tile's log2, fixed here: a block holds at most 2^NTT_TILE_BITS
-// elements and as many twiddles, 64 bytes an element of shared memory.
-#define NTT_TILE_BITS 10
+// A block holds at most 2^NTT_MAX_TILE_BITS elements and as many
+// twiddles, 64 bytes an element of shared memory.
 #define NTT_MAX_TILE_BITS 11
 #define NTT_THREADS 256
+
+// The plan's tile, log2, for a transform of 2^log_n: at 2^14..2^18, the
+// sizes where tiles were measured, the fastest there (PERF.md); elsewhere
+// the former fixed tile, 10 bits: one pass up to 2^10, two to 2^20.  A
+// transform of 2^k is ceil(k / t) passes.
+#define NTT_TILE_BITS 10
+KZG_HD int ntt_tile_bits(int log_n) {
+  if (log_n < 14 || log_n > 18) return NTT_TILE_BITS;
+  return log_n <= 15 ? 8 : log_n == 16 ? 9 : 10;
+}
 
 struct NttPass {
   int64_t n;       // transform size 2^k

@@ -5,7 +5,8 @@
 // (K5).  The TPU split stages by whether a span fitted inside one (8, 128)
 // tile, a launch for each stage or pair of stages; here one kernel runs as
 // many stages as a shared-memory tile holds, so a transform of n = 2^k is
-// ceil(k / NTT_TILE_BITS) launches (two at 2^11..2^20 with 10-bit tiles).
+// ceil(k / t) launches, t = ntt_tile_bits(k) (ntt.cuh): one up to 2^10,
+// two from 2^11 to 2^20.
 //
 // What bounds it on the H100: a DIT transform does k n / 2 Montgomery
 // products (136 32-bit products each) and must read and write the (8, n)
@@ -20,13 +21,21 @@
 // elements through two stages in registers (a radix-2 stage last when the
 // pass has an odd number), with one __syncthreads a pair; it stores the
 // tile at the end.  Every block reads all of its elements before it writes
-// any and blocks own disjoint elements, so a pass may run in place.
-// Shared memory: 64 bytes an element (the tile and its twiddles), 64 KB a
-// block at 10-bit tiles.  Tiles of 2^8..2^11 elements were measured
-// (PERF.md): 10 bits is the fastest at 2^18 and loses to 9 bits at 2^16.
-// The transforms are over Fr, 8 words on both curves (BN254, BLS12-381),
-// so both kernels are instantiated at NL = 8 alone; an entry point given
-// another limb count returns KZG_BAD_LIMBS.
+// any and blocks own disjoint elements, so a pass may run in place.  The
+// butterflies run the carry-chained product (chain.cuh, PROD_CHAIN): 184
+// SASS instructions a product at 8 words against fe_mul's 448, 104
+// registers, no spill.  Shared memory: 64 bytes an element (the tile and
+// its twiddles), 64 KB a block at 10-bit tiles.  The tile is chosen by n
+// where tiles were measured: the fastest of 2^8..2^11 at 2^14..2^18
+// (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's ntt phase, PERF.md):
+// 8 bits at 2^14 and 2^15 (2^14: 0.0294 ms), 9 at 2^16 (0.0346 ms: 128
+// blocks, where 8 bits leaves the second pass one-word runs, 0.0445), 10
+// at 2^17 and 2^18 (2^18: 0.0942 ms, from 0.1199 on fe_mul); every
+// two-pass split of 2^14..2^18, each pass with its own tile, was within
+// 3 % of these.  Other sizes keep the fixed 10-bit tile of before.  The transforms are over Fr, 8 words
+// on both curves (BN254, BLS12-381), so both kernels are instantiated at
+// NL = 8 alone; an entry point given another limb count returns
+// KZG_BAD_LIMBS.
 //
 // K10 replaces kzg_snark_tpu/ops/pallas_fr.py:_butterfly_call
 // (fused_butterfly), the stage combine of the scan-mode NTT
@@ -132,9 +141,9 @@ int launch_butterfly(const void* xl, const void* xu, const void* tw,
 
 }  // namespace
 
-// NTT_TILE_BITS, the log2 of a pass's tile: the launches of a transform
-// of 2^k are ceil(k / NTT_TILE_BITS).
-extern "C" int kzg_ntt_tile() { return NTT_TILE_BITS; }
+// The plan's tile (log2) for a transform of 2^log_n (ntt_tile_bits): the
+// launches of that transform are ceil(log_n / tile).
+extern "C" int kzg_ntt_tile(int log_n) { return ntt_tile_bits(log_n); }
 
 // One pass: stages s0 .. s0 + g - 1 of the transform of x (NL, n), n = 2^k,
 // into y (which may be x), with tiles of 2^tile_bits elements.

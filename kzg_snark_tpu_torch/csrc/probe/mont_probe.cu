@@ -12,9 +12,15 @@
 // * probe_piece_scale: the window-sum piece's c-bit double-and-add
 //   (msm.cuh msm_piece_scale), `reps` times in a dependent chain on each
 //   thread's point (kzg_probe_piece_scale): on one warp, its latency.
+// * probe_inv: `reps` dependent inversions of each thread's element, by
+//   safegcd (inv.cuh fe_inv_mont) or by Fermat's chain x^(p-2) on
+//   PROD_CHAIN (scan.cuh fe_pow_chain) (kzg_probe_inv): on one warp, the
+//   floor of fr_pow's inversion route at width 1 and that of the chain.
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "../msm.cuh"
+#include "../scan.cuh"
 
 template <int NL>
 __global__ void probe_copy(uint32_t* r, const uint32_t* a, const uint32_t* b,
@@ -152,4 +158,57 @@ extern "C" int kzg_probe_piece_scale(const void* pts, const void* mult,
                                      const void* consts, void* stream) {
   return KZG_BY_LIMBS(consts, launch_piece_scale, pts, mult, n, c, reps, out,
                       consts, stream);
+}
+
+template <int NL>
+struct ProbeExponent {
+  uint32_t w[NL];
+};
+
+// Thread i < n: x = element i, then `reps` times x = 1 / x (route 0:
+// safegcd, route 1: x^e by the chain, e = p - 2); x to column i of out.
+template <int NL>
+__global__ void __launch_bounds__(128)
+    probe_inv(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+              int64_t n, int reps, int route, ProbeExponent<NL> e, int nbits,
+              InvConsts<NL> I, FieldConsts<NL> F) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t a[NL];
+  fe_load<NL>(a, x, n, i);
+#pragma unroll 1
+  for (int r = 0; r < reps; r++) {
+    if (route == 0) {
+      fe_inv_mont(a, a, F, I);
+    } else {
+      fe_pow_chain(a, a, e.w, nbits, F);
+    }
+  }
+  fe_store<NL>(out, n, i, a);
+}
+
+template <int NL>
+static int launch_inv(int route, const void* x, void* out, int64_t n,
+                      int reps, const void* exponent, int nbits,
+                      const void* inv_consts, const void* consts,
+                      void* stream) {
+  ProbeExponent<NL> e;
+  memcpy(e.w, exponent, sizeof(e.w));
+  InvConsts<NL> I;
+  memcpy(&I, inv_consts, sizeof(I));
+  probe_inv<NL><<<(unsigned)((n + 127) / 128), 128, 0,
+                  (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out,
+                                          n, reps, route, e, nbits, I,
+                                          consts_of<NL>(consts));
+  return (int)cudaGetLastError();
+}
+
+// `reps` dependent inversions (route 0: safegcd; 1: x^e on the chain) of
+// each of n elements, (NL, n) operands in Montgomery form.
+extern "C" int kzg_probe_inv(int route, const void* x, void* out, int64_t n,
+                             int reps, const void* exponent, int nbits,
+                             const void* inv_consts, const void* consts,
+                             void* stream) {
+  return KZG_BY_LIMBS(consts, launch_inv, route, x, out, n, reps, exponent,
+                      nbits, inv_consts, consts, stream);
 }

@@ -160,12 +160,14 @@ class FieldBackend:
         return scan.fr_pow(self.consts, flat, exponent).reshape(a.shape)
 
     def inv(self, a):
-        """Batched inversion by Fermat: a^(p-2).  inv(0) = 0."""
+        """Batched inversion: a^(p-2), which fr_pow computes on its
+        inversion route (Montgomery's trick around a safegcd a tile).
+        inv(0) = 0."""
         return self.pow_const(a, self.modulus - 2)
 
     def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
         """Montgomery-trick inversion of an (L, N) batch: exclusive prefix
-        and suffix products, one Fermat inversion of the total.  Zero
+        and suffix products, one inversion of the total (``inv``).  Zero
         entries map to zero."""
         zero = self.is_zero(a)
         safe = torch.where(zero[None], self.one_mont, a)

@@ -3,11 +3,13 @@
 Counterpart of ``kzg_snark_tpu/ops/ntt_stage.py``, whose four stage
 kernels ran one or two stages a launch.  Here one kernel, ``ntt_pass``
 (``csrc/ntt_kernels.cu``), runs the stages s0 .. s0 + g - 1 of a transform
-on tiles of at most 2^t elements held in shared memory, t = ``tile_bits()``
-(``NTT_TILE_BITS`` of ``csrc/ntt.cuh``).  ``staged_transform`` runs the
-plan ``pass_plan``: g = min(t, stages left) a pass, so a transform of n =
-2^k is ceil(k / t) launches.  Input is bit-reversed, output in natural
-order; values are exact, so any plan gives equal output.  The plain
+on tiles of at most 2^t elements held in shared memory, t =
+``tile_bits(n)`` (``ntt_tile_bits`` of ``csrc/ntt.cuh``: at 2^14..2^18 the
+tile measured fastest at that size, elsewhere 10 bits).
+``staged_transform`` runs the plan ``pass_plan``: g = min(t, stages left)
+a pass, so a transform of n = 2^k is ceil(k / t) launches.  Input is
+bit-reversed, output in natural order; values are exact, so any plan gives
+equal output.  The plain
 version ``ntt_pass_plain`` runs the same stages one ``radix2_plain`` each.
 
 ``fr_butterfly`` (K10, replaces ``pallas_fr.py`` ``_butterfly_call``) is
@@ -48,10 +50,11 @@ def ntt_pass_plain(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor,
     return x
 
 
-def tile_bits() -> int:
-    """NTT_TILE_BITS of csrc/ntt.cuh, as the built library has it: a pass
-    holds at most 2^t elements a block."""
-    return cuda_lib().kzg_ntt_tile()
+def tile_bits(n: int) -> int:
+    """The plan's tile t for a transform of n = 2^k (``ntt_tile_bits`` of
+    csrc/ntt.cuh, as the built library has it): a pass holds at most 2^t
+    elements a block."""
+    return cuda_lib().kzg_ntt_tile(n.bit_length() - 1)
 
 
 def pass_plan(n: int, t: int) -> list[tuple[int, int]]:
@@ -123,7 +126,7 @@ def staged_transform(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor
                      ) -> torch.Tensor:
     """Bit-reversed (L, n) input -> natural-order transform (L, n): the
     plain stages on the CPU, else the passes of ``pass_plan`` with the
-    library's tile, the first out of place, the rest in place.  An
+    library's tile for n, the first out of place, the rest in place.  An
     (L, ..., n) batch is transformed row after row along its last axis."""
     if x.dim() > 2:
         L, n = x.shape[0], x.shape[-1]
@@ -134,7 +137,7 @@ def staged_transform(fc: FieldConsts, x: torch.Tensor, tw: torch.Tensor
     x = x.contiguous()
     if cuda_fr._on_cpu(x, tw):
         return ntt_pass_plain(fc, x, tw, 0, n.bit_length() - 1)
-    t = tile_bits()
+    t = tile_bits(n)
     out = None
     for s0, g in pass_plan(n, t):
         out = ntt_pass(fc, x if out is None else out, tw, s0, g, t, out)

@@ -9,7 +9,11 @@ Wrappers of ``csrc/fr_scan_kernels.cu``, with their plain versions:
   lane chains, ``suffix_sums_exclusive``, ``sum_reduce``) as three launches
   whatever n (two for a total alone);
 * ``fr_pow``: a^e for every element and one exponent e < 2^(32 L) (the JAX
-  ``pow_const`` scan), one launch.
+  ``pow_const`` scan and ``inv``), one launch whatever n.  The kernel's
+  route depends only on e: e = p - 2 (an inversion, 0 mapping to 0) runs
+  Montgomery's trick over tiles of ``tile()`` elements around one
+  constant-time safegcd inversion a tile (``csrc/inv.cuh``), any other e
+  square-and-multiply; both give the words of ``fr_pow_plain``.
 
 L = ``fc.num_limbs``: 8 for both curves' Fr and BN254 Fq, 12 for
 BLS12-381 Fq.
@@ -22,6 +26,7 @@ when called directly (the on-card comparison does so).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,6 +81,18 @@ def fr_pow_plain(fc: FieldConsts, a: torch.Tensor, exponent: int
     if result is None:
         return fc.tensors(a.device)["one"].expand(a.shape).contiguous()
     return result
+
+
+@functools.lru_cache(maxsize=None)
+def inv_consts(modulus: int) -> ctypes.Array:
+    """The inversion route's InvConsts (csrc/inv.cuh) of a modulus: R^3 mod
+    p as L words, then p^-1 mod 2^30 (kept alive by the cache, one a
+    field)."""
+    fc = FieldConsts(modulus)
+    r3 = pow(fc.R, 3, modulus)
+    words = [int(w) for w in ints_to_words([r3], fc.num_limbs)[:, 0]]
+    return (ctypes.c_uint32 * (fc.num_limbs + 1))(
+        *words, pow(modulus, -1, 1 << 30))
 
 
 def _scan_operand(fc: FieldConsts, a: torch.Tensor) -> tuple[int, int, int]:
@@ -137,6 +154,8 @@ def fr_pow(fc: FieldConsts, a: torch.Tensor, exponent: int) -> torch.Tensor:
     out = torch.empty_like(a)
     count_launch("fr_pow", width=n, limbs=L)
     check(cuda_lib().kzg_fr_pow(a.data_ptr(), n, ctypes.addressof(words),
-                                exponent.bit_length(), out.data_ptr(),
-                                fc.ptr, _stream(a)), "fr_pow")
+                                exponent.bit_length(),
+                                ctypes.addressof(inv_consts(fc.modulus)),
+                                out.data_ptr(), fc.ptr, _stream(a)),
+          "fr_pow")
     return out

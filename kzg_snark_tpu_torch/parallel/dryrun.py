@@ -236,7 +236,7 @@ def check_ntt(out: dict, name: str, mesh, curve_type: str, n: int, dev,
     if not torch.equal(back, xc):
         raise AssertionError(f"{name}: n = {n} iNTT round trip differs")
     if dev.type == "cuda" and not ctx.small and env_ntt_mode() != "scan":
-        want = {"ntt_pass": len(pass_plan(n2, tile_bits())) if n2 > 1
+        want = {"ntt_pass": len(pass_plan(n2, tile_bits(n2))) if n2 > 1
                 else 0, "fr_butterfly": D.bit_length() - 1}
         got = {k: fwd["launches"].get(k, 0) for k in want}
         if got != want:

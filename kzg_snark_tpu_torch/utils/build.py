@@ -65,7 +65,7 @@ CUDA_ENTRIES = {
     "kzg_g1_blocks_per_sm": [_INT, _INT],
     "kzg_g1_threads": [],
     "kzg_g1_fixed_base_table": [_P, _P, _INT, _INT, _P, _P],
-    "kzg_ntt_tile": [],
+    "kzg_ntt_tile": [_INT],
     "kzg_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
     "kzg_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
     "kzg_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P, _P],
@@ -75,7 +75,7 @@ CUDA_ENTRIES = {
     "kzg_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P, _P],
     "kzg_scan_tile": [],
     "kzg_fr_scan": [_P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P],
-    "kzg_fr_pow": [_P, _I64, _P, _INT, _P, _P, _P],
+    "kzg_fr_pow": [_P, _I64, _P, _INT, _P, _P, _P, _P],
 }
 
 HOST_ENTRIES = {
@@ -86,7 +86,7 @@ HOST_ENTRIES = {
     "host_g1_add_mixed": [_P, _P, _P, _I64, _P, _I64, _P],
     "host_g1_ladder": [_P, _P, _INT, _I64, _P, _I64, _I64, _INT, _P],
     "host_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P],
-    "host_ntt_tile": [],
+    "host_ntt_tile": [_INT],
     "host_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P],
     "host_g1_fixed_base_table": [_P, _P, _INT, _INT, _P],
     "host_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P],
@@ -94,7 +94,9 @@ HOST_ENTRIES = {
     "host_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P],
     "host_scan_tile": [],
     "host_fr_scan": [_INT, _P, _I64, _I64, _I64, _INT, _P, _P, _P],
-    "host_fr_pow": [_P, _I64, _P, _INT, _P, _P],
+    "host_fr_pow": [_P, _I64, _P, _INT, _P, _P, _P],
+    "host_fe_inv": [_P, _P, _I64, ctypes.c_uint32, _P],
+    "host_pow_route": [_P, _P],
 }
 
 _lock = threading.Lock()
@@ -305,8 +307,10 @@ def kernel_resources(lib_path: str) -> dict[str, dict[str, int]]:
 
 def probe_lib() -> ctypes.CDLL:
     """``csrc/probe/mont_probe.cu`` built apart from the kernel library:
-    the product policies' throughput loops (``kzg_probe_loop``) and the
-    window-sum piece's double-and-add (``kzg_probe_piece_scale``)."""
+    the product policies' throughput loops (``kzg_probe_loop``), the
+    window-sum piece's double-and-add (``kzg_probe_piece_scale``) and
+    dependent inversions by safegcd or by Fermat's chain
+    (``kzg_probe_inv``)."""
     src = os.path.join(_CSRC, "probe", "mont_probe.cu")
 
     def build():
@@ -315,7 +319,8 @@ def probe_lib() -> ctypes.CDLL:
                           "-I", _CSRC, "-shared", "-o", tmp, src]]])
     return _load("torch_probe", build, {
         "kzg_probe_loop": [_INT, _INT, _P, _P, _P, _I64, _INT, _P, _P],
-        "kzg_probe_piece_scale": [_P, _P, _I64, _INT, _INT, _P, _P, _P]})
+        "kzg_probe_piece_scale": [_P, _P, _I64, _INT, _INT, _P, _P, _P],
+        "kzg_probe_inv": [_INT, _P, _P, _I64, _INT, _P, _INT, _P, _P, _P]})
 
 
 def sass_product_counts(lib_path: str) -> dict[str, dict[str, int]]:

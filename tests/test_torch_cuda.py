@@ -152,8 +152,8 @@ def test_curve_and_stage_kernels_match_plain(cuda):
                        cuda_fr.g1_add_plain(fq, pts, q))
     assert torch.equal(cuda_fr.g1_double(fq, q),
                        cuda_fr.g1_double_plain(fq, q))
-    T = tile_bits()
-    for n in (64, 2 << T, 1 << 15):
+    for n in (64, 1 << 9, 1 << 15, 1 << 17):
+        T = tile_bits(n)
         ctx = ntt_context("bn254", n, cuda)
         fr = ctx.backend.consts
         x = words(n, 3, cuda)
@@ -280,23 +280,59 @@ def test_scan_kernel_matches_plain(cuda, op):
 
 @pytest.mark.cuda
 def test_pow_kernel_matches_plain(cuda):
-    """fr_pow at widths 1 and 300, e = 0, 1, 2, 2^16 and r - 2 under Fr,
-    p - 2 under Fq; zero entries included."""
+    """fr_pow at widths 1, 2, 255, 256, 257, T - 1, T + 1 and 3 T + 5 (T =
+    scan.tile(), the inversion route's tile), e = 0, 1, 2, 2^16, a random
+    254-bit e and r - 2 under Fr, p - 2 under Fq; zero entries every 9
+    columns, on both sides of the first tile edge, over the third tile and
+    in the ragged last tile.  One launch a call."""
     from kzg_snark_tpu_torch import constants as C
-    for modulus, exps in [(C.BN254_R, (0, 1, 2, 1 << 16, C.BN254_R - 2)),
+    T = scan.tile()
+    n = 3 * T + 5
+    e_rand = int(np.random.default_rng(13).integers(0, 1 << 62)) << 192 \
+        | 1 << 253 | 12345
+    for modulus, exps in [(C.BN254_R, (0, 1, 2, 1 << 16, e_rand,
+                                       C.BN254_R - 2)),
                           (C.BN254_P, (C.BN254_P - 2,))]:
         be = fr_backend("bn254", cuda) if modulus == C.BN254_R \
             else fq_backend("bn254", cuda)
-        a = be.to_mont(words(300, 12, cuda))
+        a = be.to_mont(words(n, 12, cuda))
         a[:, ::9] = 0
-        for width in (1, 300):
-            x = a[:, :width].contiguous()
-            for e in exps:
-                want = scan.fr_pow_plain(be.consts, x, e)
+        a[:, T - 1:T + 1] = 0
+        a[:, 2 * T:3 * T] = 0
+        a[:, n - 2] = 0
+        for e in exps:
+            want = scan.fr_pow_plain(be.consts, a, e)
+            for width in (1, 2, 255, 256, 257, T - 1, T + 1, n):
+                x = a[:, :width].contiguous()
                 before = LAUNCHES["fr_pow"]
-                assert torch.equal(scan.fr_pow(be.consts, x, e), want), \
-                    (width, e)
+                assert torch.equal(scan.fr_pow(be.consts, x, e),
+                                   want[:, :width]), (width, e)
                 assert LAUNCHES["fr_pow"] == before + 1
+
+
+@pytest.mark.cuda
+def test_ntt_pass_matches_plain_at_every_plan_tile(cuda):
+    """ntt_pass against ntt_pass_plain for every pass of two-pass plans
+    with each tile the plan chooses (8, 9 and 10 bits, at n = 2^(t + 1)),
+    forward and inverse tables; the plan keeps every transform up to 2^20
+    to two passes."""
+    from kzg_snark_tpu_torch.ops.ntt import ntt_context
+    from kzg_snark_tpu_torch.ops.ntt_stage import (ntt_pass_plain, pass_plan,
+                                                   tile_bits)
+    tiles = {tile_bits(1 << k) for k in range(1, 21)}
+    assert all(-(-k // tile_bits(1 << k)) <= 2 for k in range(1, 21))
+    assert tiles == {8, 9, 10}
+    for t in sorted(tiles):
+        n = 2 << t
+        ctx = ntt_context("bn254", n, cuda)
+        fr = ctx.backend.consts
+        x = words(n, 40 + t, cuda)
+        for tw in (ctx.tw_fwd, ctx.tw_inv):
+            y = x
+            for s0, g in pass_plan(n, t):
+                got = ntt_pass(fr, y, tw, s0, g, t)
+                y = ntt_pass_plain(fr, y, tw, s0, g)
+                assert torch.equal(got, y), (t, s0, g)
 
 
 @pytest.mark.parametrize("field", ["fr", "fq"])
@@ -370,8 +406,8 @@ def test_bls_curve_ntt_and_table_kernels_match_plain(cuda):
         [g1[0]], [g1[1]]).contiguous()
     assert torch.equal(g1_fixed_base_table(fq, base, 8, 32),
                        fixed_base_table_plain(fq, base, 8, 32))
-    T = tile_bits()
-    n = 2 << T
+    n = 1 << 11
+    T = tile_bits(n)
     ctx = ntt_context("bls12_381", n, cuda)
     fr = ctx.backend.consts
     y = x = words(n, 23, cuda)
@@ -563,7 +599,7 @@ def test_ntt_launches_and_batches(cuda, shape):
     before = LAUNCHES["ntt_pass"]
     y = ctx.ntt(x)
     k = n.bit_length() - 1
-    assert LAUNCHES["ntt_pass"] - before == rows * -(-k // tile_bits())
+    assert LAUNCHES["ntt_pass"] - before == rows * -(-k // tile_bits(n))
     flat = x.reshape(8, rows, n)
     for r in range(rows):
         assert torch.equal(y.reshape(8, rows, n)[:, r],

@@ -9,6 +9,7 @@ the kernels are instantiated at: 8 words (BN254, BLS12-381 Fr) and 12
 (BLS12-381 Fq), chosen by the consts block as on the card.
 """
 
+import ctypes
 import functools
 import random
 
@@ -26,7 +27,8 @@ from kzg_snark_tpu_torch.ops.benchpoints import (adversarial_values,
                                                   random_point_basis)
 from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
 from kzg_snark_tpu_torch.ops.limbs import (FieldConsts, ints_to_words,
-                                           to_tensor, to_words)
+                                           to_tensor, to_words,
+                                           words_to_ints)
 from kzg_snark_tpu_torch.ops.msm_kernel import (bucket_schedule, horner_plain,
                                                 msm_accumulate_plain,
                                                 point_table, signed_digits,
@@ -36,7 +38,8 @@ from kzg_snark_tpu_torch.ops.ntt import ntt_context
 from kzg_snark_tpu_torch.ops import ntt_stage
 from kzg_snark_tpu_torch.ops.ntt_stage import ntt_pass_plain, pass_plan
 from kzg_snark_tpu_torch.ops.srs import fixed_base_table_plain
-from kzg_snark_tpu_torch.ops.scan import fr_pow_plain, fr_scan_plain
+from kzg_snark_tpu_torch.ops.scan import (fr_pow_plain, fr_scan_plain,
+                                          inv_consts)
 from kzg_snark_tpu_torch.utils.build import host_lib
 
 # Tiny tensors: one intra-op thread is faster than many, and the test
@@ -144,21 +147,81 @@ def _check_scan(lib, be, op, reverse):
     assert np.array_equal(out, _words(want))
 
 
+def _exponent_words(e, limbs):
+    return np.ascontiguousarray(ints_to_words([e], limbs)[:, 0])
+
+
+def _host_pow(lib, fc, a, e):
+    """fr_pow under g++ by the kernel's route for e, on (L, n) a."""
+    aw = _words(a)
+    out = np.empty_like(aw)
+    lib.host_fr_pow(_ptr(aw), a.shape[1], _ptr(_exponent_words(
+        e, fc.num_limbs)), e.bit_length(),
+        ctypes.addressof(inv_consts(fc.modulus)), _ptr(out), fc.ptr)
+    return out
+
+
 @pytest.mark.parametrize("modulus", MODULI, ids=MODULUS_IDS)
 def test_fr_pow(lib, modulus):
-    """fr_pow's thread body against fr_pow_plain, under Fr and Fq, with
-    e = 0 on a zero entry (one) and inverses of zero (zero)."""
+    """fr_pow against fr_pow_plain, under Fr and Fq, with e = 0 on a zero
+    entry (one) and inverses of zero (zero): square-and-multiply on the
+    PROD_CHAIN squaring and product for e in {0, 1, 2, 2^16, a random
+    254-bit e}, the inversion route for e = p - 2 (a ragged tile)."""
     be = _backend(modulus)
     fc = FieldConsts(modulus)
-    for e in (0, 1, 2, 1 << 16, modulus - 2):
+    e_rand = random.Random(modulus % 997).getrandbits(254) | 1 << 253
+    for e in (0, 1, 2, 1 << 16, e_rand, modulus - 2):
+        assert lib.host_pow_route(_ptr(_exponent_words(e, fc.num_limbs)),
+                                  fc.ptr) == (e == modulus - 2)
         a = be.from_ints(_random_field(modulus, 24, e % 1000))
-        aw = _words(a)
-        ew = np.ascontiguousarray(_words(to_tensor(
-            ints_to_words([e], fc.num_limbs), "cpu"))[:, 0])
-        out = np.empty_like(aw)
-        lib.host_fr_pow(_ptr(aw), 24, _ptr(ew), e.bit_length(), _ptr(out),
-                        fc.ptr)
+        out = _host_pow(lib, fc, a, e)
         assert np.array_equal(out, _words(fr_pow_plain(fc, a, e))), e
+
+
+@pytest.mark.parametrize("modulus", MODULI, ids=MODULUS_IDS)
+def test_fr_pow_inversion_route(lib, modulus):
+    """The inversion route (e = p - 2: each tile's pair trees and
+    butterflies around one safegcd, as k_fr_inv runs them) against
+    fr_pow_plain at widths 1, T - 1, T, T + 1 and 3 T + 5 (T the tile):
+    0, 1, 2, p - 1 and R mod p among random values, zeros on both sides of
+    the first tile edge, a tile of zeros and a zero in the ragged last
+    tile.  The widths are prefixes of one array: the plain version is
+    elementwise."""
+    be = _backend(modulus)
+    fc = FieldConsts(modulus)
+    T = lib.host_scan_tile()
+    n = 3 * T + 5
+    vals = [0, 1, 2, modulus - 1, fc.R % modulus] + [
+        random.Random(modulus % 991).randrange(1, modulus)
+        for _ in range(n - 5)]
+    vals[T - 1] = vals[T] = 0
+    vals[2 * T:3 * T] = [0] * T
+    vals[n - 2] = 0
+    a = be.from_ints(vals)
+    e = modulus - 2
+    want = _words(fr_pow_plain(fc, a, e))
+    for m in (1, T - 1, T, T + 1, n):
+        out = _host_pow(lib, fc, a[:, :m].contiguous(), e)
+        assert np.array_equal(out, want[:, :m]), m
+
+
+@pytest.mark.parametrize("modulus", MODULI, ids=MODULUS_IDS)
+def test_safegcd_inverse(lib, modulus):
+    """The safegcd alone (csrc/inv.cuh fe_inv_raw, 8 or 12 words) against
+    Python's pow(x, -1, p) on plain integers: 0 (to 0), 1, 2, p - 1, p - 2,
+    R mod p, p // 2, 2^k below p, and random values."""
+    fc = FieldConsts(modulus)
+    L = fc.num_limbs
+    vals = [0, 1, 2, modulus - 1, modulus - 2, fc.R % modulus,
+            modulus // 2] + [1 << k for k in range(0, modulus.bit_length(),
+                                                   37)]
+    vals += _random_field(modulus, 200, 17)
+    aw = ints_to_words(vals, L)
+    out = np.empty_like(aw)
+    lib.host_fe_inv(_ptr(aw), _ptr(out), len(vals),
+                    inv_consts(modulus)[L], fc.ptr)
+    assert words_to_ints(out) == [pow(v, -1, modulus) if v else 0
+                                  for v in vals]
 
 
 def _high_pairs(p, L, count, seed):
@@ -353,35 +416,53 @@ def test_g1_ladder(lib, curve_type, n):
                               _words(want.reshape(3, fc.num_limbs, -1)))
 
 
-# (log2 n as a function of the library's tile bits T, tile bits or None
-# for T): sizes below, at and above one tile with the library's tile, and
-# tiny tiles that give three- to five-pass plans at n <= 2^9.
+# (log2 n as a function of T, the library's tile bits at 2^16; tile bits,
+# or None for the plan's at that n): sizes below, at and above one such
+# tile, two-pass plans with each tile the plan chooses (8, 9 and 10 bits)
+# and with the largest a pass takes (11, NTT_MAX_TILE_BITS), and tiny
+# tiles that give three- to five-pass plans at n <= 2^9.
 NTT_PASS_CASES = {
     "2": (lambda T: 1, None), "8": (lambda T: 3, None),
     "32": (lambda T: 5, None), "T/2": (lambda T: T - 1, None),
     "T": (lambda T: T, None), "2T": (lambda T: T + 1, None),
     "2^15": (lambda T: 15, None), "2^5-t2": (lambda T: 5, 2),
     "2^9-t2": (lambda T: 9, 2), "2^8-t3": (lambda T: 8, 3),
-    "2^9-t3": (lambda T: 9, 3),
+    "2^9-t3": (lambda T: 9, 3), "2^9-t8": (lambda T: 9, 8),
+    "2^10-t9": (lambda T: 10, 9), "2^11-t10": (lambda T: 11, 10),
+    "2^12-t11": (lambda T: 12, 11),
 }
+PLAN_TILES = (8, 9, 10, 11)     # the tiles of the cases above
 
 
 @pytest.mark.parametrize("case", list(NTT_PASS_CASES))
 def test_ntt_pass(lib, case):
     """Every pass of the plan, under g++ (the kernel's tile load, twiddle
-    staging, butterflies and store, block after block), against
-    ntt_pass_plain on the pass's input, out of place and in place, with
-    the forward and inverse tables."""
+    staging, butterflies on the PROD_CHAIN product and store, block after
+    block), against ntt_pass_plain on the pass's input, out of place and in
+    place, with the forward and inverse tables."""
     log_n, t = NTT_PASS_CASES[case]
-    T = lib.host_ntt_tile()
-    _check_ntt_pass(lib, "bn254", 1 << log_n(T), t or T)
+    k = log_n(lib.host_ntt_tile(16))
+    _check_ntt_pass(lib, "bn254", 1 << k, t or lib.host_ntt_tile(k))
+
+
+def test_ntt_tile_choice(lib):
+    """The plan's tile by size: at 2^14..2^18, where tiles were measured,
+    the fastest there (8, 8, 9, 10, 10 bits); elsewhere the fixed 10-bit
+    tile, so one pass up to 2^10, two to 2^20 and three above.  Every
+    tile is one that test_ntt_pass covers."""
+    measured = {14: 8, 15: 8, 16: 9, 17: 10, 18: 10}
+    for k in range(1, 23):
+        t = lib.host_ntt_tile(k)
+        assert t == measured.get(k, 10) and t in PLAN_TILES, (k, t)
+        assert -(-k // t) == (1 if k <= 10 else 2 if k <= 20 else 3), (k, t)
 
 
 @pytest.mark.parametrize("log_n, t", [(5, None), (9, 3)],
                          ids=["32", "2^9-t3"])
 def test_ntt_pass_bls(lib, log_n, t):
     """The pass at BLS12-381 Fr (255 bits, two-adicity 32)."""
-    _check_ntt_pass(lib, "bls12_381", 1 << log_n, t or lib.host_ntt_tile())
+    _check_ntt_pass(lib, "bls12_381", 1 << log_n,
+                    t or lib.host_ntt_tile(log_n))
 
 
 def _check_ntt_pass(lib, curve_type, n, t):
@@ -406,18 +487,19 @@ def _check_ntt_pass(lib, curve_type, n, t):
 @pytest.mark.parametrize("log_n", range(4, 21))
 def test_staged_transform_launches(lib, monkeypatch, log_n):
     """On a device other than the CPU, staged_transform makes ceil(log2 n
-    / t) ntt_pass launches, the stages of each following the last's, the
-    first out of place and the rest in place.  ntt_pass is replaced by a
-    fake that records each call and returns a tensor on the meta device,
-    which holds no data; t is the library's NTT_TILE_BITS."""
-    T = lib.host_ntt_tile()
+    / t) ntt_pass launches, at most 2, the stages of each following the
+    last's, the first out of place and the rest in place.  ntt_pass is
+    replaced by a fake that records each call and returns a tensor on the
+    meta device, which holds no data; t is the library's tile for n."""
+    T = lib.host_ntt_tile(log_n)
     calls = []
 
     def fake_pass(fc, x, tw, s0, g, t, out=None):
         calls.append((s0, g, t, out is x))
         return torch.empty_like(x) if out is None else out
 
-    monkeypatch.setattr(ntt_stage, "tile_bits", lambda: T)
+    monkeypatch.setattr(ntt_stage, "tile_bits",
+                        lambda n: lib.host_ntt_tile(n.bit_length() - 1))
     monkeypatch.setattr(ntt_stage, "ntt_pass", fake_pass)
     n = 1 << log_n
     x = torch.empty((8, n), dtype=torch.int32, device="meta")
@@ -425,7 +507,7 @@ def test_staged_transform_launches(lib, monkeypatch, log_n):
     out = ntt_stage.staged_transform(fr_backend("bn254", "cpu").consts, x,
                                      tw)
     assert out.device.type == "meta" and out.shape == (8, n)
-    assert len(calls) == -(-log_n // T)
+    assert len(calls) == -(-log_n // T) <= 2
     assert [c[0] for c in calls] == [sum(c[1] for c in calls[:i])
                                      for i in range(len(calls))]
     assert sum(c[1] for c in calls) == log_n

@@ -208,7 +208,7 @@ def test_batched_staged_launches(monkeypatch, shape):
         calls.append((tuple(x.shape), s0, g))
         return torch.empty_like(x) if out is None else out
 
-    monkeypatch.setattr(ntt_stage, "tile_bits", lambda: 10)
+    monkeypatch.setattr(ntt_stage, "tile_bits", lambda n: 10)
     monkeypatch.setattr(ntt_stage, "ntt_pass", fake_pass)
     n = shape[-1]
     x = torch.empty((8,) + shape, dtype=torch.int32, device="meta")
