@@ -26,12 +26,15 @@ Phases, in order, one printed line or block each:
                  versions (fr_pow: check_pow, both routes, zeros at the
                  inversion route's tile edges, 8 and 12 words to 2^18 +
                  3), their
-                 times (fr_pow at widths 1, 8, 256 and 2^18 beside the
+                 times (fr_scan at 2^14..2^18, product, sum and a total
+                 alone, each beside its own bound, the product beside the
+                 design's floor, and at 12 words; fr_pow at widths 1, 8, 256 and 2^18 beside the
                  bound of batch inversion's need, the route's own work,
                  the design's width-1 floor and the square-and-multiply
                  bound), one
-                 narrow K1 / K7 launch; the SRS table kernel's one-thread
-                 doubling chain at 8, 64 and 248 doublings
+                 narrow K1 / K7 launch; the SRS table at c = 8, W = 2, 9
+                 and 32 on both curves beside table_floor and its bound,
+                 and the chain's time a doubling
   ntt            ntt_pass against its plain version for every pass of the
                  plan (the tile tile_bits(n) chooses) at n in {2, 2^8, 2^9,
                  2^11, 2^14..2^18}, forward and inverse tables;
@@ -63,9 +66,12 @@ Phases, in order, one printed line or block each:
                  (also by width; fails above 2000 fr_mul, 600 fr_scan +
                  fr_pow or 32 g1_add launches, on any g1_double or
                  g1_ladder launch, on
-                 other than one g1_fixed_base_table launch, and unless
-                 ntt_pass makes ceil(log2 n / t) launches a transform, at
-                 most 2)
+                 other than one g1_fixed_base_table launch, unless
+                 fr_scan makes one launch a call (its calls counted by a
+                 wrapper), and unless ntt_pass makes ceil(log2 n / t)
+                 launches a transform, at most 2); then one more index and
+                 two proves under torch.profiler: fr_scan's kernels'
+                 summed device ms
   checked        PLONK at n = 2^16 indexed and proved twice by a fresh
                  prover under KZG_TPU_CHECKED=1 (every field and curve op
                  and PLONK round validated on the card): byte-identical to
@@ -174,7 +180,10 @@ BN254 MSM at 2^16 and 2^20 (k = 1 and 8) unsplit and, at 2^20, cut into
 (device busy ms, idle share, the bucket kernels' ms and those of fr_pow
 and the NTT pass); the chains (``tree_chains``): fr_pow at widths 1, 8,
 256 and 2^18 and the staged transform at 2^14..2^18, and PLONK n = 2^16's
-second prove's phase map (round3_quotient_ntt, round5_openings).  Run it
+second prove's phase map (round3_quotient_ntt, round5_openings); the SRS
+table and the scans (``tree_table_scan``): the table at c = 8, W = 32 on
+both curves, fr_scan at 2^16 and 2^18 and at 12 words, the PLONK 2^16
+index's SRS phase and the second prove's round 2 and round 5.  Run it
 once a tree, in turns on one card (parent, change, change, parent), to
 compare two trees.
 """
@@ -297,6 +306,14 @@ INV_TREE_PRODUCTS = 5
 INV_TILE_PRODUCTS = 21
 INV_TILE_DEPTH = 13     # dependent products on a tile's path: 2 up, 5 and 2
                         # butterfly levels, R^3, the thread's, 2 down
+
+
+# fr_scan's single pass (csrc/fr_scan_kernels.cu k_scan): the threads and
+# the tiles of a look-back step (SCAN_PASS_THREADS, SCAN_WINDOW); the
+# elements of a tile come from the library (scan.tile()).
+SCAN_PASS_THREADS = 256
+SCAN_WINDOW = 256
+SCAN_TIMED_LOG_N = (14, 15, 16, 17, 18)
 
 
 def safegcd_products(limbs: int) -> int:
@@ -512,6 +529,58 @@ def table_bound(rates: dict, c: int, windows: int, limbs: int = 8) -> dict:
     return bound(rates, pt + pt * windows * (1 << c),
                  formula_products(limbs, DOUBLE) * doublings
                  + formula_products(limbs, ADD) * adds)
+
+
+def depth_us(limbs: int, ops: tuple) -> float:
+    """Microseconds of ``ops`` (squarings, products) in turn at a lone
+    warp's PROD_CHAIN latencies (LATENCY, the build phase)."""
+    lat = LATENCY[limbs]
+    return ops[0] * lat["sqr"] + ops[1] * lat["mul"]
+
+
+def table_floor(c: int, windows: int, limbs: int) -> float:
+    """The table's critical-path floor in ms: the window bases' c (W - 1)
+    doublings at their dependent depth (DOUBLE_DEPTH), then the last
+    window's row, c - 1 levels of a doubling and an add (ADD_DEPTH), at a
+    lone warp's latencies: the design's lane levels at their best."""
+    dbl, add = depth_us(limbs, DOUBLE_DEPTH), depth_us(limbs, ADD_DEPTH)
+    return (c * (windows - 1) * dbl + (c - 1) * (dbl + add)) / 1e3
+
+
+def scan_depth(n: int, total_alone: bool = False, tile: int = 512) -> int:
+    """Dependent Montgomery products on the last tile's path through
+    fr_scan's single pass when every block starts at once: the fold of a
+    thread's elements (SCAN_PASS_PER - 1), the warp's scan (5), warp 0's
+    scan of the 8 warps' totals (3); then each look-back step back to
+    tile 0 (a window of SCAN_WINDOW tiles when one step reaches tile 0,
+    else of 32), its butterfly (covering the nearest inclusive prefix's
+    position: tile 0's in the last step, else the whole window: 5 levels,
+    and 3 across the warps for a window of 256) and its fold into the
+    prefix (1); the warps' prefixes (1), the thread's prefix (1) and its
+    outputs (SCAN_PASS_PER - 1).  A total alone: the local part, then the
+    last block's fold of the tiles' aggregates (a thread a column of
+    tiles) and its butterflies (5 and 3)."""
+    per = tile // SCAN_PASS_THREADS
+    depth = (per - 1) + 5 + (SCAN_PASS_THREADS // 32).bit_length() - 1
+    tiles = -(-n // tile)
+    if total_alone:
+        return depth + -(-tiles // SCAN_PASS_THREADS) + 5 + 3
+    win = SCAN_WINDOW if tiles - 1 <= SCAN_WINDOW else 32
+    back = tiles - 1                         # predecessors of the last tile
+    while back > 0:
+        first = min(back, win) - 1           # tile 0's position, if in reach
+        levels = first.bit_length() if back <= win and first < 32 \
+            else 5 if win == 32 else 8
+        depth += levels + 1
+        back -= win
+    return depth + 1 + 1 + per - 1
+
+
+def scan_floor(n: int, limbs: int, total_alone: bool = False) -> float:
+    """fr_scan's own floor in ms: ``scan_depth`` dependent products at a
+    lone warp's latency (LATENCY); built from the design under test, so no
+    bound."""
+    return scan_depth(n, total_alone) * LATENCY[limbs]["mul"] / 1e3
 
 
 def curve_base(torch, dev, curve="bn254"):
@@ -1085,6 +1154,8 @@ def phase_kernels(torch, dev, results, rates):
                                              SRS_WINDOWS),
             (base,), table_bound(rates, SRS_WINDOW_BITS, SRS_WINDOWS),
             reps=5, plain_reps=1)
+    results["g1_fixed_base_table"]["table_floor_ms"] = table_floor(
+        SRS_WINDOW_BITS, SRS_WINDOWS, 8)
 
     import numpy as np
     mask = torch.from_numpy(np.random.default_rng(4).integers(
@@ -1150,13 +1221,15 @@ def phase_chains(torch, dev, results, rates):
     and bound: fr_pow's what inverting the batch needs, 64 bytes and
     INV_NEED_PRODUCTS products an element and one inversion; the route's
     own work and square-and-multiply's beside it), the times at the paths'
-    widths (fr_pow's beside the design's width-1 floor: its safegcd's
-    lone-warp latency from the build phase and INV_TILE_DEPTH dependent
-    products), and the device time of one narrow K1 and K7 launch."""
+    widths (fr_scan's at 2^14..2^18, ``scan_times``; fr_pow's beside the
+    design's width-1 floor: its safegcd's lone-warp latency from the build
+    phase and INV_TILE_DEPTH dependent products), the device time of one
+    narrow K1 and K7 launch, and the SRS table by W (``table_times``)."""
     from kzg_snark_tpu_torch import constants as C
     from kzg_snark_tpu_torch.ops import cuda_fr, scan
     from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
     from kzg_snark_tpu_torch.ops.limbs import ints_to_words, to_tensor
+    from kzg_snark_tpu_torch.utils.build import cuda_lib
 
     fr = fr_backend("bn254", dev).consts
     fq = fq_backend("bn254", dev).consts
@@ -1170,7 +1243,9 @@ def phase_chains(torch, dev, results, rates):
     a = am.clone()
     a[:, ::997] = 0
     tile = scan.tile()
-    widths = (1, 2, tile - 1, tile, tile + 1, n, n_big)
+    window = cuda_lib().kzg_scan_window() * tile   # one look-back step
+    widths = (1, 2, tile - 1, tile, tile + 1, n, window - 1, window + 1,
+              n_big)
     for m in widths:
         for op, src in ((scan.MUL, am), (scan.ADD, a)):
             x = src[:, :m]             # a column slice: rows n_big apart
@@ -1202,7 +1277,7 @@ def phase_chains(torch, dev, results, rates):
     compare(torch, "fr_scan", results,
             lambda u: cat(scan.fr_scan(fr, u, scan.MUL)),
             lambda u: cat(scan.fr_scan_plain(fr, u, scan.MUL)), (xs,),
-            bound(rates, 64 * n + 32, MONT_PRODUCTS * (n - 1)))
+            bound(rates, *scan_work(n, 8, "product")))
     e = r - 2
     w18 = 1 << (MAIN_LOG_N + 2)
     x18 = a[:, :w18].contiguous()
@@ -1210,16 +1285,9 @@ def phase_chains(torch, dev, results, rates):
             lambda u: scan.fr_pow_plain(fr, u, e), (x18,),
             bound(rates, *inv_need(w18, 8)), reps=5, plain_reps=1)
 
-    row = []
-    for m in (n, n_big):
-        for op, name, src in ((scan.MUL, "product", am), (scan.ADD, "sum", a)):
-            row.append(f"n = {m} {name}: " + "%.4f" % dev_ms(
-                torch, lambda u: scan.fr_scan(fr, u, op),
-                src[:, :m].contiguous()))
-        row.append(f"n = {m} sum, total alone: %.4f" % dev_ms(
-            torch, lambda u: scan.fr_scan(fr, u, scan.ADD, want_scan=False),
-            a[:, :m].contiguous()))
-    log("[chains] fr_scan device ms: " + "; ".join(row))
+    results["fr_scan"]["design_floor_ms"] = scan_floor(n, 8)
+    scan_ms = scan_times(torch, dev, rates)
+    results["fr_scan"]["device_ms_by_n"] = scan_ms
     pow_ms = fr_pow_ms(torch, fr, a, e, (1, 8, 256, w18))
     general = fr_pow_ms(torch, fr, a, 1 << 16, (1, w18))
     lat = INV_LATENCY[8]
@@ -1259,29 +1327,93 @@ def phase_chains(torch, dev, results, rates):
                    a[:, :256].contiguous()),
             dev_ms(torch, lambda u: cuda_fr.g1_double(fq, u), pts)))
 
-    # The SRS table kernel with W = 2, 9 and 32 windows of c = 8: its
-    # one-thread chain is c (W - 1) = 8, 64 and 248 doublings; its levels
-    # grow with W too (W doublings and W (2^c - 2) adds over 512 threads).
+    table_times(torch, dev, rates)
+
+
+def scan_work(m: int, limbs: int, variant: str) -> tuple[int, int]:
+    """(bytes, Montgomery products) that fr_scan's ``variant`` needs on m
+    elements of ``limbs`` words: a scan reads and writes every element and
+    writes the total, a total alone reads every element and writes the
+    total; the product scan does m - 1 products, a sum none."""
+    word = 4 * limbs
+    nbytes = (word if variant == "sum total alone" else 2 * word) * m + word
+    products = mont_products(limbs) * (m - 1) if variant == "product" else 0
+    return nbytes, products
+
+
+def scan_times(torch, dev, rates) -> dict:
+    """fr_scan's device ms under BN254 Fr at 2^9 (one tile: no look-back)
+    and 2^14..2^18 (SCAN_TIMED_LOG_N): the product scan with its total, the
+    sum scan and a total alone (a sum), each beside its own bound
+    (``scan_work``), and the product's beside the design's floor
+    (``scan_floor``); then the product scan at 12 words (BLS12-381 Fq) at
+    2^16.  Returns {"2^k": {name: ms}} and, under "bound_ms",
+    {"2^k": {name: bound ms}}."""
+    from kzg_snark_tpu_torch.ops import scan
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    fr = fr_backend("bn254", dev).consts
+    runs = {"product": lambda u: scan.fr_scan(fr, u, scan.MUL),
+            "sum": lambda u: scan.fr_scan(fr, u, scan.ADD),
+            "sum total alone": lambda u: scan.fr_scan(fr, u, scan.ADD,
+                                                      want_scan=False)}
+    out: dict = {"bound_ms": {}}
+    for lg in (9,) + SCAN_TIMED_LOG_N:    # 2^9: one tile, no look-back
+        m = 1 << lg
+        x = random_canonical(torch, m, 40 + lg, dev)
+        ms = {k: dev_ms(torch, fn, x) for k, fn in runs.items()}
+        bounds = {k: bound(rates, *scan_work(m, 8, k)) for k in runs}
+        out[f"2^{lg}"] = ms
+        out["bound_ms"][f"2^{lg}"] = {k: b["bound_ms"]
+                                      for k, b in bounds.items()}
+        log(f"[chains] fr_scan n = 2^{lg}, device ms (bound): "
+            + "; ".join(f"{k} {ms[k]:.4f} ({bounds[k]['bound_ms']:.5f} "
+                        f"{bounds[k]['bound_by']})" for k in runs)
+            + f"; the product's design floor (no bound: {scan_depth(m)} "
+            f"dependent products) {scan_floor(m, 8):.4f}, a product total "
+            f"alone's {scan_floor(m, 8, True):.4f}")
+    fq = fq_backend("bls12_381", dev).consts
+    m = 1 << MAIN_LOG_N
+    x = random_canonical(torch, m, 39, dev, 12)
+    ms = dev_ms(torch, lambda u: scan.fr_scan(fq, u, scan.MUL), x)
+    b = bound(rates, *scan_work(m, 12, "product"))
+    out[f"2^{MAIN_LOG_N} 12 words product"] = ms
+    out["bound_ms"][f"2^{MAIN_LOG_N} 12 words product"] = b["bound_ms"]
+    log(f"[chains] fr_scan BLS12-381 Fq (12, 2^{MAIN_LOG_N}) product scan: "
+        f"{ms:.4f} ms; bound {b['bound_ms']:.4f} ({b['bound_by']}); the "
+        f"design's floor {scan_floor(m, 12):.4f}")
+    return out
+
+
+def table_times(torch, dev, rates) -> None:
+    """The SRS table at c = 8 with W = 2, 9 and 32 windows, both curves:
+    equal to fixed_base_table_plain, its device ms beside table_floor and
+    its bound, and the chain's slope in us a doubling (W = 2 to 32, rows
+    included)."""
+    from kzg_snark_tpu_torch.ops.fr import fq_backend
     from kzg_snark_tpu_torch.ops.srs import (fixed_base_table_plain,
                                              g1_fixed_base_table)
-    base = curve_base(torch, dev)
     c = SRS_WINDOW_BITS
-    chain_ms = {}
-    for w in (2, 9, SRS_WINDOWS):
-        if not torch.equal(g1_fixed_base_table(fq, base, c, w),
-                           fixed_base_table_plain(fq, base, c, w)):
-            raise AssertionError(f"g1_fixed_base_table differs from plain "
-                                 f"at c = {c}, W = {w}")
-        chain_ms[c * (w - 1)] = dev_ms(
-            torch, lambda u, w=w: g1_fixed_base_table(fq, u, c, w), base,
-            reps=5)
-    lo, hi = min(chain_ms), max(chain_ms)
-    log("[chains] g1_fixed_base_table (c = 8) == plain at W = 2, 9, 32; "
-        "device ms by chain length: " + "; ".join(
-            f"{d} doublings (W = {d // c + 1}): {ms:.4f}"
-            for d, ms in sorted(chain_ms.items()))
-        + f"; slope {(chain_ms[hi] - chain_ms[lo]) / (hi - lo) * 1e3:.3f} "
-        f"us a doubling ({lo}..{hi}, levels included)")
+    for curve in ("bn254", "bls12_381"):
+        fq = fq_backend(curve, dev).consts
+        L = fq.num_limbs
+        base = curve_base(torch, dev, curve)
+        rows, ms = [], {}
+        for w in (2, 9, SRS_WINDOWS):
+            want = fixed_base_table_plain(fq, base, c, w)
+            if not torch.equal(g1_fixed_base_table(fq, base, c, w), want):
+                raise AssertionError(f"g1_fixed_base_table differs from "
+                                     f"plain at {curve}, c = {c}, W = {w}")
+            ms[w] = dev_ms(torch, lambda u, w=w: g1_fixed_base_table(fq, u, c,
+                                                                     w),
+                           base, reps=5)
+            b = table_bound(rates, c, w, L)
+            rows.append(f"W = {w}: {ms[w]:.4f} (floor "
+                        f"{table_floor(c, w, L):.4f}, bound "
+                        f"{b['bound_ms']:.4f} {b['bound_by']})")
+        slope = (ms[SRS_WINDOWS] - ms[2]) / (c * (SRS_WINDOWS - 2)) * 1e3
+        log(f"[chains] g1_fixed_base_table {curve} ({L} words), c = {c}, == "
+            f"plain; device ms " + "; ".join(rows)
+            + f"; {slope:.3f} us a doubling (W = 2 to {SRS_WINDOWS})")
 
 
 def check_pow(torch, dev, a) -> None:
@@ -1403,10 +1535,8 @@ def reduce_floor(W: int, c: int, pieces: int, limbs: int) -> dict:
     Floor (``floor_ms``): each at its dependent depth (DOUBLE_DEPTH,
     ADD_DEPTH); serial (``serial_ms``): every product of each in turn
     (DOUBLE, ADD), what one thread pays."""
-    lat = LATENCY[limbs]
-
     def us(ops):
-        return ops[0] * lat["sqr"] + ops[1] * lat["mul"]
+        return depth_us(limbs, ops)
 
     dbl, adds = c * (W - 1), W + (pieces - 1).bit_length()
     return {"floor_ms": (dbl * us(DOUBLE_DEPTH) + adds * us(ADD_DEPTH)) / 1e3,
@@ -1527,6 +1657,20 @@ PATH_WIDTHS: dict = {}      # path -> {kernel: {width class: launches}}
 PATH_LIMBS: dict = {}       # path -> {kernel: {limb count: launches}}
 PATH_TRANSFORMS: dict = {}  # path -> {n: staged transforms}
 TRANSFORMS: collections.Counter = collections.Counter()
+PATH_SCANS: dict = {}       # path -> fr_scan calls
+SCAN_CALLS: collections.Counter = collections.Counter()
+
+
+def count_scans() -> None:
+    """Count the fr_scan calls that ops/fr.py makes into SCAN_CALLS (a
+    wrapper around ops/scan.fr_scan; its launches are counted apart)."""
+    from kzg_snark_tpu_torch.ops import scan
+    inner = scan.fr_scan
+
+    def counted(*args, **kwargs):
+        SCAN_CALLS["fr_scan"] += 1
+        return inner(*args, **kwargs)
+    scan.fr_scan = counted
 
 
 def count_transforms() -> None:
@@ -1544,20 +1688,22 @@ def count_transforms() -> None:
 def run_path(torch, paths, name, fn):
     """Drive one path with the launch counts set to 0 just before it and
     read just after (also by width, into PATH_WIDTHS, by limb count, into
-    PATH_LIMBS, and its staged transforms by n, into PATH_TRANSFORMS);
-    returns what ``fn`` returns."""
+    PATH_LIMBS, its staged transforms by n, into PATH_TRANSFORMS, and its
+    fr_scan calls, into PATH_SCANS); returns what ``fn`` returns."""
     from kzg_snark_tpu_torch.utils.build import (launch_counts, launch_limbs,
                                                  launch_widths,
                                                  reset_launches)
     torch.cuda.synchronize()
     reset_launches()
     TRANSFORMS.clear()
+    SCAN_CALLS.clear()
     out = fn()
     torch.cuda.synchronize()
     paths[name] = launch_counts()
     PATH_WIDTHS[name] = launch_widths()
     PATH_LIMBS[name] = launch_limbs()
     PATH_TRANSFORMS[name] = dict(sorted(TRANSFORMS.items()))
+    PATH_SCANS[name] = SCAN_CALLS["fr_scan"]
     return out
 
 
@@ -2105,8 +2251,8 @@ def phase_bls_kernels(torch, dev, rows, rates, basis, ks):
         row("fr_scan", field, f"({L}, 2^16) product scan and total",
             lambda u, fc=fc: cat(scan.fr_scan(fc, u, scan.MUL)),
             lambda u, fc=fc: cat(scan.fr_scan_plain(fc, u, scan.MUL)),
-            (xs,), bound(rates, 8 * L * n + 4 * L,
-                         mont_products(L) * (n - 1)))
+            (xs,), bound(rates, *scan_work(n, L, "product")))
+        rows["fr_scan"][-1]["design_floor_ms"] = scan_floor(n, L)
         e = be.modulus - 2
         w = 1 << (BLS_POW_LOG_N if field == "Fr" else BLS_POW_LOG_N - 2)
         xp = a[:, :w].contiguous()
@@ -2160,6 +2306,8 @@ def phase_bls_kernels(torch, dev, rows, rates, basis, ks):
         lambda u: fixed_base_table_plain(fq, u, SRS_WINDOW_BITS, windows),
         (base,), table_bound(rates, SRS_WINDOW_BITS, windows, L), reps=5,
         plain_reps=1)
+    rows["g1_fixed_base_table"][-1]["table_floor_ms"] = table_floor(
+        SRS_WINDOW_BITS, windows, L)
 
     xy = mk.point_table(pts)
     bits = C.BLS12_381_R.bit_length()
@@ -2352,8 +2500,10 @@ def phase_parity(dev, curve="bn254", tag="parity", run=None):
 
 def phase_main(torch, dev, paths, curve="bn254", name="main"):
     """PLONK on ``curve`` at n = 2^16 as the path ``name``: index, two
-    proves, host verification and tamper rejection, and the launch
-    guards.  Returns the keys, both proofs and their seconds."""
+    proves, host verification and tamper rejection, and the launch guards
+    (fr_scan: one launch a call); then one more index and two proves under
+    torch.profiler (fr_scan's kernels' device ms).  Returns the keys, both
+    proofs and their seconds."""
     from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
     from kzg_snark_tpu_torch.models.plonk.verifier import Verifier
     from kzg_snark_tpu_torch.ops.host.field import scalar_field
@@ -2414,6 +2564,28 @@ def phase_main(torch, dev, paths, curve="bn254", name="main"):
         raise AssertionError(f"the {curve} PLONK path launched fr_mul "
                              f"{counts.get('fr_mul', 0)} times (limit 2000) "
                              f"and fr_scan + fr_pow {chains} (limit 600)")
+    scans = PATH_SCANS[name]
+    if counts.get("fr_scan", 0) != scans:
+        raise AssertionError(f"the {curve} PLONK path launched fr_scan "
+                             f"{counts.get('fr_scan', 0)} times for {scans} "
+                             f"calls (one launch a call)")
+    log(f"[{name}] fr_scan: {scans} calls, {counts.get('fr_scan', 0)} "
+        f"launches")
+    prover2 = DeviceProver(curve, rng=Rng(77), device=dev)
+    trace(torch, lambda: None)          # the profiler's start
+    SCAN_CALLS.clear()
+    prof = profile_run(torch, f"PLONK {curve} n=2^16 index and two proves",
+                       lambda: plonk_index_prove_twice(torch, prover2,
+                                                       circuit, n))
+    scan_ms, scan_launches = prof["chain_ms"]["k_scan"][0], \
+        prof["scan_launches"]
+    log(f"[{name}] fr_scan's kernel over an index and two proves: "
+        f"{scan_ms:.4f} device ms in {scan_launches} launches for "
+        f"{SCAN_CALLS['fr_scan']} calls (profiled)")
+    if scan_launches != SCAN_CALLS["fr_scan"]:
+        raise AssertionError(f"the profiler saw {scan_launches} k_scan "
+                             f"launches for {SCAN_CALLS['fr_scan']} fr_scan "
+                             f"calls on the {curve} PLONK path (one a call)")
     return {"keys": (ipk, ivk), "proofs": times["proofs"],
             "index_s": times["index"], "prove_s": times["prove"],
             "circuit": circuit}
@@ -2591,12 +2763,16 @@ def profile_run(torch, label, fn) -> dict:
                      "k_msm_horner")}
     chains = {k: [sum(ms for ms, _, name in by_kernel if k in name),
                   sum(c for _, c, name in by_kernel if k in name)]
-              for k in ("k_fr_pow", "k_fr_inv", "k_ntt_pass")}
-    log(f"[profile] {label}: device ms (launches) of fr_pow's kernels and "
-        f"the NTT pass: {json.dumps(chains)}")
+              for k in ("k_fr_pow", "k_fr_inv", "k_ntt_pass", "k_scan",
+                        "k_g1_fixed_base_table")}
+    log(f"[profile] {label}: device ms (launches) of fr_pow's kernels, the "
+        f"NTT pass, fr_scan's kernels (k_scan*, an older tree's passes "
+        f"too) and the SRS table: {json.dumps(chains)}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": 1 - busy / wall_ms, "msm_ms": msm,
-            "chain_ms": chains}
+            "chain_ms": chains,
+            "scan_launches": sum(c for _, c, name in by_kernel
+                                 if "k_scan<" in name)}
 
 
 # ---------------------------------------------------------------------------
@@ -2971,7 +3147,8 @@ def phase_dist(torch, name: str, ranks: int, backend: str, hosts=None,
 def tree_times(root: str) -> dict:
     """``curve_rows`` (K6, K7 and K9 at 2^16 points) and one small MSM (n =
     256, k = 1, held to the host oracle) on both curves, device and wall
-    ms, and the launches of the two parity paths' device runs, with the
+    ms, and the launches of the two parity paths' device runs, then
+    ``tree_bucket``, ``tree_chains`` and ``tree_table_scan``, with the
     package of the checkout at ``root``, a directory inside this one (an
     earlier tree unpacked under a gitignored directory; public entry
     points only, so such a tree runs too)."""
@@ -3038,6 +3215,83 @@ def tree_times(root: str) -> dict:
         out[name] = launch_counts()
     out.update(tree_bucket(torch, dev, rates))
     out.update(tree_chains(torch, dev, rates))
+    out.update(tree_table_scan(torch, dev, out["plonk_2^16_second_prove"]))
+    return out
+
+
+def tree_table_scan(torch, dev, plonk: dict) -> dict:
+    """The SRS table and fr_scan with the package on sys.path (public entry
+    points only): the table at c = 8, W = 32 of each curve's generator,
+    equal to fixed_base_table_plain; fr_scan under BN254 Fr at 2^16 and
+    2^18 (the product scan, the sum scan, a total alone) and under
+    BLS12-381 Fq at 2^16 (the product scan), equal to fr_scan_plain at
+    2^16; the SRS phase of the PLONK n = 2^16 index (setup_g1_powers at
+    max_degree n + 5: host clock to a sync, the best of three after one
+    call); and from ``plonk`` (tree_chains' second prove) its round 2
+    (batch inversion and z) and round 5 (openings) phases.  Device ms."""
+    from kzg_snark_tpu_torch.models.plonk.device import DeviceProver
+    from kzg_snark_tpu_torch.ops import scan
+    from kzg_snark_tpu_torch.ops.fr import fq_backend, fr_backend
+    from kzg_snark_tpu_torch.ops.srs import (fixed_base_table_plain,
+                                             g1_fixed_base_table,
+                                             setup_g1_powers)
+
+    out: dict = {}
+    c = SRS_WINDOW_BITS
+    table_ms = {}
+    for curve in ("bn254", "bls12_381"):
+        fq = fq_backend(curve, dev).consts
+        base = curve_base(torch, dev, curve)
+        if not torch.equal(g1_fixed_base_table(fq, base, c, SRS_WINDOWS),
+                           fixed_base_table_plain(fq, base, c, SRS_WINDOWS)):
+            raise AssertionError(f"{curve} table differs from plain")
+        table_ms[curve] = dev_ms(
+            torch, lambda u, fq=fq: g1_fixed_base_table(fq, u, c,
+                                                        SRS_WINDOWS),
+            base, reps=5)
+    out["table_c8_w32_device_ms"] = table_ms
+    scan_ms = {}
+    for name, be, lgs in (("bn254 fr", fr_backend("bn254", dev),
+                           (MAIN_LOG_N, MAIN_LOG_N + 2)),
+                          ("bls fq", fq_backend("bls12_381", dev),
+                           (MAIN_LOG_N,))):
+        fc, L = be.consts, be.num_limbs
+        for lg in lgs:
+            x = random_canonical(torch, 1 << lg, 80 + lg, dev, L)
+            x[:, x.eq(0).all(dim=0)] = 1
+            if lg == MAIN_LOG_N:
+                for op in (scan.MUL, scan.ADD):
+                    got = scan.fr_scan(fc, x, op)
+                    want = scan.fr_scan_plain(fc, x, op)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"{name} fr_scan differs")
+            scan_ms[f"{name} 2^{lg} product"] = dev_ms(
+                torch, lambda u, fc=fc: scan.fr_scan(fc, u, scan.MUL), x)
+            if L == 12:
+                continue
+            scan_ms[f"{name} 2^{lg} sum"] = dev_ms(
+                torch, lambda u, fc=fc: scan.fr_scan(fc, u, scan.ADD), x)
+            scan_ms[f"{name} 2^{lg} total alone"] = dev_ms(
+                torch, lambda u, fc=fc: scan.fr_scan(fc, u, scan.ADD,
+                                                     want_scan=False), x)
+    out["fr_scan_device_ms"] = scan_ms
+    kzg = DeviceProver("bn254", device=dev).kzg
+    n = 1 << MAIN_LOG_N
+
+    def srs():
+        setup_g1_powers(kzg, TAU, n + 5, device=dev)
+        torch.cuda.synchronize()
+    srs()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        srs()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["plonk_2^16_index_srs_ms"] = min(walls)
+    out["plonk_2^16_second_prove_rounds_2_5_ms"] = {
+        k: v for k, v in plonk["phases_ms"].items()
+        if k.startswith(("round2", "round5"))}
     return out
 
 
@@ -3227,6 +3481,7 @@ def main() -> int:
     from kzg_snark_tpu_torch.utils.build import (build_cuda, cuda_lib,
                                                  kernel_resources)
     count_transforms()
+    count_scans()
 
     dev = torch.device("cuda", 0)
     smi_name = smi("name,power.limit")
@@ -3243,6 +3498,12 @@ def main() -> int:
     resources = kernel_resources(lib_path)
     for name, res in sorted(resources.items()):
         log(f"[build] {json.dumps(res, sort_keys=True)} {name}")
+    log("[build] fr_scan's and the SRS table's instances (registers, spill "
+        "stores / loads in bytes): " + "; ".join(
+            f"{name.split('::')[-1].split('(')[0]}: {res.get('registers')}, "
+            f"{res.get('spill_stores')} / {res.get('spill_loads')}"
+            for name, res in sorted(resources.items())
+            if "k_scan" in name or "k_g1_fixed_base_table" in name))
     curve_occupancy(torch, resources, rates)
     msm_occupancy(torch, dev, resources, rates)
     product_sass(lib_path)

@@ -8,6 +8,7 @@
 // block's limb count, as the CUDA entry points choose theirs (the NTT's at 8
 // words only: its field is Fr).
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 #include "msm.cuh"
@@ -162,24 +163,33 @@ static int impl_ntt_pass(const void* x, void* y, const void* tw, int64_t n,
   return 0;
 }
 
-// The table kernel's steps in its order: the chain, the identities, then
-// per level the doublings and the adds.
+// The table kernel in its order: the chain on the lanes (a level's
+// products one after another, msm.cuh lanes_level), then each row group's
+// windows (j = u, u + U, ...; U the library launch's groups) level by
+// level: the step doubled on the lanes, then the group's threads' adds in
+// thread order.
 template <int NL>
 static int impl_g1_fixed_base_table(const void* base, void* table,
                                     int windows, int c,
                                     const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
   uint32_t* T = (uint32_t*)table;
-  uint32_t* steps = new uint32_t[3 * NL * windows];
-  fbt_chain((const uint32_t*)base, T, windows, c, F);
-  for (int j = 0; j < windows; j++) fbt_identity_thread(j, T, windows, c, F);
-  for (int count = 2; count < (1 << c); count *= 2) {
-    for (int j = 0; j < windows; j++)
-      fbt_step_thread(j, count, T, steps, windows, c, F);
-    for (int64_t idx = 0; idx < (int64_t)windows * count; idx++)
-      fbt_add_thread(idx, count, T, steps, windows, c, F);
+  const int64_t m = (int64_t)windows << c;
+  const int units = FBT_UNITS;
+  fbt_chain_lanes((const uint32_t*)base, T, windows, c, 0, F, [](int) {});
+  for (int u = 0; u < units; u++) {
+    for (int j = u; j < windows; j += units) {
+      fbt_identity((int64_t)j, T, windows, c, F);
+      G1J<NL> step;
+      g1_load(step, T, m, ((int64_t)j << c) + 1);
+      for (int count = 2; count < (1 << c); count <<= 1) {
+        g1_double_lanes(step, 0, F);
+        for (int t = 0; t < FBT_GROUP_THREADS; t++)
+          fbt_level_adds((int64_t)j, count, step, t, FBT_GROUP_THREADS, T,
+                         windows, c, F);
+      }
+    }
   }
-  delete[] steps;
   return 0;
 }
 
@@ -256,56 +266,120 @@ static int impl_msm_horner(const void* wparts, int64_t sets, int windows,
   return 0;
 }
 
-// The scan's three launches in order, with each block's tile scanned by
-// one loop (the kernel's shared-memory and shuffle steps are its own; the
-// element indexing, tiling, operation and fix-up thread body are the same
-// code): tile-local exclusive scans and totals, the totals' exclusive
-// scan, then the fix-up of every column.
+// The single-pass scan (k_scan), block by block, on the state `state`
+// (scan_state_words(n) words, zero on entry and, as the kernel leaves it,
+// on return).  Each block's tile is folded and its outputs written by one
+// loop (the kernel's shared-memory and shuffle steps are its own; the
+// element indexing, tiling, operation, publication and look-back positions
+// are the same code).  Schedules: 0, the blocks one after another in
+// ticket order (each look-back finds its predecessor's inclusive prefix);
+// 1, every block publishes its aggregate before any looks back, and the
+// look-backs run from the last tile down (each reads aggregates, `window`
+// positions a step, down to tile 0's prefix).  A total alone (out null)
+// takes the kernel's other path: no look-back, the last block done folds
+// every tile's aggregate.
+template <int OP, int NL>
+static void host_lookback(uint32_t* state, int64_t tile, int window,
+                          uint32_t pre[NL], const FieldConsts<NL>& F) {
+  scan_identity<OP>(pre, F);
+  for (int64_t hi = tile - 1; hi >= 0; hi -= window) {
+    int first = window;
+    for (int pos = window - 1; pos >= 0; pos--) {
+      const int64_t tt = hi - pos;
+      if (tt >= 0 && scan_rec(state, tt)[0] == SCAN_FLAG_INCL) first = pos;
+      if (tt >= 0 && scan_rec(state, tt)[0] == SCAN_FLAG_NONE) abort();
+    }
+    uint32_t win[NL], v[NL];
+    scan_identity<OP>(win, F);
+    for (int pos = 0; pos < window; pos++) {
+      scan_lookback_value<OP>(v, state, hi - pos, pos, first, F);
+      scan_op<OP>(win, win, v, F);
+    }
+    scan_op<OP>(pre, win, pre, F);
+    if (first < window) break;
+  }
+}
+
 template <int OP, int NL>
 static void host_scan(const uint32_t* a, int64_t ld, int64_t inc, int64_t n,
                       bool reverse, uint32_t* out, uint32_t* total,
+                      uint32_t* state, int schedule, int window,
                       const FieldConsts<NL>& F) {
-  int64_t tiles = scan_tiles(n);
-  uint32_t* prefix = new uint32_t[NL * tiles];
-  uint32_t run[NL], x[NL];
-  for (int64_t b = 0; b < tiles; b++) {
+  const int64_t tiles = scan_tiles(n);
+  uint32_t* agg = new uint32_t[NL * tiles];
+  uint32_t x[NL], pre[NL], run[NL];
+  auto fold = [&](int64_t tile) {
     scan_identity<OP>(run, F);
     for (int64_t e = 0; e < SCAN_TILE; e++) {
-      int64_t l = b * SCAN_TILE + e;
-      scan_load<OP>(x, a, ld, inc, l, n, reverse, F);
-      if (out != nullptr && l < n) {
-        fe_store<NL>(out, n, scan_col(l, n, reverse), run);
-      }
+      scan_load<OP>(x, a, ld, inc, tile * SCAN_TILE + e, n, reverse, F);
       scan_op<OP>(run, run, x, F);
     }
-    fe_store<NL>(prefix, tiles, b, run);
+  };
+  if (out == nullptr) {  // a total alone: the last block folds every tile's
+    for (int64_t tile = 0; tile < tiles; tile++) {
+      if (state[0]++ != (uint32_t)tile) abort();  // the ticket
+      fold(tile);
+      scan_put_aggregate<NL>(state, tile, run);
+      if (state[1]++ != (uint32_t)(tiles - 1)) continue;
+      scan_identity<OP>(run, F);
+      for (int64_t i = 0; i < tiles; i++)
+        scan_op<OP>(run, run, scan_rec(state, i) + 1, F);
+      if (total != nullptr) fe_store<NL>(total, 1, 0, run);
+      scan_state_reset(state, tiles);
+    }
+    delete[] agg;
+    return;
   }
-  scan_identity<OP>(run, F);
-  for (int64_t b = 0; b < tiles; b++) {
-    fe_load<NL>(x, prefix, tiles, b);
-    fe_store<NL>(prefix, tiles, b, run);
-    scan_op<OP>(run, run, x, F);
+  auto aggregate = [&](int64_t tile) {
+    fold(tile);
+    fe_store<NL>(agg, tiles, tile, run);
+    scan_publish<NL>(state, tile, tile == 0 ? SCAN_FLAG_INCL : SCAN_FLAG_AGG,
+                     run);
+  };
+  auto finish = [&](int64_t tile) {
+    host_lookback<OP, NL>(state, tile, window, pre, F);
+    fe_load<NL>(x, agg, tiles, tile);
+    scan_op<OP>(run, pre, x, F);
+    if (tile > 0) scan_publish<NL>(state, tile, SCAN_FLAG_INCL, run);
+    if (tile == tiles - 1 && total != nullptr) fe_store<NL>(total, 1, 0, run);
+    for (int64_t e = 0; e < SCAN_TILE; e++) {
+      const int64_t l = tile * SCAN_TILE + e;
+      scan_load<OP>(x, a, ld, inc, l, n, reverse, F);
+      if (l < n) fe_store<NL>(out, n, scan_col(l, n, reverse), pre);
+      scan_op<OP>(pre, pre, x, F);
+    }
+    if (state[1]++ == (uint32_t)(tiles - 1)) scan_state_reset(state, tiles);
+  };
+  for (int64_t tile = 0; tile < tiles; tile++) {
+    if (state[0]++ != (uint32_t)tile) abort();  // the ticket
+    aggregate(tile);
+    if (schedule == 0) finish(tile);
   }
-  if (total != nullptr) fe_store<NL>(total, 1, 0, run);
-  if (out != nullptr)
-    for (int64_t i = 0; i < n; i++)
-      scan_fixup_thread<OP>(i, out, n, prefix, tiles, reverse, F);
-  delete[] prefix;
+  if (schedule == 1)
+    for (int64_t tile = tiles - 1; tile >= 0; tile--) finish(tile);
+  delete[] agg;
 }
 
 extern "C" int host_scan_tile() { return SCAN_TILE; }
 
+extern "C" int64_t host_scan_state_words(int64_t n) {
+  return scan_state_words(n);
+}
+
 template <int NL>
 static int impl_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
                         int64_t n, int reverse, void* out, void* total,
+                        void* state, int schedule, int window,
                         const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
   if (op == SCAN_OP_MUL) {
     host_scan<SCAN_OP_MUL, NL>((const uint32_t*)a, ld, inc, n, reverse != 0,
-                           (uint32_t*)out, (uint32_t*)total, F);
+                               (uint32_t*)out, (uint32_t*)total,
+                               (uint32_t*)state, schedule, window, F);
   } else {
     host_scan<SCAN_OP_ADD, NL>((const uint32_t*)a, ld, inc, n, reverse != 0,
-                           (uint32_t*)out, (uint32_t*)total, F);
+                               (uint32_t*)out, (uint32_t*)total,
+                               (uint32_t*)state, schedule, window, F);
   }
   return 0;
 }
@@ -487,12 +561,19 @@ extern "C" int host_msm_horner(const void* wparts, int64_t sets, int windows,
                       out, consts);
 }
 
-extern "C" int host_fr_scan(int op, const void* a, int64_t ld, int64_t inc,
-                            int64_t n, int reverse, void* out, void* total,
-                            const void* consts) {
+// The scan on the caller's state (scan_state_words(n) words, zero) in the
+// given schedule (host_scan) with look-back steps of `window` tiles (the
+// kernel's: SCAN_WINDOW); the state is left as the kernel leaves it.
+extern "C" int host_fr_scan_state(int op, const void* a, int64_t ld,
+                                  int64_t inc, int64_t n, int reverse,
+                                  void* out, void* total, void* state,
+                                  int schedule, int window,
+                                  const void* consts) {
   return KZG_BY_LIMBS(consts, impl_fr_scan, op, a, ld, inc, n, reverse, out,
-                      total, consts);
+                      total, state, schedule, window, consts);
 }
+
+extern "C" int host_scan_window() { return SCAN_WINDOW; }
 
 extern "C" int host_fr_pow(const void* a, int64_t n, const void* exponent,
                            int nbits, const void* inv_consts, void* out,

@@ -1,15 +1,16 @@
 // Pieces of the scan and power kernels (fr_scan_kernels.cu) that are plain
 // per-thread code: element indexing, the scan's operation and identity, the
-// fix-up pass's thread body, the power's thread body and the inversion
-// route's per-thread steps.  __host__ __device__, so csrc/host_check.cpp
-// runs the same code under g++ in the CPU tests.
+// single-pass scan's state (its tile records, the look-back's lane values,
+// the reset), the power's thread body and the inversion route's per-thread
+// steps.  __host__ __device__, so csrc/host_check.cpp runs the same code
+// under g++ in the CPU tests.
 //
 // A scan reads n elements of an (NL, ld) limb-major array with column step
 // inc (0 reads one element n times, 1 walks the array).  Logical element l
 // of a forward scan is column l; of a reverse scan, column n - 1 - l.  The
-// tile pass cuts the logical order into tiles of SCAN_TILE elements, each
-// thread of a block taking SCAN_PER consecutive ones.  The inversion route
-// of fr_pow takes the same tiles.
+// scan cuts the logical order into tiles of SCAN_TILE elements, a block a
+// tile, each thread taking SCAN_PASS_PER consecutive ones.  The inversion
+// route of fr_pow takes the same tiles, SCAN_PER elements a thread.
 #pragma once
 
 #include "inv.cuh"
@@ -17,6 +18,12 @@
 #define SCAN_THREADS 128
 #define SCAN_PER 4
 #define SCAN_TILE (SCAN_THREADS * SCAN_PER)
+// fr_scan's block: the same tile over 256 threads of 2 elements, so a
+// block's chain of dependent products is shorter (a fold and an output
+// each, where 4 elements take 3 and 3, for one more level of the block's
+// scan).  fr_pow's inversion route keeps SCAN_THREADS and SCAN_PER.
+#define SCAN_PASS_THREADS 256
+#define SCAN_PASS_PER (SCAN_TILE / SCAN_PASS_THREADS)
 
 enum { SCAN_OP_MUL = 0, SCAN_OP_ADD = 1 };
 
@@ -36,14 +43,15 @@ KZG_HD void scan_identity(uint32_t r[NL], const FieldConsts<NL>& F) {
   for (int k = 0; k < NL; k++) r[k] = OP == SCAN_OP_MUL ? F.one[k] : 0u;
 }
 
-// r = a (op) b.  r may alias a or b.
+// r = a (op) b, the product on PROD_CHAIN (chain.cuh).  r may alias a or
+// b.
 template <int OP, int NL>
 KZG_HD void scan_op(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL],
                     const FieldConsts<NL>& F) {
   if (OP == SCAN_OP_ADD) {
     fe_add(r, a, b, F);
   } else {
-    fe_mul(r, a, b, F);
+    fe_mul_chain(r, a, b, F);
   }
 }
 
@@ -59,20 +67,99 @@ KZG_HD void scan_load(uint32_t r[NL], const uint32_t* a, int64_t ld,
   }
 }
 
-// Fix-up pass, one thread a column i of the (NL, n) output: the tile-local
-// exclusive scan already in out, combined with the exclusive prefix of its
-// tile (column t of the (NL, tiles) prefix array).
+// The single-pass scan's state (fr_scan's scratch): 32-bit words, zero
+// before a stream's first scan and left zero by every scan.  Word 0 is the
+// tile ticket (a block takes the next tile when it starts, so it waits only
+// on tiles whose blocks already run), word 1 counts the blocks done; tile
+// t's record is the SCAN_REC words from SCAN_REC (t + 1): its flag, its
+// aggregate (words 1 ..) and its inclusive prefix (words 1 + SCAN_MAX_NL
+// ..).  The last block done clears the flags and both counters.
+#define SCAN_REC 32
+#define SCAN_MAX_NL 12
+// Predecessors a look-back step reads: one a thread of fr_scan's block
+// when the last tile reaches tile 0 in one step, else a warp's lanes (a
+// step of the whole block costs every warp a butterfly, which blocks
+// sharing an SM pay in scheduler slots).
+#define SCAN_WINDOW SCAN_PASS_THREADS
+#define SCAN_WINDOW_NARROW 32
+
+KZG_HD int scan_window(int64_t tiles) {
+  return tiles - 1 <= SCAN_WINDOW ? SCAN_WINDOW : SCAN_WINDOW_NARROW;
+}
+
+enum { SCAN_FLAG_NONE = 0, SCAN_FLAG_AGG = 1, SCAN_FLAG_INCL = 2 };
+
+KZG_HD int64_t scan_state_words(int64_t n) {
+  return SCAN_REC * (scan_tiles(n) + 1);
+}
+
+KZG_HD uint32_t* scan_rec(uint32_t* state, int64_t t) {
+  return state + SCAN_REC * (t + 1);
+}
+
+// A word another block may have written in this launch: through the L2.
+KZG_HD uint32_t scan_ld(const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+
+// Tile t's aggregate (flag SCAN_FLAG_AGG) or inclusive prefix
+// (SCAN_FLAG_INCL): the words, then the flag by a release store.
+template <int NL>
+KZG_HD void scan_publish(uint32_t* state, int64_t t, uint32_t flag,
+                         const uint32_t v[NL]) {
+  uint32_t* rec = scan_rec(state, t);
+  uint32_t* dst = rec + 1 + (flag == SCAN_FLAG_INCL ? SCAN_MAX_NL : 0);
+#pragma unroll
+  for (int k = 0; k < NL; k++) dst[k] = v[k];
+#ifdef __CUDA_ARCH__
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(rec), "r"(flag)
+               : "memory");
+#else
+  rec[0] = flag;
+#endif
+}
+
+// A total alone: tile t's aggregate, no flag (the block's count of done
+// orders it before the last block reads it).
+template <int NL>
+KZG_HD void scan_put_aggregate(uint32_t* state, int64_t t,
+                               const uint32_t v[NL]) {
+  uint32_t* dst = scan_rec(state, t) + 1;
+#pragma unroll
+  for (int k = 0; k < NL; k++) dst[k] = v[k];
+}
+
+// Position i's value in a look-back step over the tiles hi, hi - 1, ...
+// (tile = hi - i), given `first`, the lowest position whose tile holds its
+// inclusive prefix (the window's size if none): the positions below it
+// give their tiles' aggregates, position first its inclusive prefix, the
+// others (and tiles below 0) the identity.  The step's result is the
+// product or sum over its positions: the prefix of tiles hi - first .. hi
+// if an inclusive prefix was found.
 template <int OP, int NL>
-KZG_HD void scan_fixup_thread(int64_t i, uint32_t* out, int64_t n,
-                              const uint32_t* prefix, int64_t tiles,
-                              bool reverse, const FieldConsts<NL>& F) {
-  int64_t t = scan_col(i, n, reverse) / SCAN_TILE;
-  if (t == 0) return;  // the first tile's prefix is the identity
-  uint32_t x[NL], c[NL];
-  fe_load<NL>(x, out, n, i);
-  fe_load<NL>(c, prefix, tiles, t);
-  scan_op<OP>(x, c, x, F);
-  fe_store<NL>(out, n, i, x);
+KZG_HD void scan_lookback_value(uint32_t r[NL], uint32_t* state, int64_t tile,
+                                int pos, int first,
+                                const FieldConsts<NL>& F) {
+  if (tile < 0 || pos > first) {
+    scan_identity<OP>(r, F);
+    return;
+  }
+  const uint32_t* src =
+      scan_rec(state, tile) + 1 + (pos == first ? SCAN_MAX_NL : 0);
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = scan_ld(src + k);
+}
+
+// The last block done: the flags of the tiles and the two counters back to
+// zero for the stream's next scan.
+KZG_HD void scan_state_reset(uint32_t* state, int64_t tiles) {
+  for (int64_t t = 0; t < tiles; t++) scan_rec(state, t)[0] = 0;
+  state[0] = 0;
+  state[1] = 0;
 }
 
 // r = b^e by square-and-multiply from the least significant bit on the

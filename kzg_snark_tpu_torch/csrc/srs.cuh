@@ -6,63 +6,74 @@
 // fixed_base_table_plain builds it, so every Jacobian representative is
 // the same: the window bases by a chain of c doublings each (T[j, 1]), the
 // identity (one, one, 0) at T[j, 0], then levels count = 2, 4, ..., 2^(c-1):
-// step_j = 2 T[j, count / 2], then T[j, v + count] = T[j, v] + step_j for
-// v < count.
+// step = 2 T[j, count / 2], then T[j, v + count] = T[j, v] + step for
+// v < count.  T[j, count / 2] is the previous level's step word for word
+// (the identity plus a point is that point), so a row keeps its step in
+// registers and doubles it once a level.
+//
+// The chain runs on the lanes of one warp (msm.cuh: g1_double_lanes, the
+// MSM fold's doubling, each level's independent products one a lane); a row
+// runs on a group of FBT_GROUP_THREADS threads, its step doubled on each
+// warp's lanes and its adds one a thread, every product on PROD_CHAIN.
 #pragma once
 
-#include "curve.cuh"
+#include "msm.cuh"
 
-// One thread: the window bases, c (W - 1) dependent doublings.  With the
-// unrolled product (fe_mul): the rolled one, which halved the MSM
-// reduction's one-thread chains, made this kernel slower on an H100 (2.62
-// against 2.04 ms at c = 8, W = 32; chip_smoke.py's chains phase).
-template <int NL>
-KZG_HD void fbt_chain(const uint32_t* base, uint32_t* table, int windows,
-                      int c, const FieldConsts<NL>& F) {
+// A row group: two warps.  At c = 8 the last level's 128 adds are two a
+// thread.
+#define FBT_GROUP_THREADS 64
+// The launch srs_kernels.cu makes: a cluster of FBT_CLUSTER blocks, block 0
+// the chain's warp, each other block FBT_GROUPS row groups.  A block of 32 +
+// 3 x 64 threads may hold 255 registers a thread, so the 12-word instance
+// does not spill.
+#define FBT_CLUSTER 16
+#define FBT_GROUPS 3
+// Row groups of the launch: a table of more windows than this hands a group
+// a second window.
+#define FBT_UNITS ((FBT_CLUSTER - 1) * FBT_GROUPS)
+
+// The window bases B_j = 2^(c j) base, j < W, on the lanes of one warp
+// (lane in 0..31; the host runs a level's products one after another):
+// c doublings a base after the first.  Lane 0 stores B_j at T[j, 1], then
+// publish(j) runs on every lane.
+template <int NL, typename Publish>
+KZG_HD void fbt_chain_lanes(const uint32_t* base, uint32_t* table,
+                            int windows, int c, int lane,
+                            const FieldConsts<NL>& F, Publish publish) {
   const int64_t m = (int64_t)windows << c;
   G1J<NL> P;
   g1_load(P, base, 1, 0);
-  g1_store(table, m, 1, P);
-  for (int j = 1; j < windows; j++) {
-    for (int d = 0; d < c; d++) g1_double(P, P, F);
-    g1_store(table, m, ((int64_t)j << c) + 1, P);
+#pragma unroll 1
+  for (int j = 0; j < windows; j++) {
+#pragma unroll 1
+    for (int d = 0; j > 0 && d < c; d++) g1_double_lanes(P, lane, F);
+    if (lane == 0) g1_store(table, m, ((int64_t)j << c) + 1, P);
+    publish(j);
   }
 }
 
+// Window j's identity (one, one, 0) at T[j, 0].
 template <int NL>
-KZG_HD void fbt_identity_thread(int j, uint32_t* table, int windows, int c,
-                                const FieldConsts<NL>& F) {
+KZG_HD void fbt_identity(int64_t j, uint32_t* table, int windows, int c,
+                         const FieldConsts<NL>& F) {
   G1J<NL> I;
-  fe_copy<NL>(I.X, F.one);
-  fe_copy<NL>(I.Y, F.one);
-  for (int k = 0; k < NL; k++) I.Z[k] = 0;
-  g1_store(table, (int64_t)windows << c, (int64_t)j << c, I);
+  g1_set_identity(I, F);
+  g1_store(table, (int64_t)windows << c, j << c, I);
 }
 
-// Level `count`, thread j < W: steps[j] = 2 T[j, count / 2]; steps is
-// (3, NL, W).
+// Level `count` of window j, thread t of a group of `threads`: T[j, v +
+// count] = T[j, v] + step for v = t, t + threads, ... below count (the
+// complete add, T[j, v] on the left as in the plain version).
 template <int NL>
-KZG_HD void fbt_step_thread(int j, int count, const uint32_t* table,
-                            uint32_t* steps, int windows, int c,
-                            const FieldConsts<NL>& F) {
-  G1J<NL> P;
-  g1_load(P, table, (int64_t)windows << c, ((int64_t)j << c) + count / 2);
-  g1_double(P, P, F);
-  g1_store(steps, windows, j, P);
-}
-
-// Level `count`, thread idx < W count: T[j, v + count] = T[j, v] + steps[j]
-// for j = idx / count, v = idx mod count.
-template <int NL>
-KZG_HD void fbt_add_thread(int64_t idx, int count, uint32_t* table,
-                           const uint32_t* steps, int windows, int c,
+KZG_HD void fbt_level_adds(int64_t j, int count, const G1J<NL>& step, int t,
+                           int threads, uint32_t* table, int windows, int c,
                            const FieldConsts<NL>& F) {
-  const int64_t m = (int64_t)windows << c;
-  int64_t j = idx / count;
-  int64_t v = idx % count;
-  G1J<NL> P, Q;
-  g1_load(P, table, m, (j << c) + v);
-  g1_load(Q, steps, windows, j);
-  g1_add(P, P, Q, F);
-  g1_store(table, m, (j << c) + v + count, P);
+  const int64_t m = (int64_t)windows << c, row = j << c;
+#pragma unroll 1
+  for (int v = t; v < count; v += threads) {
+    G1J<NL> P;
+    g1_load(P, table, m, row + v);
+    g1_add_acc(P, step, F);
+    g1_store(table, m, row + v + count, P);
+  }
 }

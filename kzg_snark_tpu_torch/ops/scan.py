@@ -6,8 +6,10 @@ Wrappers of ``csrc/fr_scan_kernels.cu``, with their plain versions:
   field product (identity R mod p) or sum (identity 0), forward or reverse,
   and its total: the JAX package's ``lax.scan`` chains of
   ``kzg_snark_tpu/ops/fr.py`` (``exclusive_prefix_prod``, ``batch_inv``'s
-  lane chains, ``suffix_sums_exclusive``, ``sum_reduce``) as three launches
-  whatever n (two for a total alone);
+  lane chains, ``suffix_sums_exclusive``, ``sum_reduce``) as one launch
+  whatever n, a total alone too: a single pass with decoupled look-back,
+  whose state is a per-stream scratch (``_scan_state``) that each launch
+  leaves zeroed;
 * ``fr_pow``: a^e for every element and one exponent e < 2^(32 L) (the JAX
   ``pow_const`` scan and ``inv``), one launch whatever n.  The kernel's
   route depends only on e: e = p - 2 (an inversion, 0 mapping to 0) runs
@@ -38,9 +40,28 @@ MUL, ADD = 0, 1                 # SCAN_OP_MUL, SCAN_OP_ADD of csrc/scan.cuh
 
 
 def tile() -> int:
-    """SCAN_TILE of csrc/scan.cuh: the elements of one block of the tile
-    pass, as the built library has it."""
+    """SCAN_TILE of csrc/scan.cuh: the elements of one block of fr_scan and
+    of fr_pow's inversion route, as the built library has it."""
     return cuda_lib().kzg_scan_tile()
+
+
+# (device index, stream) -> the single-pass scan's state on that stream.
+_STATES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scan_state(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The scan state of ``stream`` for an n-element scan: zeroed once when
+    made (or grown), then kept zero by every launch; scans on one stream
+    run in order, so they share it."""
+    words = cuda_lib().kzg_scan_state_words(n)
+    key = (device.index, stream)
+    state = _STATES.get(key)
+    if state is None or state.numel() < words:
+        state = torch.zeros(max(words, 2 * (0 if state is None
+                                            else state.numel())),
+                            dtype=torch.int32, device=device)
+        _STATES[key] = state
+    return state
 
 
 def _identity(fc: FieldConsts, op: int, device) -> torch.Tensor:
@@ -127,13 +148,13 @@ def fr_scan(fc: FieldConsts, a: torch.Tensor, op: int, reverse: bool = False,
     out = torch.empty((L, n), dtype=torch.int32, device=dev) \
         if want_scan else None
     total = torch.empty((L, 1), dtype=torch.int32, device=dev)
-    scratch = torch.empty((L, -(-n // tile())), dtype=torch.int32,
-                          device=dev)
-    count_launch("fr_scan", 3 if want_scan else 2, width=n, limbs=L)
+    stream = _stream(a)
+    state = _scan_state(dev, stream, n)
+    count_launch("fr_scan", width=n, limbs=L)
     check(cuda_lib().kzg_fr_scan(
         a.data_ptr(), ld, inc, n, op, int(reverse),
         out.data_ptr() if want_scan else None, total.data_ptr(),
-        scratch.data_ptr(), fc.ptr, _stream(a)), "fr_scan")
+        state.data_ptr(), fc.ptr, stream), "fr_scan")
     return out, total
 
 

@@ -5,7 +5,9 @@ Counterpart of ``kzg_snark_tpu/ops/srs.py``: ``DeviceSRS`` holds
 BN254, 12 at BLS12-381), and
 ``setup_g1_powers`` builds it by a windowed fixed-base method: a table
 T[j, v] = v 2^(c j) G of W x 2^c points (``g1_fixed_base_table``, one
-launch of ``csrc/srs_kernels.cu``: K7 and K6 as this build uses them),
+launch of ``csrc/srs_kernels.cu``: K7 and K6 as this build uses them, a
+thread-block cluster whose first warp runs the window bases' doubling chain
+on its lanes while the other blocks build each window's row),
 then every tau^i G is a sum of W table entries, one complete add (K6) per
 window over the whole batch.  The JAX package gathered the entries
 through a one-hot matmul to dodge a TPU fault; here a plain index gather

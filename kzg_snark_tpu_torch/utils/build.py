@@ -74,6 +74,8 @@ CUDA_ENTRIES = {
     "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
     "kzg_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P, _P],
     "kzg_scan_tile": [],
+    "kzg_scan_state_words": [_I64],
+    "kzg_scan_window": [],
     "kzg_fr_scan": [_P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P],
     "kzg_fr_pow": [_P, _I64, _P, _INT, _P, _P, _P, _P],
 }
@@ -93,11 +95,18 @@ HOST_ENTRIES = {
     "host_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P],
     "host_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P],
     "host_scan_tile": [],
-    "host_fr_scan": [_INT, _P, _I64, _I64, _I64, _INT, _P, _P, _P],
+    "host_fr_scan_state": [_INT, _P, _I64, _I64, _I64, _INT, _P, _P, _P,
+                           _INT, _INT, _P],
+    "host_scan_window": [],
+    "host_scan_state_words": [_I64],
     "host_fr_pow": [_P, _I64, _P, _INT, _P, _P, _P],
     "host_fe_inv": [_P, _P, _I64, ctypes.c_uint32, _P],
     "host_pow_route": [_P, _P],
 }
+
+# Entry points that return an int64 (the others return an int: 0 or a CUDA
+# error).
+INT64_RESULTS = ("kzg_scan_state_words", "host_scan_state_words")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -250,7 +259,7 @@ def _load(kind: str, build_fn, entries: dict) -> ctypes.CDLL:
             for name, argtypes in entries.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _I64 if name in INT64_RESULTS else _INT
             _libs[kind] = lib
         return _libs[kind]
 

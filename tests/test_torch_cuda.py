@@ -246,36 +246,70 @@ def test_mixed_add_and_butterfly_kernels_match_plain(cuda):
     assert LAUNCHES["fr_butterfly"] == before + 1
 
 
+@pytest.mark.parametrize("field", ["bn254-fr", "bls-fq"])
 @pytest.mark.parametrize("op", [scan.MUL, scan.ADD], ids=["mul", "add"])
 @pytest.mark.cuda
-def test_scan_kernel_matches_plain(cuda, op):
+def test_scan_kernel_matches_plain(cuda, op, field):
     """fr_scan at the edge widths (one, two, a tile less one, a tile, a
-    tile and one, several tiles), both directions; a total alone; one
-    column read with step 0; and the launches (3 a scan, 2 a total).  The
-    sums take zero entries; the products none, so that no prefix is forced
-    to zero and every tile and the totals pass are checked."""
-    fc = fr_backend("bn254", cuda).consts
+    tile and one, several tiles, one look-back window of tiles and one
+    element less or more, and into a second window), both directions, at
+    8 words (BN254 Fr) and 12 (BLS12-381 Fq); a total alone; one column
+    read with step 0; and one launch a call.  The sums take zero entries;
+    the products none, so that no prefix is forced to zero and every tile
+    is checked."""
+    from kzg_snark_tpu_torch.utils.build import cuda_lib
+
+    be = (fr_backend("bn254", cuda) if field == "bn254-fr"
+          else fq_backend("bls12_381", cuda))
+    fc = be.consts
+    L = fc.num_limbs
     tile = scan.tile()
-    n_max = 3 * tile + 5
-    a = words(n_max, 11, cuda)
+    window = cuda_lib().kzg_scan_window() * tile
+    n_max = window + tile + 3
+    a = words(n_max, 11, cuda, L)
     if op == scan.ADD:
         a[:, ::7] = 0
     else:
         assert bool(a.ne(0).any(dim=0).all())
-    for n in (1, 2, tile - 1, tile, tile + 1, n_max):
+    for n in (1, 2, tile - 1, tile, tile + 1, 3 * tile + 5, window - 1,
+              window, window + 1, n_max):
         x = a[:, :n]
         for reverse in (False, True):
             want, want_total = scan.fr_scan_plain(fc, x, op, reverse)
             before = LAUNCHES["fr_scan"]
             got, total = scan.fr_scan(fc, x, op, reverse)
-            assert LAUNCHES["fr_scan"] == before + 3
+            assert LAUNCHES["fr_scan"] == before + 1
             assert torch.equal(got, want), (n, reverse)
             assert torch.equal(total, want_total), (n, reverse)
             none, total = scan.fr_scan(fc, x, op, reverse, want_scan=False)
+            assert LAUNCHES["fr_scan"] == before + 2
             assert none is None and torch.equal(total, want_total)
-    rep = a[:, 5:6].expand(8, 1000)
+    rep = a[:, 5:6].expand(L, 1000)
     assert torch.equal(scan.fr_scan(fc, rep, op)[0],
                        scan.fr_scan_plain(fc, rep, op)[0])
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.cuda
+def test_table_kernel_matches_plain(cuda, curve):
+    """g1_fixed_base_table, one launch a table, equal word for word to
+    fixed_base_table_plain at c = 8 with W = 2, 9 and 32, at W = 46, one
+    window more than the launch's 45 row groups (csrc/srs.cuh FBT_UNITS:
+    a group's second window), and at c = 3, W = 5."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import srs
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+
+    fq = fq_backend(curve, cuda).consts
+    g1 = C.BN254_G1 if curve == "bn254" else C.BLS12_381_G1
+    base = curve_ops(curve, cuda).from_affine_ints([g1[0]],
+                                                   [g1[1]]).contiguous()
+    for c, w in ((8, 2), (8, 9), (8, 32), (8, 46), (3, 5)):
+        before = LAUNCHES["g1_fixed_base_table"]
+        table = g1_fixed_base_table(fq, base, c, w)
+        assert LAUNCHES["g1_fixed_base_table"] == before + 1
+        assert torch.equal(table, srs.fixed_base_table_plain(fq, base, c, w)
+                           ), (c, w)
 
 
 @pytest.mark.cuda

@@ -280,3 +280,35 @@ def test_scale_const_matches_jax(curves, scale_case, k):
     assert torch.equal(got, tc.scale(tp, _bits(k)[:max(k.bit_length(), 1)]))
     if k == 0:
         assert same(jc.scale_const(jp, 0), got)
+
+
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_fixed_base_table_plain_matches_jax(curve_type):
+    """The SRS table module (``fixed_base_table_plain``, the words the
+    table kernel must give) against the JAX package's
+    ``ops/srs._fixed_base_table`` under ``jax.jit`` on the CPU, at c = 3,
+    W = 5 of the curve's generator: equal affine points.  The two build
+    each row in another order (the JAX one adds the window base step by
+    step, the port doubles the step a level), so their Jacobian words
+    differ."""
+    from kzg_snark_tpu.ops.srs import _fixed_base_table
+    from kzg_snark_tpu_torch import constants as TC
+    from kzg_snark_tpu_torch.ops.srs import fixed_base_table_plain
+
+    c, windows = 3, 5
+    g1 = TC.BN254_G1 if curve_type == "bn254" else TC.BLS12_381_G1
+    jc, tc = jax_curve_ops(curve_type), curve_ops(curve_type, "cpu")
+    base_j = jc.from_affine_ints([g1[0]], [g1[1]])
+    base_t = tc.from_affine_ints([g1[0]], [g1[1]]).contiguous()
+    assert same(base_j, base_t)
+    want = tc.to_affine_ints(points16_to_tensor(
+        _fixed_base_table(jc, base_j, c, windows), "cpu"))
+    got = tc.to_affine_ints(fixed_base_table_plain(tc.f.consts, base_t, c,
+                                                   windows))
+    assert got == want and len(got) == windows << c
+    Fp = base_field(curve_type)
+    G = (Fp(g1[0]), Fp(g1[1]), Fp(1))
+    for j, v in ((0, 0), (0, 1), (1, 7), (windows - 1, 5)):
+        pt = hc.normalize(hc.multiply(G, v << (c * j))) if v else None
+        assert got[(j << c) + v] == (None if pt is None else
+                                     (int(pt[0]), int(pt[1])))

@@ -99,11 +99,11 @@ def test_field_ewise(lib, modulus, op):
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
 @pytest.mark.parametrize("op", [0, 1], ids=["mul", "add"])
 def test_fr_scan(lib, op, reverse):
-    """The scan's tiling, element indexing, identity and fix-up thread body
-    (csrc/scan.cuh) against fr_scan_plain: widths around one and two tiles,
-    a total alone, and one column read with step 0.  The sums take zero
-    entries; the products none, since a zero would make every later prefix
-    zero and hide the tiles after it."""
+    """The scan's tiling, element indexing, identity, publication and
+    look-back (csrc/scan.cuh) against fr_scan_plain: widths around one and
+    two tiles, a total alone, and one column read with step 0.  The sums
+    take zero entries; the products none, since a zero would make every
+    later prefix zero and hide the tiles after it."""
     _check_scan(lib, fr_backend("bn254", "cpu"), op, reverse)
 
 
@@ -112,6 +112,16 @@ def test_fr_scan(lib, op, reverse):
 def test_fr_scan_bls_fq(lib, op, reverse):
     """The scan's thread bodies at 12 words (BLS12-381 Fq)."""
     _check_scan(lib, fq_backend("bls12_381", "cpu"), op, reverse)
+
+
+def _host_scan(lib, fc, op, a, ld, inc, n, reverse, out, total):
+    """The scan under g++ on a fresh state, blocks in ticket order."""
+    state = np.zeros(lib.host_scan_state_words(n), dtype=np.uint32)
+    assert lib.host_fr_scan_state(
+        op, _ptr(a), ld, inc, n, int(reverse),
+        None if out is None else _ptr(out),
+        None if total is None else _ptr(total), _ptr(state), 0,
+        lib.host_scan_window(), fc.ptr) == 0
 
 
 def _check_scan(lib, be, op, reverse):
@@ -130,21 +140,86 @@ def _check_scan(lib, be, op, reverse):
         want, want_total = fr_scan_plain(fc, a[:, :n], op, reverse)
         out = np.empty((L, n), dtype=np.uint32)
         total = np.empty((L, 1), dtype=np.uint32)
-        lib.host_fr_scan(op, _ptr(aw), ld, 1, n, int(reverse), _ptr(out),
-                         _ptr(total), fc.ptr)
+        _host_scan(lib, fc, op, aw, ld, 1, n, reverse, out, total)
         assert np.array_equal(out, _words(want)), n
         assert np.array_equal(total, _words(want_total)), n
         total[:] = 0
-        lib.host_fr_scan(op, _ptr(aw), ld, 1, n, int(reverse), None,
-                         _ptr(total), fc.ptr)
+        _host_scan(lib, fc, op, aw, ld, 1, n, reverse, None, total)
         assert np.array_equal(total, _words(want_total)), n
     n = tile + 3
     col = aw[:, 3:].copy()              # column 0 of col is column 3 of a
     want, _ = fr_scan_plain(fc, a[:, 3:4].expand(L, n), op, reverse)
     out = np.empty((L, n), dtype=np.uint32)
-    lib.host_fr_scan(op, _ptr(col), col.shape[1], 0, n, int(reverse),
-                     _ptr(out), None, fc.ptr)
+    _host_scan(lib, fc, op, col, col.shape[1], 0, n, reverse, out, None)
     assert np.array_equal(out, _words(want))
+
+
+@pytest.mark.parametrize("schedule", [0, 1], ids=["in-order",
+                                                  "aggregates-first"])
+@pytest.mark.parametrize("op", [0, 1], ids=["mul", "add"])
+@pytest.mark.parametrize("field", ["bn254-fr", "bls-fq"])
+def test_fr_scan_single_pass(lib, field, op, schedule):
+    """The single-pass scan (k_scan) emulated block by block on one state
+    kept across calls, as the wrapper keeps a stream's (the values of
+    earlier, longer scans stay behind): each block's aggregate, its
+    look-back over the published records (csrc/scan.cuh
+    scan_lookback_value, a window of tiles a step) and its inclusive
+    prefix, in start order; "aggregates-first" publishes every aggregate
+    before the first look-back and runs the look-backs from the last tile
+    down, so each walks back through windows of aggregates to tile 0.
+    Look-back windows of the kernel's SCAN_WINDOW tiles and of 32 tiles
+    (the same code; 34 tiles then take two steps).  Widths 1, 2, T - 1, T,
+    T + 1, 3 T + 5, 32 tiles less and more one element, and 34 tiles,
+    forward and reverse, a total alone and a column read with step 0,
+    against fr_scan_plain at 8 and 12 words; the state's counters and
+    flags are zero after every scan."""
+    be = (fr_backend("bn254", "cpu") if field == "bn254-fr"
+          else fq_backend("bls12_381", "cpu"))
+    fc = be.consts
+    L = fc.num_limbs
+    T = lib.host_scan_tile()
+    window = 32 * T
+    n_max = window + T + 1              # 34 tiles
+    vals = _random_field(be.modulus, n_max, 7 + op)
+    if op == 1:
+        vals[5::11] = [0] * len(vals[5::11])
+    else:
+        vals = [v or 1 for v in vals]
+    a = be.from_ints(vals)
+    aw = _words(a)
+    state = np.zeros(lib.host_scan_state_words(n_max), dtype=np.uint32)
+    windows = (lib.host_scan_window(), 32)
+
+    def run(x, ld, inc, n, reverse, want_scan, steps):
+        out = np.empty((L, n), dtype=np.uint32) if want_scan else None
+        total = np.empty((L, 1), dtype=np.uint32)
+        assert lib.host_fr_scan_state(
+            op, _ptr(x), ld, inc, n, int(reverse),
+            None if out is None else _ptr(out), _ptr(total), _ptr(state),
+            schedule, steps, fc.ptr) == 0
+        flags = state.reshape(-1, 32)[:, 0]     # the ticket, then a tile's
+        assert state[1] == 0 and not flags.any()
+        return out, total
+
+    for n in (n_max, 1, 2, T - 1, T, T + 1, 3 * T + 5, window - 1,
+              window + 1):
+        for reverse in (False, True):
+            want, want_total = fr_scan_plain(fc, a[:, :n], op, reverse)
+            for steps in windows:
+                out, total = run(aw, n_max, 1, n, reverse, True, steps)
+                assert np.array_equal(out, _words(want)), (n, reverse)
+                assert np.array_equal(total, _words(want_total)), (n,
+                                                                   reverse)
+                _, total = run(aw, n_max, 1, n, reverse, False, steps)
+                assert np.array_equal(total, _words(want_total)), (n,
+                                                                   reverse)
+    n = 3 * T + 5
+    col = aw[:, 3:].copy()              # column 0 of col is column 3 of a
+    want, want_total = fr_scan_plain(fc, a[:, 3:4].expand(L, n), op)
+    for steps in windows:
+        out, total = run(col, col.shape[1], 0, n, False, True, steps)
+        assert np.array_equal(out, _words(want))
+        assert np.array_equal(total, _words(want_total))
 
 
 def _exponent_words(e, limbs):
@@ -515,15 +590,18 @@ def test_staged_transform_launches(lib, monkeypatch, log_n):
     assert [c[3] for c in calls] == [False] + [True] * (len(calls) - 1)
 
 
-@pytest.mark.parametrize("c, windows", [(8, 32), (3, 5)])
+@pytest.mark.parametrize("c, windows", [(8, 32), (3, 5), (3, 46), (1, 3)])
 def test_g1_fixed_base_table(lib, c, windows):
-    """The table kernel's chain, identities and levels, in its order under
-    g++, against fixed_base_table_plain: equal Jacobian words at the SRS
-    build's c = 8, W = 32 and at a small shape."""
+    """The table kernel in its order under g++ (the window bases' chain on
+    the lanes, a level's products one after another; then each row group's
+    windows, the step doubled on the lanes and the adds thread by thread)
+    against fixed_base_table_plain: equal Jacobian words at the SRS build's
+    c = 8, W = 32, at small shapes, past the launch's 45 row groups (a
+    group's second window) and at c = 1 (no level)."""
     _check_table(lib, "bn254", c, windows)
 
 
-@pytest.mark.parametrize("c, windows", [(8, 32), (3, 5)])
+@pytest.mark.parametrize("c, windows", [(8, 32), (3, 5), (3, 46)])
 def test_g1_fixed_base_table_bls(lib, c, windows):
     """The table at 12 words, of BLS12-381's generator."""
     _check_table(lib, "bls12_381", c, windows)
