@@ -20,10 +20,17 @@ round with ``jax.jit``; here each round is a direct method call.  Under
 over the checked backend and each round method's output is validated
 under ``"plonk.<name>"``, the counterpart of the JAX ``jit_method``
 wrapper; the values, and so the proof, are those of an unchecked run.
+
+The prove runs in phases (``DeviceProver._phase``), each a span
+``plonk.<phase>`` under a profiler; with ``collect_timings`` the device is
+synced at each phase's close and the phase timed.  ``eval_dev``,
+``open_dev`` and ``combine_weighted`` are the spans ``kzg.eval``,
+``kzg.open`` and ``kzg.combine``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -36,6 +43,8 @@ from ...ops.ntt import ntt_context
 from ...ops.srs import DeviceSRS
 from ...rng import Rng
 from ...transcript import Transcript
+from ...utils.build import count_sync
+from ...utils.profiling import span
 from ..kzg import KZG
 
 
@@ -192,32 +201,35 @@ class PlonkDeviceCore:
         return be.exclusive_prefix_prod(z_scalar.expand(be.num_limbs, count))
 
     def eval_dev(self, coeffs, z_scalar):
-        be = self.be
-        return be.sum_reduce(be.mul(coeffs, self.powers_dev(
-            z_scalar, coeffs.shape[1])))
+        with span("kzg.eval"):
+            be = self.be
+            return be.sum_reduce(be.mul(coeffs, self.powers_dev(
+                z_scalar, coeffs.shape[1])))
 
     def open_dev(self, coeffs, z_scalar):
         """``open_at`` at an (8, 1) Montgomery device scalar."""
-        m = coeffs.shape[1]
-        z_inv = self.be.inv(z_scalar)
-        return self._open(coeffs, self.powers_dev(z_scalar, m),
-                          self.be.mul(self.powers_dev(z_inv, m), z_inv))
+        with span("kzg.open"):
+            m = coeffs.shape[1]
+            z_inv = self.be.inv(z_scalar)
+            return self._open(coeffs, self.powers_dev(z_scalar, m),
+                              self.be.mul(self.powers_dev(z_inv, m), z_inv))
 
     def combine_weighted(self, arrays: list, weights: list):
         """sum_i weights[i] * arrays[i], arrays zero-padded to the longest;
         weights are (8, 1) Montgomery scalars."""
-        be = self.be
-        max_len = max(a.shape[1] for a in arrays)
-        acc = torch.zeros((be.num_limbs, max_len), dtype=torch.int32,
-                          device=self.device)
-        for arr, w in zip(arrays, weights):
-            m = arr.shape[1]
-            if m < max_len:
-                arr = torch.cat([arr, torch.zeros(
-                    (be.num_limbs, max_len - m), dtype=torch.int32,
-                    device=self.device)], dim=1)
-            acc = be.add(acc, be.mul(arr, w))
-        return acc
+        with span("kzg.combine"):
+            be = self.be
+            max_len = max(a.shape[1] for a in arrays)
+            acc = torch.zeros((be.num_limbs, max_len), dtype=torch.int32,
+                              device=self.device)
+            for arr, w in zip(arrays, weights):
+                m = arr.shape[1]
+                if m < max_len:
+                    arr = torch.cat([arr, torch.zeros(
+                        (be.num_limbs, max_len - m), dtype=torch.int32,
+                        device=self.device)], dim=1)
+                acc = be.add(acc, be.mul(arr, w))
+            return acc
 
     def round3(self, a_poly, b_poly, c_poly, z_poly, pi_coeffs,
                qM4, qL4, qR4, qO4, qC4, s14, s24, s34,
@@ -251,16 +263,21 @@ class DeviceProver:
         self.collect_timings = collect_timings
         self.timings: dict[str, float] = {}
 
-    def _phase(self, name: str, t0: float) -> float:
-        """Close a phase: wait for the device, so the phases add up to the
-        wall time, and record its time when timings are on."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        if not self.collect_timings:
-            return t0
-        t = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + (t - t0)
-        return t
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """One phase of the prove, under the span ``plonk.<name>``.  With
+        timings on, wait for the device at its close, so the phases add up
+        to the wall time, and record its time; with them off, neither."""
+        t0 = time.perf_counter()
+        with span(f"plonk.{name}"):
+            yield
+            if self.collect_timings:
+                count_sync("plonk.phase")
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        if self.collect_timings:
+            self.timings[name] = self.timings.get(name, 0.0) + \
+                time.perf_counter() - t0
 
     # -- commitments ------------------------------------------------------
     def _commit_many(self, ck: DeviceSRS, coeff_list: list) -> list:
@@ -304,108 +321,109 @@ class DeviceProver:
         k2 = ipk["subgroups"]["k2"]
 
         self.timings = {}
-        t0 = time.perf_counter()
-        core = PlonkDeviceCore(kzg.curve_type, n, self.device)
-        be = core.be
-        if int(g) != core.g:
-            raise ValueError("ipk domain generator differs from the "
-                             "deterministic device domain")
-        dev = self._device_index_polys(ipk, core)
-        t0 = self._phase("setup", t0)
+        with self._phase("setup"):
+            core = PlonkDeviceCore(kzg.curve_type, n, self.device)
+            be = core.be
+            if int(g) != core.g:
+                raise ValueError("ipk domain generator differs from the "
+                                 "deterministic device domain")
+            dev = self._device_index_polys(ipk, core)
 
-        transcript = Transcript("plonk-proof", Fq)
-        transcript.append_message("public-inputs", list(x))
-        full_witness = [int(Fq(int(v))) for v in list(x) + list(w)]
+        with self._phase("round1_wires"):
+            transcript = Transcript("plonk-proof", Fq)
+            transcript.append_message("public-inputs", list(x))
+            full_witness = [int(Fq(int(v))) for v in list(x) + list(w)]
 
-        # The host prover builds a throwaway encoder whose update_state
-        # rejection-samples coset multipliers from the shared RNG: replay
-        # those draws so the blinding stream stays aligned.
-        while True:
-            k1_dummy = self.rng.random_element(Fq)
-            k2_dummy = self.rng.random_element(Fq)
-            if (k1_dummy != 0 and k2_dummy != 0 and k1_dummy ** n != 1
-                    and k2_dummy ** n != 1
-                    and (k1_dummy / k2_dummy) ** n != 1):
-                break
+            # The host prover builds a throwaway encoder whose update_state
+            # rejection-samples coset multipliers from the shared RNG:
+            # replay those draws so the blinding stream stays aligned.
+            while True:
+                k1_dummy = self.rng.random_element(Fq)
+                k2_dummy = self.rng.random_element(Fq)
+                if (k1_dummy != 0 and k2_dummy != 0 and k1_dummy ** n != 1
+                        and k2_dummy ** n != 1
+                        and (k1_dummy / k2_dummy) ** n != 1):
+                    break
 
-        pi_vals = [(-Fq(int(v))).n for v in x] + [0] * (n - len(x))
-        pi_coeffs = core.ntt_n.intt(be.from_ints(pi_vals))
+            pi_vals = [(-Fq(int(v))).n for v in x] + [0] * (n - len(x))
+            pi_coeffs = core.ntt_n.intt(be.from_ints(pi_vals))
 
-        # ----- Round 1 -----
-        b1, b2, b3, b4, b5, b6, b7, b8, b9 = [
-            self.rng.random_element(Fq) for _ in range(9)]
-        sc = lambda v: be.scalar(int(v))                    # noqa: E731
+            # ----- Round 1 -----
+            b1, b2, b3, b4, b5, b6, b7, b8, b9 = [
+                self.rng.random_element(Fq) for _ in range(9)]
+            sc = lambda v: be.scalar(int(v))                # noqa: E731
 
-        a_vals = be.from_ints(full_witness[:n])
-        b_vals = be.from_ints(full_witness[n:2 * n])
-        c_vals = be.from_ints(full_witness[2 * n:3 * n])
-        a_poly = core.wire_poly(a_vals, sc(b1), sc(b2))
-        b_poly = core.wire_poly(b_vals, sc(b3), sc(b4))
-        c_poly = core.wire_poly(c_vals, sc(b5), sc(b6))
-        t0 = self._phase("round1_wires", t0)
-        wire_commitments = self._commit_many(ck, [a_poly, b_poly, c_poly])
-        a_commit, b_commit, c_commit = wire_commitments
-        transcript.append_message("round1-commitments", wire_commitments)
-        t0 = self._phase("round1_commits_msm", t0)
+            a_vals = be.from_ints(full_witness[:n])
+            b_vals = be.from_ints(full_witness[n:2 * n])
+            c_vals = be.from_ints(full_witness[2 * n:3 * n])
+            a_poly = core.wire_poly(a_vals, sc(b1), sc(b2))
+            b_poly = core.wire_poly(b_vals, sc(b3), sc(b4))
+            c_poly = core.wire_poly(c_vals, sc(b5), sc(b6))
+        with self._phase("round1_commits_msm"):
+            wire_commitments = self._commit_many(ck, [a_poly, b_poly,
+                                                      c_poly])
+            a_commit, b_commit, c_commit = wire_commitments
+            transcript.append_message("round1-commitments", wire_commitments)
 
         # ----- Round 2 -----
-        beta = transcript.get_challenge("beta")
-        gamma = transcript.get_challenge("gamma")
-        z_poly = core.z_poly(a_vals, b_vals, c_vals,
-                             dev["sig1_vals"], dev["sig2_vals"],
-                             dev["sig3_vals"], sc(beta), sc(gamma), sc(k1),
-                             sc(k2), sc(b7), sc(b8), sc(b9))
-        t0 = self._phase("round2_grand_product", t0)
-        z_commit = self._commit_coeffs(ck, z_poly)
-        transcript.append_message("round2-commitment", z_commit)
-        t0 = self._phase("round2_commit_msm", t0)
+        with self._phase("round2_grand_product"):
+            beta = transcript.get_challenge("beta")
+            gamma = transcript.get_challenge("gamma")
+            z_poly = core.z_poly(a_vals, b_vals, c_vals,
+                                 dev["sig1_vals"], dev["sig2_vals"],
+                                 dev["sig3_vals"], sc(beta), sc(gamma),
+                                 sc(k1), sc(k2), sc(b7), sc(b8), sc(b9))
+        with self._phase("round2_commit_msm"):
+            z_commit = self._commit_coeffs(ck, z_poly)
+            transcript.append_message("round2-commitment", z_commit)
 
         # ----- Round 3 -----
-        alpha = transcript.get_challenge("alpha")
-        b10 = self.rng.random_element(Fq)
-        b11 = self.rng.random_element(Fq)
-        t_lo, t_mid, t_hi = core.round3(
-            a_poly, b_poly, c_poly, z_poly, pi_coeffs,
-            dev["qM4"], dev["qL4"], dev["qR4"], dev["qO4"], dev["qC4"],
-            dev["s14"], dev["s24"], dev["s34"],
-            sc(alpha), sc(beta), sc(gamma), sc(k1), sc(k2),
-            sc(b10), sc(b11))
-        t0 = self._phase("round3_quotient_ntt", t0)
-        t_commitments = self._commit_many(ck, [t_lo, t_mid, t_hi])
-        t_lo_commit, t_mid_commit, t_hi_commit = t_commitments
-        transcript.append_message("round3-commitments", t_commitments)
-        t0 = self._phase("round3_commits_msm", t0)
+        with self._phase("round3_quotient_ntt"):
+            alpha = transcript.get_challenge("alpha")
+            b10 = self.rng.random_element(Fq)
+            b11 = self.rng.random_element(Fq)
+            t_lo, t_mid, t_hi = core.round3(
+                a_poly, b_poly, c_poly, z_poly, pi_coeffs,
+                dev["qM4"], dev["qL4"], dev["qR4"], dev["qO4"], dev["qC4"],
+                dev["s14"], dev["s24"], dev["s34"],
+                sc(alpha), sc(beta), sc(gamma), sc(k1), sc(k2),
+                sc(b10), sc(b11))
+        with self._phase("round3_commits_msm"):
+            t_commitments = self._commit_many(ck, [t_lo, t_mid, t_hi])
+            t_lo_commit, t_mid_commit, t_hi_commit = t_commitments
+            transcript.append_message("round3-commitments", t_commitments)
 
         # ----- Round 4 -----
-        zeta = transcript.get_challenge("zeta")
-        zeta_i = int(zeta)
+        with self._phase("round4_evals"):
+            zeta = transcript.get_challenge("zeta")
+            zeta_i = int(zeta)
 
-        def ev(coeffs, pt):
-            return Fq(be.to_ints(core.eval_dev(coeffs, sc(pt)))[0])
+            def ev(coeffs, pt):
+                return Fq(be.to_ints(core.eval_dev(coeffs, sc(pt)))[0])
 
-        a_zeta = ev(a_poly, zeta_i)
-        b_zeta = ev(b_poly, zeta_i)
-        c_zeta = ev(c_poly, zeta_i)
-        s_sigma1_zeta = ev(dev["sig1_coeffs"], zeta_i)
-        s_sigma2_zeta = ev(dev["sig2_coeffs"], zeta_i)
-        z_omega_zeta = ev(z_poly, int(zeta * Fq(int(g))))
-        evaluations = [a_zeta, b_zeta, c_zeta, s_sigma1_zeta, s_sigma2_zeta,
-                       z_omega_zeta]
-        transcript.append_message("round4-evaluations", evaluations)
-        t0 = self._phase("round4_evals", t0)
+            a_zeta = ev(a_poly, zeta_i)
+            b_zeta = ev(b_poly, zeta_i)
+            c_zeta = ev(c_poly, zeta_i)
+            s_sigma1_zeta = ev(dev["sig1_coeffs"], zeta_i)
+            s_sigma2_zeta = ev(dev["sig2_coeffs"], zeta_i)
+            z_omega_zeta = ev(z_poly, int(zeta * Fq(int(g))))
+            evaluations = [a_zeta, b_zeta, c_zeta, s_sigma1_zeta,
+                           s_sigma2_zeta, z_omega_zeta]
+            transcript.append_message("round4-evaluations", evaluations)
 
         # ----- Round 5 -----
-        v = transcript.get_challenge("v")
-        r_poly = self._linearization(core, dev, z_poly, t_lo, t_mid, t_hi,
-                                     a_zeta, b_zeta, c_zeta, s_sigma1_zeta,
-                                     s_sigma2_zeta, z_omega_zeta,
-                                     alpha, beta, gamma, zeta,
-                                     Fq(int(k1)), Fq(int(k2)), pi_coeffs, n)
-        W_z = self._open(ck, core, [r_poly, a_poly, b_poly, c_poly,
-                                    dev["sig1_coeffs"], dev["sig2_coeffs"]],
-                         zeta_i, int(v))
-        W_zw = self._open(ck, core, [z_poly], int(zeta * Fq(int(g))), int(v))
-        t0 = self._phase("round5_openings", t0)
+        with self._phase("round5_openings"):
+            v = transcript.get_challenge("v")
+            r_poly = self._linearization(
+                core, dev, z_poly, t_lo, t_mid, t_hi, a_zeta, b_zeta,
+                c_zeta, s_sigma1_zeta, s_sigma2_zeta, z_omega_zeta, alpha,
+                beta, gamma, zeta, Fq(int(k1)), Fq(int(k2)), pi_coeffs, n)
+            W_z = self._open(ck, core, [r_poly, a_poly, b_poly, c_poly,
+                                        dev["sig1_coeffs"],
+                                        dev["sig2_coeffs"]],
+                             zeta_i, int(v))
+            W_zw = self._open(ck, core, [z_poly], int(zeta * Fq(int(g))),
+                              int(v))
 
         return {
             "commitments": {

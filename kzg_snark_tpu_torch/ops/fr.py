@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..config import checked_enabled
+from ..utils.build import count_sync
 from . import cuda_fr, scan
 from .limbs import (FieldConsts, ints_to_words, to_tensor, to_words,
                     words_to_ints)
@@ -254,6 +255,7 @@ def validate_canonical(backend: FieldBackend, x: torch.Tensor,
     # The most significant word that differs from p's decides x < p.
     top = torch.where(flat != p, rows, -1).amax(dim=0)
     below = (flat < p).gather(0, top.clamp(min=0)[None])[0] & (top >= 0)
+    count_sync("fr.checked")
     if not bool(below.all()):
         bad = int((~below).nonzero()[0, 0])
         value = words_to_ints(to_words(x.reshape(L, -1)[:, bad:bad + 1]))[0]

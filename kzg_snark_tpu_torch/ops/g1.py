@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.build import count_sync
+from ..utils.profiling import span
 from . import cuda_fr
 from .fr import CheckedFieldBackend, FieldBackend, fq_backend, \
     validate_canonical
@@ -62,15 +64,19 @@ class CurveOps:
         return torch.stack([x, y, self._ones(x.shape[1:])])
 
     def to_affine_ints(self, pts: torch.Tensor) -> list:
-        """(3, L, ...) -> list of (x, y) int tuples, None for the identity."""
-        f = self.f
-        flat = pts.reshape(3, self.num_limbs, -1)
-        X, Y, Z = flat[0], flat[1], flat[2]
-        zinv = f.inv(Z)
-        zinv2 = f.mul(zinv, zinv)
-        ax = f.to_ints(f.mul(X, zinv2))
-        ay = f.to_ints(f.mul(Y, f.mul(zinv2, zinv)))
-        inf = f.is_zero(Z).cpu().tolist()
+        """(3, L, ...) -> list of (x, y) int tuples, None for the identity:
+        three waits for the card (x, y and which points are the
+        identity)."""
+        with span("g1.to_affine"):
+            f = self.f
+            flat = pts.reshape(3, self.num_limbs, -1)
+            X, Y, Z = flat[0], flat[1], flat[2]
+            zinv = f.inv(Z)
+            zinv2 = f.mul(zinv, zinv)
+            ax = f.to_ints(f.mul(X, zinv2))
+            ay = f.to_ints(f.mul(Y, f.mul(zinv2, zinv)))
+            count_sync("g1.to_affine_ints")
+            inf = f.is_zero(Z).cpu().tolist()
         return [None if inf[i] else (ax[i], ay[i]) for i in range(len(ax))]
 
     def is_identity(self, pts: torch.Tensor) -> torch.Tensor:

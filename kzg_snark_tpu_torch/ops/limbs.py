@@ -20,6 +20,9 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.build import count_sync
+from ..utils.profiling import span
+
 LIMB_BITS = 32
 LIMB_COUNTS = (8, 12)       # the widths the kernels are instantiated at
 SCALAR_LIMBS = 8            # Fr of both curves (at most 255 bits)
@@ -55,14 +58,20 @@ def words_to_ints(words: np.ndarray) -> list[int]:
 
 
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
-    """uint32 limb matrix -> int32 tensor (same bits) on ``device``."""
-    arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    """uint32 limb matrix -> int32 tensor (same bits) on ``device``; to a
+    card, a blocking copy."""
+    with span("fr.to_device"):
+        arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+        count_sync("limbs.to_tensor")
+        return torch.from_numpy(arr.copy()).to(device)
 
 
 def to_words(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> uint32 numpy array with the same bits."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+    """int32 tensor -> uint32 numpy array with the same bits: the host
+    waits for the tensor."""
+    with span("fr.to_host"):
+        count_sync("limbs.to_words")
+        return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
 class FieldConsts:

@@ -16,6 +16,12 @@ for the H100 (``csrc/msm_kernels.cu``, ``csrc/msm.cuh``):
    totals (a halving tree) and the Horner fold over windows, one warp a
    scalar set (a second launch).
 
+While a profiler records, ``FusedMsm`` opens a span a step:
+``msm.table`` (the point table), ``msm.schedule`` (1 and 2),
+``msm.accumulate`` (3) and ``msm.reduce`` (4).  The schedule makes the host
+wait for the card four times a call, each counted (``count_sync``): the
+nonzero digits' count, ``bincount``'s min and max, and the chunk totals.
+
 Each kernel has its plain PyTorch version here, with the same task list
 and combine order, so the two give the same Jacobian representatives.  A
 wrapper takes the plain version only for CPU tensors; for CUDA tensors it
@@ -56,7 +62,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import env_complete_add
-from ..utils.build import check, count_launch, cuda_lib
+from ..utils.build import check, count_launch, count_sync, cuda_lib
+from ..utils.profiling import span
 from . import cuda_fr
 from .fr import canonical_device, fr_backend
 from .g1 import curve_ops
@@ -219,6 +226,7 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
             f"(point_ranges)")
     dev = digits.device
     flat = digits.reshape(-1)
+    count_sync("msm.nonzero")
     sel = torch.nonzero(flat & MAG_MASK).squeeze(1)     # (set, window, i)
     d = flat[sel].to(torch.int64)
     key = ((sel // n) * half + (d & MAG_MASK) - 1).to(torch.int32)
@@ -226,10 +234,13 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
     keys, perm = torch.sort(key, stable=True)
     entries = payload[perm]
     nb = k * W * half
+    # On the card bincount reads its input's min and max on the host.
+    count_sync("msm.bincount", 2)
     counts = torch.bincount(keys, minlength=nb)
     per = (counts + chunk - 1) // chunk
     bco = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
     per_window = bco[half::half] - bco[:-1:half]
+    count_sync("msm.tolist")
     chunks, busiest = torch.stack([bco[-1], per_window.max()]).tolist()
     bucket = torch.repeat_interleave(
         torch.arange(nb, device=dev), per, output_size=chunks)
@@ -502,10 +513,11 @@ class FusedMsm:
 
     def schedule(self, scalars: torch.Tensor, n: int):
         """(8, n) or (k, 8, n) canonical limbs -> (k, c, W, schedule)."""
-        sets = scalars if scalars.dim() == 3 else scalars[None]
-        c = window_bits(n)
-        dig = signed_digits(sets, self.total_bits, c)
-        return sets.shape[0], c, dig.shape[1], bucket_schedule(dig, c)
+        with span("msm.schedule"):
+            sets = scalars if scalars.dim() == 3 else scalars[None]
+            c = window_bits(n)
+            dig = signed_digits(sets, self.total_bits, c)
+            return sets.shape[0], c, dig.shape[1], bucket_schedule(dig, c)
 
     def prepare_points(self, points: torch.Tensor) -> torch.Tensor:
         """(3, L, n) with Z = 1 on this context's device -> the (n, 2 L)
@@ -520,7 +532,8 @@ class FusedMsm:
         if points.device != self.device:
             raise ValueError(f"prepare_points: points on {points.device}, "
                              f"the context on {self.device}")
-        return point_table(points)
+        with span("msm.table"):
+            return point_table(points)
 
     def msm_prepared(self, table: torch.Tensor, scalars: torch.Tensor,
                      complete: bool | None = None) -> torch.Tensor:
@@ -545,10 +558,12 @@ class FusedMsm:
     def _bucket_msm(self, table, sets, complete: bool) -> torch.Tensor:
         k, c, W, sched = self.schedule(sets, table.shape[0])
         fc = self.curve.f.consts
-        partials = msm_accumulate(fc, table, sched.entries, sched.chunk_off,
-                                  complete)
-        return msm_reduce(fc, partials, sched.bucket_chunks, k, W, c,
-                          sched.window_threads)
+        with span("msm.accumulate"):
+            partials = msm_accumulate(fc, table, sched.entries,
+                                      sched.chunk_off, complete)
+        with span("msm.reduce"):
+            return msm_reduce(fc, partials, sched.bucket_chunks, k, W, c,
+                              sched.window_threads)
 
     def msm(self, points: torch.Tensor, scalars: torch.Tensor,
             complete: bool | None = None) -> torch.Tensor:

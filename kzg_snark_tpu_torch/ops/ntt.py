@@ -20,7 +20,9 @@ JAX package's XLA-only "gather" and "unrolled", or any other value, raise):
   a batch is one launch a stage, its rows side by side).
 
 The n^-1 scale and coset shifts are K1 products.  Values are exact, so
-both modes give equal output.
+both modes give equal output.  Under a profiler each public transform is
+a span, ``ntt.<method>`` (``ntt.intt``, ``ntt.coset_ntt``, ...; a coset
+transform holds the plain one's span).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import functools
 import torch
 
 from ..config import NTT_MODE_VAR, env_ntt_mode
+from ..utils.profiling import span
 from .fr import FieldBackend, canonical_device, fr_backend
 from .ntt_stage import fr_butterfly, staged_transform
 
@@ -101,13 +104,15 @@ class NttContext:
             ) -> torch.Tensor:
         """Evaluate: out[..., i] = p(w^i).  coeffs (8, ..., n) Montgomery
         form; ``mode`` as ``resolve_mode``."""
-        return self._transform(coeffs, True, mode)
+        with span("ntt.ntt"):
+            return self._transform(coeffs, True, mode)
 
     def intt(self, evals: torch.Tensor, mode: str | None = None
              ) -> torch.Tensor:
         """Interpolate: inverse transform scaled by n^-1."""
-        out = self._transform(evals, False, mode)
-        return self.backend.mul(out, _over(self.n_inv, out))
+        with span("ntt.intt"):
+            out = self._transform(evals, False, mode)
+            return self.backend.mul(out, _over(self.n_inv, out))
 
     # -- scan mode (K10) -------------------------------------------------
     def _bitrev_2d(self, values: torch.Tensor) -> torch.Tensor:
@@ -166,14 +171,16 @@ class NttContext:
 
     def coset_ntt(self, coeffs: torch.Tensor, shift: int) -> torch.Tensor:
         """Evaluate on the coset shift * H: NTT of coeffs[i] * shift^i."""
-        return self.ntt(self.backend.mul(
-            coeffs, _over(self._shift_powers(shift), coeffs)))
+        with span("ntt.coset_ntt"):
+            return self.ntt(self.backend.mul(
+                coeffs, _over(self._shift_powers(shift), coeffs)))
 
     def coset_intt(self, evals: torch.Tensor, shift: int) -> torch.Tensor:
-        inv_shift = pow(shift, -1, self.backend.modulus)
-        out = self.intt(evals)
-        return self.backend.mul(out,
-                                _over(self._shift_powers(inv_shift), out))
+        with span("ntt.coset_intt"):
+            inv_shift = pow(shift, -1, self.backend.modulus)
+            out = self.intt(evals)
+            return self.backend.mul(
+                out, _over(self._shift_powers(inv_shift), out))
 
     def _shift_powers(self, c: int) -> torch.Tensor:
         cache = self.__dict__.setdefault("_shift_cache", {})

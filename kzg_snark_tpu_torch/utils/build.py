@@ -23,7 +23,10 @@ Every kernel wrapper calls :func:`count_launch` where it launches, so a run
 can show which kernels its main path went through, over how many elements
 or points (:func:`launch_widths`) and at which limb count
 (:func:`launch_limbs`).  The multi-device layer counts its collectives
-beside them (:func:`count_collective`, :func:`collective_counts`).
+beside them (:func:`count_collective`, :func:`collective_counts`), and
+every place where the host waits for the card (a blocking copy, a value
+read back, a synchronize) counts its waits under its site's name
+(:func:`count_sync`, :func:`sync_counts`).
 """
 
 from __future__ import annotations
@@ -119,6 +122,8 @@ LAUNCH_LIMBS: collections.Counter = collections.Counter()
 # collective -> calls and bytes that crossed between ranks (parallel/mesh).
 COLLECTIVES: collections.Counter = collections.Counter()
 COLLECTIVE_BYTES: collections.Counter = collections.Counter()
+# site -> host waits on the device.
+SYNCS: collections.Counter = collections.Counter()
 
 
 def _width_class(width: int) -> str:
@@ -144,17 +149,30 @@ def count_collective(name: str, nbytes: int) -> None:
     COLLECTIVE_BYTES[name] += nbytes
 
 
+def count_sync(site: str, waits: int = 1) -> None:
+    """Count ``waits`` host waits on the device at ``site``.  Counted where
+    the site is passed, whatever the device, so a CPU run counts what a
+    card's run would wait for."""
+    SYNCS[site] += waits
+
+
 def reset_launches() -> None:
-    """Set the launch counts and the collective counts to 0."""
+    """Set the launch, collective and sync counts to 0."""
     LAUNCHES.clear()
     LAUNCH_WIDTHS.clear()
     LAUNCH_LIMBS.clear()
     COLLECTIVES.clear()
     COLLECTIVE_BYTES.clear()
+    SYNCS.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def sync_counts() -> dict[str, int]:
+    """{site: host waits} since the last reset."""
+    return dict(SYNCS)
 
 
 def collective_counts() -> dict[str, dict[str, int]]:

@@ -1,11 +1,18 @@
-"""Phase timing and device traces.
+"""Phase timing, spans and device traces.
 
 The port's counterpart of the JAX package's ``utils/profiling.py``:
-``PhaseTimer`` accumulates wall time per named phase, ``device_trace``
-writes a ``torch.profiler`` Chrome trace of the card's kernels, and
-``timed`` takes the best of a few calls.  Work on the card is asynchronous,
-so each waits for it: a CUDA tensor synchronizes its device, and anything
-with ``block_until_ready`` is waited on as the JAX utilities do.
+``PhaseTimer`` accumulates wall time per named phase and ``device_trace``
+writes a ``torch.profiler`` Chrome trace of the card's kernels.  Work on
+the card is asynchronous, so both wait for it: a CUDA tensor synchronizes
+its device, and anything with ``block_until_ready`` is waited on as the
+JAX utilities do.
+
+``span(name)`` marks a step of the port (``msm.schedule``, ``kzg.open``,
+``plonk.round1_wires``, ...) for whoever profiles it: while a torch
+profiler records it is a ``record_function`` range, so the step, its
+nesting and the device work launched inside it land in the profiler's
+trace on one clock; otherwise it is a shared no-op that neither reads a
+clock nor waits for the device.
 """
 
 from __future__ import annotations
@@ -17,6 +24,21 @@ import time
 from collections import defaultdict
 
 import torch
+
+
+# The shared span of a run that no profiler records.
+_NO_SPAN = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context over one step named ``<layer>.<step>``: a
+    ``record_function`` range while a torch profiler records, else the
+    shared no-op context (no range object, no clock read).  It keeps no
+    totals: the trace holds each range's start, end and parent."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def block(result) -> None:
@@ -75,14 +97,3 @@ def device_trace(logdir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
-
-def timed(fn, *args, reps: int = 3, **kwargs):
-    """(best seconds, result) over ``reps`` calls, each waited for."""
-    result = None
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        result = fn(*args, **kwargs)
-        block(result)
-        best = min(best, time.perf_counter() - t0)
-    return best, result

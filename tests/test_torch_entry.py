@@ -8,7 +8,7 @@ without ``--synthetic`` the Marlin and PLONK demos fail by the file's name
 (or, with no ``--fixtures``, by the missing argument) and the exit code is
 1.  ``PhaseTimer`` counts and totals phases and
 waits for the work it is given; ``device_trace`` writes a Chrome trace on
-the CPU; ``timed`` keeps the best of its calls.
+the CPU.
 """
 
 import json
@@ -19,8 +19,7 @@ import pytest
 import torch
 
 from kzg_snark_tpu_torch.__main__ import main
-from kzg_snark_tpu_torch.utils.profiling import PhaseTimer, device_trace, \
-    timed
+from kzg_snark_tpu_torch.utils.profiling import PhaseTimer, device_trace
 
 torch.set_num_threads(1)
 
@@ -103,14 +102,3 @@ def test_device_trace_writes_a_trace(tmp_path):
     with open(os.path.join(logdir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("cumsum" in str(e.get("name", "")) for e in events)
-
-
-def test_timed_keeps_the_best():
-    calls = []
-
-    def fn(v):
-        calls.append(v)
-        return torch.full((2,), v)
-    best, result = timed(fn, 5, reps=4)
-    assert calls == [5] * 4 and torch.equal(result, torch.full((2,), 5))
-    assert 0 <= best < 1
