@@ -48,6 +48,13 @@ Phases, in order, one printed line or block each:
                  all-equal, one-nonzero scalars and k = 9 sets; the times of
                  its stages, the launches of one MSM, its operation bounds,
                  and MSM time by window width c at 2^11..2^18 points
+  schedule       the bucket MSM's schedule kernels (msm_digits, msm_sort,
+                 msm_bucket_offsets) at the benchmark cells' MSMs (BN254
+                 2^20 with k = 8 and 1, BLS12-381 4096 with k = 9): equal
+                 to bucket_schedule(signed_digits) field by field; each
+                 step's device ms beside its bytes' bound, the whole
+                 schedule beside the plain torch one, msm_sort beside
+                 torch.sort(stable=True) of the same keys and its gather
   msm_prepared   the bucket-route MSM through FusedMsm.prepare_points and
                  msm_prepared: BN254 at 2^16 and 2^20 (the 2^18 basis
                  tiled, complete adds), BLS12-381 at 2^16, k = 1 and 8
@@ -1926,9 +1933,9 @@ def phase_msm(torch, dev, paths, rates):
         f"({prod7:.4g} products, its reduction not counted)")
 
     # MSM time by c and n: the kernels alone (accumulate and reduce on a
-    # ready schedule, device ms) and the whole route (wall ms); the
-    # schedule's time and memory at 2^18 points (Marlin's largest commit
-    # slice).
+    # ready schedule, device ms) and the whole route (msm_schedule and the
+    # kernels, wall ms); the schedule's time and memory at 2^18 points
+    # (Marlin's largest commit slice).
     for lg in MSM_TABLE_LOG_N:
         m = 1 << lg
         xy_m = mk.point_table(big[..., :m])
@@ -1947,11 +1954,11 @@ def phase_msm(torch, dev, paths, rates):
                 return mk.msm_reduce(fq, p_, s_.bucket_chunks, 1, W_, cc,
                                      s_.window_threads)
 
-            def route(cc=cc):
-                s2, W2, _ = bucket_schedule(torch, sets, cc)
+            def route(cc=cc, W_=W_):
+                s2 = mk.msm_schedule(sets, 254, cc)
                 p_ = mk.msm_accumulate(fq, xy_m, s2.entries, s2.chunk_off,
                                        False)
-                return mk.msm_reduce(fq, p_, s2.bucket_chunks, 1, W2, cc,
+                return mk.msm_reduce(fq, p_, s2.bucket_chunks, 1, W_, cc,
                                      s2.window_threads)
             aff = ctx.curve.to_affine_ints(kernels())
             if want is not None and aff != want:
@@ -1966,10 +1973,10 @@ def phase_msm(torch, dev, paths, rates):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            s_, _, _ = bucket_schedule(torch, sets)
+            s_ = mk.msm_schedule(sets, 254, c0)
             peak = torch.cuda.max_memory_allocated() - base
-            d, w = timed_ms(torch, lambda: bucket_schedule(torch, sets), 3)
-            log(f"[msm] 2^{lg} schedule (digits, sort of "
+            d, w = timed_ms(torch, lambda: mk.msm_schedule(sets, 254, c0), 3)
+            log(f"[msm] 2^{lg} schedule (msm_schedule: digits, sort of "
                 f"{s_.entries.numel()} keys, chunks): device {d:.3f} ms, "
                 f"wall {w:.3f} ms, peak memory above the inputs {peak} "
                 f"bytes")
@@ -1987,6 +1994,101 @@ def phase_msm(torch, dev, paths, rates):
             row.append(f"events {ev}: {d:.3f}")
         log(f"[msm] 2^{MAIN_LOG_N}, T = {T} (kernels device ms): "
             + ", ".join(row))
+
+
+# The benchmark cells' MSMs: (name, curve, sets, log2 n).
+SCHEDULE_SHAPES = (("kzg2e20 commit", "bn254", 8, 20),
+                   ("kzg2e20 proof", "bn254", 1, 20),
+                   ("blob4844 commit / proof", "bls12_381", 9, 12))
+
+
+def schedule_bytes(plan, entries: int, chunks: int) -> dict:
+    """Bytes each step of the schedule reads and writes at least, each
+    input read once and each output written once: the digits the scalars
+    (32 B a point a set) and 8 B a digit; a sort pass 8 B an entry in (the
+    first pass every digit, a later one E) and 8 B an entry out; the
+    offsets the E sorted keys and the bucket and chunk offsets."""
+    M, E = plan.digits, entries
+    sort = [8 * (M if p == 0 else E) + 8 * E
+            for p in range(len(plan.passes))]
+    return {"digits": 32 * plan.sets * plan.n + 8 * M, "sort": sum(sort),
+            "offsets": 4 * E + 4 * (plan.buckets + 1) + 4 * (chunks + 1)}
+
+
+def schedule_launches(msms) -> dict:
+    """The schedule kernels' launches for MSMs of (sets, points, scalar
+    bits) each: msm_digits once, msm_sort 3 a pass, msm_bucket_offsets 4."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    out = collections.Counter()
+    for k, n, bits in msms:
+        c = mk.window_bits(n)
+        plan = mk.schedule_plan(k, n, mk.num_windows(bits, c), c)
+        out["msm_digits"] += 1
+        out["msm_sort"] += 3 * len(plan.passes)
+        out["msm_bucket_offsets"] += 4
+    return dict(out)
+
+
+def phase_schedule(torch, dev, rates) -> None:
+    """The schedule's kernels at the benchmark cells' shapes (random
+    canonical scalars): msm_schedule equal to bucket_schedule(signed_digits)
+    field by field; device ms of msm_digits, msm_sort (digits and sort
+    less the digits) and msm_bucket_offsets, each beside its bytes' bound,
+    and of the whole msm_schedule (its one wait included in the wall ms)
+    beside the plain torch schedule; torch.sort(stable=True) of the same
+    nonzero int32 keys with its payload gather beside msm_sort."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.fr import fr_backend
+    for name, curve, k, lg in SCHEDULE_SHAPES:
+        n = 1 << lg
+        bits = fr_backend(curve, dev).modulus.bit_length()
+        c = mk.window_bits(n)
+        plan = mk.schedule_plan(k, n, mk.num_windows(bits, c), c)
+        sets = torch.stack([random_canonical(torch, n, 9700 + lg + j, dev)
+                            for j in range(k)])
+        got = mk.msm_schedule(sets, bits, c)
+        want = mk.bucket_schedule(mk.signed_digits(sets, bits, c), c)
+        for field in ("entries", "chunk_off", "bucket_chunks"):
+            if not torch.equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"schedule {name}: {field} differs "
+                                     f"from bucket_schedule")
+        if got.window_threads != want.window_threads:
+            raise AssertionError(f"schedule {name}: reduce threads differ")
+        E, C = got.entries.numel(), got.chunk_off.numel() - 1
+        keys, pay, _ = mk.msm_digits(sets, plan)
+        live = keys >= 0
+        nz_keys, nz_pay = keys[live], pay[live]
+        sorted_keys, _, base = mk.msm_sort(*mk.msm_digits(sets, plan), plan)
+        del keys, pay, live
+        t = {"digits": timed_ms(torch, lambda: mk.msm_digits(sets, plan), 5),
+             "digits + sort": timed_ms(torch, lambda: mk.msm_sort(
+                 *mk.msm_digits(sets, plan), plan), 5),
+             "offsets": timed_ms(torch, lambda: mk.msm_bucket_offsets(
+                 sorted_keys, base, plan), 5),
+             "schedule": timed_ms(torch, lambda: mk.msm_schedule(
+                 sets, bits, c), 5),
+             "plain torch schedule": timed_ms(
+                 torch, lambda: mk.bucket_schedule(
+                     mk.signed_digits(sets, bits, c), c), 3),
+             "torch.sort + gather": timed_ms(torch, lambda: nz_pay[torch.sort(
+                 nz_keys, stable=True)[1]], 5)}
+        sort_ms = t["digits + sort"][0] - t["digits"][0]
+        nbytes = schedule_bytes(plan, E, C)
+        bounds = {step: b / rates["bytes"] * 1e3 for step, b in nbytes.items()}
+        log(f"[schedule] {name}: k = {k}, n = 2^{lg}, c = {c}, W = "
+            f"{plan.windows}, passes {list(plan.passes)}, tile {plan.tile} x "
+            f"{plan.tiles}, E = {E}, C = {C}: == bucket_schedule; device ms "
+            f"(bytes' bound ms): msm_digits {t['digits'][0]:.4f} "
+            f"({bounds['digits']:.4f}), msm_sort {sort_ms:.4f} "
+            f"({bounds['sort']:.4f}), msm_bucket_offsets "
+            f"{t['offsets'][0]:.4f} ({bounds['offsets']:.4f}); msm_schedule "
+            f"{t['schedule'][0]:.4f} device, {t['schedule'][1]:.4f} wall "
+            f"(bound {sum(bounds.values()):.4f}); the plain torch schedule "
+            f"{t['plain torch schedule'][0]:.4f} device, "
+            f"{t['plain torch schedule'][1]:.4f} wall; torch.sort(stable) of "
+            f"the E int32 keys and the payload gather "
+            f"{t['torch.sort + gather'][0]:.4f} against msm_sort "
+            f"{sort_ms:.4f}")
 
 
 PREPARED_LOG_N = (16, 20)       # BN254 sizes of the prepared MSM checks
@@ -2101,7 +2203,9 @@ def phase_msm_prepared(torch, dev, paths):
                                                              ks):
             raise AssertionError(f"msm_prepared {curve} 2^{lg} k = {k} "
                                  f"differs from the host oracle")
-    want = {"msm_accumulate": len(inputs), "msm_reduce": 2 * len(inputs)}
+    want = {"msm_accumulate": len(inputs), "msm_reduce": 2 * len(inputs),
+            **schedule_launches([(k_, 1 << lg_, fused[c_].total_bits)
+                                 for c_, lg_, k_ in inputs])}
     if paths["msm_prepared"] != want:
         raise AssertionError(f"the msm_prepared path launched "
                              f"{paths['msm_prepared']}, expected {want}")
@@ -2146,7 +2250,9 @@ def phase_msm_prepared(torch, dev, paths):
                                  f"the unsplit one or the oracle")
         launches = paths[f"msm_prepared_split_k{k}"]
         want = {"msm_accumulate": len(ranges),
-                "msm_reduce": 2 * len(ranges), "g1_add": len(ranges) - 1}
+                "msm_reduce": 2 * len(ranges), "g1_add": len(ranges) - 1,
+                **schedule_launches([(k, b - a, fm.total_bits)
+                                     for a, b in ranges])}
         if launches != want:
             raise AssertionError(f"the split MSM k = {k} launched "
                                  f"{launches}, expected {want}")
@@ -3518,6 +3624,7 @@ def main() -> int:
     phase_chains(torch, dev, results, rates)
     phase_ntt(torch, dev, paths, rates)
     phase_msm(torch, dev, paths, rates)
+    phase_schedule(torch, dev, rates)
     phase_msm_prepared(torch, dev, paths)
     phase_parity(dev)
     main_run = phase_main(torch, dev, paths)

@@ -3,8 +3,9 @@
 Counterpart of ``kzg_snark_tpu/ops/msm.py``.  ``MsmContext.msm`` routes on
 the number of points n as the JAX ``MsmContext`` does:
 
-* n >= 2048: the sorted-bucket kernels (``ops/msm_kernel.py``:
-  ``msm_accumulate``, K8, and ``msm_reduce``);
+* n >= 2048: the sorted-bucket kernels (``ops/msm_kernel.py``: the
+  schedule's ``msm_digits``, ``msm_sort`` and ``msm_bucket_offsets``,
+  then ``msm_accumulate``, K8, and ``msm_reduce``);
 * n <= 256: bit-serial double-and-add (the JAX ``_small_msm_core``, its
   representatives), the whole ladder and its halving tree in one
   ``g1_ladder`` launch (K7 with K6's add);

@@ -1,14 +1,19 @@
 """Pippenger MSM of the bucket route (n >= 2048): sorted buckets on the card.
 
 Counterpart of ``kzg_snark_tpu/ops/msm_kernel.py`` ``FusedMsm``, redesigned
-for the H100 (``csrc/msm_kernels.cu``, ``csrc/msm.cuh``):
+for the H100 (``csrc/msm_schedule_kernels.cu``, ``csrc/msm_kernels.cu``,
+``csrc/msm.cuh``):
 
-1. signed c-bit window digits for all windows at once (``signed_digits``),
-   c by n (``window_bits``, a measured table), encoded mag | sign << 16;
-2. the schedule (``bucket_schedule``, plain torch glue): zero digits
-   dropped, the rest sorted by bucket key (set, window, mag - 1) with a
-   stable sort, bucket offsets by ``bincount`` / ``cumsum``, each bucket's
-   run cut into chunks of at most ``CHUNK`` entries;
+1. ``msm_digits``: one pass from the scalars to signed c-bit window digits
+   (c by n, ``window_bits``, a measured table), each written as an int32
+   sort key (set, window, mag - 1), -1 for a zero digit, and a payload
+   point index << 1 | sign, with the first sort pass's tile histograms;
+2. the schedule: ``msm_sort``, stable counting passes by magnitude inside
+   each (set, window) segment (``SchedulePlan.passes``: one of c - 1 bits
+   up to c = 10, two above), the first dropping the zero digits; then
+   ``msm_bucket_offsets``: each bucket's count from its run in the sorted
+   keys, its run cut into chunks of at most ``CHUNK`` entries, the chunk
+   offsets written a bucket a thread;
 3. ``msm_accumulate`` (K8): one thread a chunk mixed-adds its points into a
    Jacobian accumulator in registers and writes one partial;
 4. ``msm_reduce`` (in place of the K6 / K7 chains): window sums
@@ -16,16 +21,22 @@ for the H100 (``csrc/msm_kernels.cu``, ``csrc/msm.cuh``):
    totals (a halving tree) and the Horner fold over windows, one warp a
    scalar set (a second launch).
 
+``msm_schedule`` runs 1 and 2; its plan comes from the shapes alone
+(``schedule_plan``).  It gives what ``bucket_schedule(signed_digits(...))``,
+the plain torch reference of the same steps, gives: the same entries, chunk
+offsets, bucket chunk offsets and reduce threads.
+
 While a profiler records, ``FusedMsm`` opens a span a step:
 ``msm.table`` (the point table), ``msm.schedule`` (1 and 2),
 ``msm.accumulate`` (3) and ``msm.reduce`` (4).  The schedule makes the host
-wait for the card four times a call, each counted (``count_sync``): the
-nonzero digits' count, ``bincount``'s min and max, and the chunk totals.
+wait for the card once a call, counted (``count_sync("msm.tolist")``): the
+chunk total C, the busiest window's chunks and the entry count E, read
+together, which the accumulate's grid and the reduce's threads need.
 
 Each kernel has its plain PyTorch version here, with the same task list
-and combine order, so the two give the same Jacobian representatives.  A
-wrapper takes the plain version only for CPU tensors; for CUDA tensors it
-launches its kernel or raises.
+and combine order, so the two give the same Jacobian representatives and
+the same schedule words.  A wrapper takes the plain version only for CPU
+tensors; for CUDA tensors it launches its kernel or raises.
 
 ``complete=False`` uses the incomplete mixed add in the accumulate, sound
 for duplicate-free unstructured bases (SRS powers, ``random_point_basis``);
@@ -46,8 +57,8 @@ bounded by B = k W max(n, 2^(c-1)) for k sets of W windows over n points:
 ``entries`` holds index << 1 | sign < 2 n <= B (W >= 16); ``chunk_off``
 holds entry offsets up to E, the nonzero digits, at most k W n; the
 bucket keys and ``bucket_chunks`` stay below k W 2^(c-1) buckets and C <= E
-chunks.  ``bucket_schedule`` raises ValueError when B exceeds
-``MAX_SCHEDULE_ENTRIES`` (2^31 - 1), so no cast can wrap, and
+chunks.  ``schedule_plan`` and ``bucket_schedule`` raise ValueError when B
+exceeds ``MAX_SCHEDULE_ENTRIES`` (2^31 - 1), so no cast can wrap, and
 ``msm_prepared`` cuts an MSM into contiguous point ranges whose own B
 stays at or under it (``point_ranges``, from the shapes alone): each range
 is its own schedule, accumulate and reduce over a row slice of the table,
@@ -78,6 +89,8 @@ MAX_FOLD_PARTIALS = 256     # most block partials a set of the fold launch
 MAG_MASK = 0xFFFF
 SIGN_SHIFT = 16
 MAX_SCHEDULE_ENTRIES = 2 ** 31 - 1  # bound of the schedule's int32 arrays
+SORT_TILES = (512, 4096)    # least and most entries a tile of the sort
+MAX_PASS_BITS = 9           # key bits a counting pass sorts by: 512 bins
 
 
 # Window width c by log2 n: the c of least kernel time (accumulate and
@@ -206,27 +219,39 @@ def _pow2_floor(x: int) -> int:
     return 1 << (max(int(x), 1).bit_length() - 1)
 
 
-def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
-                    events_per_thread: int = EVENTS_PER_THREAD
-                    ) -> BucketSchedule:
-    """Digits (k, W, n) -> the schedule of the accumulate and the reduce.
-    The reduce threads a window follow the busiest window: its chunks
-    plus its 2^(c-1) steps over ``events_per_thread``.  Raises ValueError
-    when ``schedule_bound`` exceeds ``MAX_SCHEDULE_ENTRIES``: the int32
-    arrays would wrap (``point_ranges`` splits such an MSM)."""
-    k, W, n = digits.shape
-    half = 1 << (c - 1)
+def _check_bound(k: int, W: int, n: int, c: int, name: str) -> None:
     bound = schedule_bound(k, n, W, c)
     if bound > MAX_SCHEDULE_ENTRIES:
         raise ValueError(
-            f"bucket_schedule: {k} sets x {W} windows x {n} points give up "
-            f"to E = {k * W * n} entries ({k * W * half} buckets), bound "
+            f"{name}: {k} sets x {W} windows x {n} points give up "
+            f"to E = {k * W * n} entries ({k * W << (c - 1)} buckets), bound "
             f"{bound} > MAX_SCHEDULE_ENTRIES = {MAX_SCHEDULE_ENTRIES}: the "
             f"int32 schedule would wrap; split the points into ranges "
             f"(point_ranges)")
+
+
+def _window_threads(busiest: int, half: int, events_per_thread: int) -> int:
+    """Reduce threads a window: the busiest window's chunks plus its
+    2^(c-1) steps over ``events_per_thread``, a power of two."""
+    return min(_pow2_floor((busiest + half) // events_per_thread),
+               MAX_WINDOW_THREADS)
+
+
+def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
+                    events_per_thread: int = EVENTS_PER_THREAD
+                    ) -> BucketSchedule:
+    """Digits (k, W, n) -> the schedule of the accumulate and the reduce,
+    in plain torch: the reference ``msm_schedule`` is held to, on no path
+    of the port (on the card it waits for the host four times: the nonzero
+    count, ``bincount``'s min and max, the totals).  The reduce threads a
+    window follow the busiest window (``_window_threads``).  Raises
+    ValueError when ``schedule_bound`` exceeds ``MAX_SCHEDULE_ENTRIES``:
+    the int32 arrays would wrap (``point_ranges`` splits such an MSM)."""
+    k, W, n = digits.shape
+    half = 1 << (c - 1)
+    _check_bound(k, W, n, c, "bucket_schedule")
     dev = digits.device
     flat = digits.reshape(-1)
-    count_sync("msm.nonzero")
     sel = torch.nonzero(flat & MAG_MASK).squeeze(1)     # (set, window, i)
     d = flat[sel].to(torch.int64)
     key = ((sel // n) * half + (d & MAG_MASK) - 1).to(torch.int32)
@@ -234,13 +259,10 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
     keys, perm = torch.sort(key, stable=True)
     entries = payload[perm]
     nb = k * W * half
-    # On the card bincount reads its input's min and max on the host.
-    count_sync("msm.bincount", 2)
     counts = torch.bincount(keys, minlength=nb)
     per = (counts + chunk - 1) // chunk
     bco = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
     per_window = bco[half::half] - bco[:-1:half]
-    count_sync("msm.tolist")
     chunks, busiest = torch.stack([bco[-1], per_window.max()]).tolist()
     bucket = torch.repeat_interleave(
         torch.arange(nb, device=dev), per, output_size=chunks)
@@ -248,10 +270,273 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
     start = torch.cumsum(counts, 0) - counts
     chunk_off = torch.cat([start[bucket] + rank * chunk,
                            start.new_full((1,), sel.numel())])
-    threads = _pow2_floor((busiest + half) // events_per_thread)
     return BucketSchedule(entries, chunk_off.to(torch.int32),
                           bco.to(torch.int32),
-                          min(threads, MAX_WINDOW_THREADS))
+                          _window_threads(busiest, half, events_per_thread))
+
+
+# ---------------------------------------------------------------------------
+# The schedule's kernels: digits, counting sort, bucket offsets.
+# ---------------------------------------------------------------------------
+
+
+class SchedulePlan(NamedTuple):
+    """The shapes of one schedule's kernels, from the MSM's shapes alone.
+
+    A segment is one (set, window)'s n digits; its sort keys are
+    (set W + window) 2^(c-1) + mag - 1, so the c - 1 low bits order a
+    segment's buckets.  ``passes``: the stable counting passes over those
+    bits, lowest digit first, each (shift, bits), at most
+    ``MAX_PASS_BITS`` bits (512 bins) a pass.  ``tile``: entries a tile,
+    one block of each kernel, an eighth of n rounded up to a power of two
+    within ``SORT_TILES`` (so a small n still spreads over the SMs);
+    ``tiles`` a segment.
+    """
+    sets: int
+    windows: int
+    n: int
+    c: int
+    passes: tuple
+    tile: int
+    tiles: int
+
+    @property
+    def segments(self) -> int:
+        return self.sets * self.windows
+
+    @property
+    def half(self) -> int:
+        return 1 << (self.c - 1)
+
+    @property
+    def buckets(self) -> int:
+        return self.segments * self.half
+
+    @property
+    def digits(self) -> int:
+        """Entries of the key and payload buffers: every digit, zero or
+        not."""
+        return self.segments * self.n
+
+    @property
+    def chunk_capacity(self) -> int:
+        """Entries of the chunk offsets' buffer: C + 1 for any digits.  A
+        bucket of m entries makes ceil(m / CHUNK) <= m / CHUNK + 1 chunks,
+        and every chunk holds an entry."""
+        m = self.digits
+        return min(m, m // CHUNK + min(m, self.buckets)) + 1
+
+
+def schedule_plan(sets: int, n: int, windows: int, c: int) -> SchedulePlan:
+    """The plan of k = ``sets`` sets of W = ``windows`` c-bit windows over
+    n points: as few passes as keep each at ``MAX_PASS_BITS`` bits or less,
+    the low pass taking the odd bit; the tile by n.  Raises ValueError past
+    ``MAX_SCHEDULE_ENTRIES`` (``bucket_schedule``'s bound)."""
+    if not 2 <= c <= MAX_WINDOW_BITS:
+        raise ValueError(f"window width {c} outside 2..{MAX_WINDOW_BITS}")
+    _check_bound(sets, windows, n, c, "msm_schedule")
+    bits = c - 1
+    count = -(-bits // MAX_PASS_BITS)
+    passes, shift = [], 0
+    for p in range(count):
+        b = -(-(bits - shift) // (count - p))
+        passes.append((shift, b))
+        shift += b
+    lo, hi = SORT_TILES
+    tile = min(hi, max(lo, (1 << (max(n, 1) - 1).bit_length()) // 8))
+    return SchedulePlan(sets, windows, n, c, tuple(passes), tile,
+                        -(-n // tile))
+
+
+def msm_digits_plain(scalars: torch.Tensor, plan: SchedulePlan):
+    """Plain version of ``msm_digits``: the kernel's serial carry chain,
+    window by window over every (set, point) at once."""
+    k, _, n = scalars.shape
+    W, c, half = plan.windows, plan.c, plan.half
+    dev = scalars.device
+    words = cuda_fr._wide(scalars)
+    point = torch.arange(n, device=dev)
+    buf = torch.zeros((k, n), dtype=torch.int64, device=dev)
+    carry = torch.zeros_like(buf)
+    have = nxt = 0
+    keys, pay = [], []
+    for w in range(W):
+        if have < c:
+            if nxt < 8:
+                buf |= words[:, nxt] << have
+            have, nxt = have + 32, nxt + 1
+        v = (buf & ((1 << c) - 1)) + carry
+        buf >>= c
+        have -= c
+        flip = (v >= half) & (w < W - 1)
+        mag = torch.where(flip, (1 << c) - v, v)
+        carry = flip.to(torch.int64)
+        seg = (torch.arange(k, device=dev) * W + w)[:, None]
+        keys.append(torch.where(mag > 0, seg * half + mag - 1, -1))
+        pay.append(point << 1 | carry)
+    keys = torch.stack(keys, 1).reshape(-1)
+    pay = torch.stack(pay, 1).reshape(-1).to(torch.int32)
+    # The first pass's tile histograms of the nonzero digits.
+    B, T = 1 << plan.passes[0][1], plan.tiles
+    pos = torch.arange(plan.digits, device=dev)
+    idx = ((pos // n * B + (keys & (B - 1))) * T + pos % n // plan.tile)
+    hist = torch.bincount(idx[keys >= 0], minlength=plan.segments * B * T)
+    return (keys.to(torch.int32), pay,
+            hist.reshape(plan.segments, B, T).to(torch.int32))
+
+
+def msm_digits(scalars: torch.Tensor, plan: SchedulePlan):
+    """Step 1: canonical scalars (k, 8, n) -> sort keys and payloads (k W
+    n,) int32 in (set, window, point) order, and the first pass's tile
+    histograms (k W, 2^bits, tiles)."""
+    if cuda_fr._on_cpu(scalars):
+        return msm_digits_plain(scalars, plan)
+    cuda_fr._require_cuda("msm_digits", scalars)
+    if scalars.shape != (plan.sets, 8, plan.n):
+        raise ValueError(f"msm_digits: scalars {tuple(scalars.shape)} for "
+                         f"{plan.sets} sets of {plan.n} points")
+    dev = scalars.device
+    keys = torch.empty(plan.digits, dtype=torch.int32, device=dev)
+    pay = torch.empty_like(keys)
+    bits = plan.passes[0][1]
+    hist = torch.empty((plan.segments, 1 << bits, plan.tiles),
+                       dtype=torch.int32, device=dev)
+    count_launch("msm_digits")
+    check(cuda_lib().kzg_msm_digits(
+        scalars.data_ptr(), plan.sets, plan.n, plan.windows, plan.c, bits,
+        plan.tile, plan.tiles, keys.data_ptr(), pay.data_ptr(),
+        hist.data_ptr(), cuda_fr._stream(scalars)), "msm_digits")
+    return keys, pay, hist
+
+
+def msm_sort_plain(keys: torch.Tensor, pay: torch.Tensor,
+                   hist: torch.Tensor, plan: SchedulePlan):
+    """Plain version of ``msm_sort``: one stable sort of the nonzero
+    digits by key, the order the kernels' stable passes reach digit by
+    digit; base from the first pass's tile histograms."""
+    S, dev = plan.segments, keys.device
+    live = keys >= 0
+    order = torch.argsort(keys[live], stable=True)
+    E = order.numel()
+    out_k = torch.full_like(keys, -1)
+    out_p = torch.zeros_like(pay)
+    out_k[:E], out_p[:E] = keys[live][order], pay[live][order]
+    tot = hist.reshape(S, -1).sum(1)
+    base = torch.cat([tot.new_zeros(1), torch.cumsum(tot, 0)])
+    return out_k, out_p, base.to(torch.int32)
+
+
+def msm_sort(keys: torch.Tensor, pay: torch.Tensor, hist: torch.Tensor,
+             plan: SchedulePlan):
+    """Step 2's sort: ``msm_digits``' outputs -> the nonzero digits' keys
+    and payloads in bucket order, stable in the point index, in the first
+    E entries of buffers of k W n, and base (k W + 1,): the segments'
+    starts in them, E last.  On the card the three inputs are its scratch:
+    the kernels overwrite them."""
+    if cuda_fr._on_cpu(keys, pay, hist):
+        return msm_sort_plain(keys, pay, hist, plan)
+    cuda_fr._require_cuda("msm_sort", keys, pay, hist)
+    S = plan.segments
+    if keys.shape != (plan.digits,) or pay.shape != keys.shape \
+            or hist.shape != (S, 1 << plan.passes[0][1], plan.tiles):
+        raise ValueError(f"msm_sort: keys {tuple(keys.shape)}, payloads "
+                         f"{tuple(pay.shape)}, histograms "
+                         f"{tuple(hist.shape)}")
+    base = torch.empty(S + 1, dtype=torch.int32, device=keys.device)
+    tot = torch.empty(S, dtype=torch.int32, device=keys.device)
+    buf = (torch.empty_like(keys), torch.empty_like(pay))
+    src = (keys, pay)
+    lib, stream = cuda_lib(), cuda_fr._stream(keys)
+    for p, (shift, bits) in enumerate(plan.passes):
+        count_launch("msm_sort", 3)
+        check(lib.kzg_msm_sort_pass(
+            src[0].data_ptr(), src[1].data_ptr(), hist.data_ptr(),
+            tot.data_ptr(), base.data_ptr(), S, plan.n, plan.tile,
+            plan.tiles, shift, bits, int(p == 0), buf[0].data_ptr(),
+            buf[1].data_ptr(), stream), "msm_sort")
+        src, buf = buf, src
+    return src[0], src[1], base
+
+
+def msm_bucket_offsets_plain(keys: torch.Tensor, base: torch.Tensor,
+                             plan: SchedulePlan):
+    """Plain version of ``msm_bucket_offsets``: bucket bounds from the runs
+    of the sorted keys, chunks scanned a segment and across segments."""
+    S, half, dev = plan.segments, plan.half, keys.device
+    nb, E = plan.buckets, int(base[-1])
+    sk = keys[:E].to(torch.int64)
+    p = torch.arange(E, device=dev)
+    first = torch.ones(E, dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    last = torch.ones_like(first)
+    last[:-1] = first[1:]
+    start = torch.zeros(nb, dtype=torch.int64, device=dev)
+    end = torch.zeros_like(start)
+    start[sk[first]] = p[first]
+    end[sk[last]] = p[last] + 1
+    per = ((end - start + CHUNK - 1) // CHUNK).reshape(S, half)
+    tot = per.sum(1)
+    cbase = torch.cat([tot.new_zeros(1), torch.cumsum(tot, 0)])
+    bco = torch.cat([(torch.cumsum(per, 1) - per + cbase[:-1, None]
+                      ).reshape(-1), cbase[-1:]])
+    C = int(cbase[-1])
+    bucket = torch.repeat_interleave(torch.arange(nb, device=dev),
+                                     per.reshape(-1), output_size=C)
+    rank = torch.arange(C, device=dev) - bco[bucket]
+    chunk_off = torch.zeros(plan.chunk_capacity, dtype=torch.int64,
+                            device=dev)
+    chunk_off[:C] = start[bucket] + rank * CHUNK
+    chunk_off[C] = E
+    info = torch.tensor([C, int(tot.max()), E], device=dev)
+    return (bco.to(torch.int32), chunk_off.to(torch.int32),
+            info.to(torch.int32))
+
+
+def msm_bucket_offsets(keys: torch.Tensor, base: torch.Tensor,
+                       plan: SchedulePlan):
+    """Step 2's offsets: ``msm_sort``'s keys and base -> bucket_chunks
+    (k W 2^(c-1) + 1,), the chunk offsets (C + 1 entries of
+    ``plan.chunk_capacity``) and info (3,): C, the busiest window's chunks
+    and E."""
+    if cuda_fr._on_cpu(keys, base):
+        return msm_bucket_offsets_plain(keys, base, plan)
+    cuda_fr._require_cuda("msm_bucket_offsets", keys, base)
+    S, nb, dev = plan.segments, plan.buckets, keys.device
+    if keys.shape != (plan.digits,) or base.shape != (S + 1,):
+        raise ValueError(f"msm_bucket_offsets: keys {tuple(keys.shape)}, "
+                         f"base {tuple(base.shape)}")
+
+    def scratch(m):
+        return torch.empty(m, dtype=torch.int32, device=dev)
+    bounds, tot, cbase, most = scratch(2 * nb), scratch(S), scratch(S + 1), \
+        scratch(1)
+    bco, chunk_off, info = scratch(nb + 1), scratch(plan.chunk_capacity), \
+        scratch(3)
+    count_launch("msm_bucket_offsets", 4)
+    check(cuda_lib().kzg_msm_bucket_offsets(
+        keys.data_ptr(), base.data_ptr(), S, plan.half, plan.digits, CHUNK,
+        bounds.data_ptr(), tot.data_ptr(), cbase.data_ptr(), most.data_ptr(),
+        bco.data_ptr(), chunk_off.data_ptr(), info.data_ptr(),
+        cuda_fr._stream(keys)), "msm_bucket_offsets")
+    return bco, chunk_off, info
+
+
+def msm_schedule(scalars: torch.Tensor, total_bits: int, c: int
+                 ) -> BucketSchedule:
+    """Canonical scalars (k, 8, n) -> the schedule of the accumulate and
+    the reduce: ``msm_digits``, ``msm_sort``, ``msm_bucket_offsets``, then
+    the host's one wait for C, the busiest window and E.  Equal to
+    ``bucket_schedule(signed_digits(scalars, total_bits, c), c)``."""
+    k, _, n = scalars.shape
+    plan = schedule_plan(k, n, num_windows(total_bits, c), c)
+    keys, pay, hist = msm_digits(scalars.contiguous(), plan)
+    keys, pay, base = msm_sort(keys, pay, hist, plan)
+    bco, chunk_off, info = msm_bucket_offsets(keys, base, plan)
+    count_sync("msm.tolist")
+    chunks, busiest, entries = info.tolist()
+    return BucketSchedule(pay[:entries], chunk_off[:chunks + 1], bco,
+                          _window_threads(busiest, plan.half,
+                                          EVENTS_PER_THREAD))
 
 
 def point_table(points: torch.Tensor) -> torch.Tensor:
@@ -516,8 +801,8 @@ class FusedMsm:
         with span("msm.schedule"):
             sets = scalars if scalars.dim() == 3 else scalars[None]
             c = window_bits(n)
-            dig = signed_digits(sets, self.total_bits, c)
-            return sets.shape[0], c, dig.shape[1], bucket_schedule(dig, c)
+            return (sets.shape[0], c, num_windows(self.total_bits, c),
+                    msm_schedule(sets, self.total_bits, c))
 
     def prepare_points(self, points: torch.Tensor) -> torch.Tensor:
         """(3, L, n) with Z = 1 on this context's device -> the (n, 2 L)

@@ -76,6 +76,12 @@ CUDA_ENTRIES = {
     "kzg_msm_acc_threads": [],
     "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
     "kzg_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P, _P],
+    "kzg_msm_digits": [_P, _I64, _I64, _INT, _INT, _INT, _INT, _I64, _P, _P,
+                       _P, _P],
+    "kzg_msm_sort_pass": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _I64, _INT,
+                          _INT, _INT, _P, _P, _P],
+    "kzg_msm_bucket_offsets": [_P, _P, _I64, _I64, _I64, _INT, _P, _P, _P,
+                               _P, _P, _P, _P, _P],
     "kzg_scan_tile": [],
     "kzg_scan_state_words": [_I64],
     "kzg_scan_window": [],

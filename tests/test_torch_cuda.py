@@ -6,8 +6,9 @@ operands and raises).  With a card (tests marked ``cuda``, skipped where
 ``torch.cuda.is_available()`` is false): every kernel entry point equals
 its plain version on small numpy-seeded inputs and counts its launch
 (K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
-bucket route's msm_accumulate and msm_reduce, the chains' fr_scan and
-fr_pow, and the small MSM's g1_ladder), at BN254 and at BLS12-381 (Fr in
+bucket route's msm_accumulate and msm_reduce, its schedule's msm_digits,
+msm_sort and msm_bucket_offsets, the chains' fr_scan and fr_pow, and the
+small MSM's g1_ladder), at BN254 and at BLS12-381 (Fr in
 8 words, Fq in the kernels' 12-word instantiation); checked mode
 (``KZG_TPU_CHECKED``) traps a planted non-canonical kernel output; and one
 rank over NCCL (``parallel/``) equals the single-device path.  The
@@ -450,6 +451,152 @@ def test_bls_curve_ntt_and_table_kernels_match_plain(cuda):
         y = ntt_pass_plain(fr, y, ctx.tw_fwd, s0, g)
         assert torch.equal(got, y), (s0, g)
     assert not torch.equal(x, y)
+
+
+def test_schedule_wrappers_reject_other_devices():
+    """The schedule's three steps send meta tensors to the kernel path,
+    which raises."""
+    plan = mk.schedule_plan(2, 4096, 26, 10)
+    sets = torch.empty((2, 8, 4096), dtype=torch.int32, device="meta")
+    flat = torch.empty((plan.digits,), dtype=torch.int32, device="meta")
+    hist = torch.empty((plan.segments, 512, plan.tiles), dtype=torch.int32,
+                       device="meta")
+    base = torch.empty((plan.segments + 1,), dtype=torch.int32,
+                       device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.msm_digits(sets, plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.msm_sort(flat, flat, hist, plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.msm_bucket_offsets(flat, base, plan)
+
+
+# (sets, n, scalar bits, c) of the schedule's card tests: the 2^20 cell's
+# c at 2^16 points, and the blob cell's MSMs.
+SCHEDULE_SHAPES = {"bn254-c14": (8, 1 << 16, 254, 14),
+                   "bls12_381-c10": (9, 4096, 255, 10)}
+SCHEDULE_KERNELS = ("msm_digits", "msm_sort", "msm_bucket_offsets")
+
+
+def skewed_sets(k, n, skew, seed):
+    """(k, 8, n) scalar words below 2^253 on the CPU: random, every point
+    of a set equal, one nonzero point a set, 10-bit values, or the last
+    set all zero."""
+    sets = torch.stack([words(n, seed + j) for j in range(k)])
+    if skew == "all-equal":
+        sets = sets[:, :, :1].expand(k, 8, n).clone()
+    elif skew == "one-nonzero":
+        one = sets[:, :, n // 3].clone()
+        sets.zero_()
+        sets[:, :, n // 3] = one
+    elif skew == "small":
+        sets[:, 1:] = 0
+        sets[:, 0] &= 0x3FF
+    elif skew == "zero-set":
+        sets[-1] = 0
+    return sets
+
+
+@pytest.mark.parametrize("skew", ["random", "all-equal", "one-nonzero",
+                                  "small", "zero-set"])
+@pytest.mark.parametrize("shape", list(SCHEDULE_SHAPES))
+@pytest.mark.cuda
+def test_schedule_kernels_match_plain(cuda, shape, skew):
+    """msm_digits, msm_sort and msm_bucket_offsets against their plain
+    versions step by step (the sorted buffers and the chunk offsets up to
+    E and C + 1), each step's launches counted, and msm_schedule against
+    bucket_schedule(signed_digits(...)) field by field."""
+    k, n, bits, c = SCHEDULE_SHAPES[shape]
+    sets = skewed_sets(k, n, skew, 40)
+    plan = mk.schedule_plan(k, n, mk.num_windows(bits, c), c)
+    before = {name: LAUNCHES[name] for name in SCHEDULE_KERNELS}
+    dig = mk.msm_digits(sets.to(cuda), plan)
+    want = mk.msm_digits(sets, plan)
+    for got_t, want_t in zip(dig, want):
+        assert torch.equal(got_t.cpu(), want_t)
+    keys, pay, base = mk.msm_sort(*dig, plan)
+    wkeys, wpay, wbase = mk.msm_sort(*want, plan)
+    E = int(wbase[-1])
+    assert torch.equal(base.cpu(), wbase)
+    assert torch.equal(keys[:E].cpu(), wkeys[:E])
+    assert torch.equal(pay[:E].cpu(), wpay[:E])
+    bco, chunk_off, info = mk.msm_bucket_offsets(keys, base, plan)
+    wbco, wchunk_off, winfo = mk.msm_bucket_offsets(wkeys, wbase, plan)
+    C = int(winfo[0])
+    assert torch.equal(info.cpu(), winfo) and torch.equal(bco.cpu(), wbco)
+    assert torch.equal(chunk_off[:C + 1].cpu(), wchunk_off[:C + 1])
+    assert {name: LAUNCHES[name] - before[name]
+            for name in SCHEDULE_KERNELS} == {
+        "msm_digits": 1, "msm_sort": 3 * len(plan.passes),
+        "msm_bucket_offsets": 4}
+    got = mk.msm_schedule(sets.to(cuda), bits, c)
+    ref = mk.bucket_schedule(mk.signed_digits(sets.to(cuda), bits, c), c)
+    for field in ("entries", "chunk_off", "bucket_chunks"):
+        assert torch.equal(getattr(got, field), getattr(ref, field)), field
+    assert got.window_threads == ref.window_threads
+
+
+@pytest.mark.parametrize("curve_type, k", [("bn254", 8), ("bls12_381", 9)])
+@pytest.mark.cuda
+def test_kernel_schedule_keeps_the_msm_results(cuda, curve_type, k):
+    """msm_accumulate's partials over the kernels' schedule and over the
+    plain schedule (msm_schedule on the CPU), both adds, and FusedMsm.msm
+    against the plain schedule's path (its accumulate and reduce on the
+    card): torch.equal, at 4096 points with a skewed set among random
+    ones."""
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+
+    n = 4096
+    fused = mk.FusedMsm(curve_type, cuda)
+    fq = fused.curve.f.consts
+    pts, _ = random_point_basis(curve_type, n, seed=4, device=cuda)
+    xy = mk.point_table(pts)
+    sets = skewed_sets(k, n, "random", 60)
+    sets[1] = skewed_sets(1, n, "all-equal", 61)[0]
+    sets[2, :, ::3] = 0
+    bits, c = fused.total_bits, mk.window_bits(n)
+    W = mk.num_windows(bits, c)
+    got = mk.msm_schedule(sets.to(cuda), bits, c)
+    plain = mk.msm_schedule(sets, bits, c)
+    plain = mk.BucketSchedule(plain.entries.to(cuda), plain.chunk_off.to(cuda),
+                              plain.bucket_chunks.to(cuda),
+                              plain.window_threads)
+    for complete in (False, True):
+        part = mk.msm_accumulate(fq, xy, got.entries, got.chunk_off,
+                                 complete)
+        want = mk.msm_accumulate(fq, xy, plain.entries, plain.chunk_off,
+                                 complete)
+        assert torch.equal(part, want)
+    want = mk.msm_reduce(fq, want, plain.bucket_chunks, k, W, c,
+                         plain.window_threads)
+    assert torch.equal(fused.msm(pts, sets.to(cuda), complete=True), want)
+
+
+@pytest.mark.parametrize("shape", list(SCHEDULE_SHAPES))
+@pytest.mark.cuda
+def test_schedule_waits_once_on_the_card(cuda, shape):
+    """Under torch.cuda.set_sync_debug_mode("warn") a schedule makes one
+    wait, the counted msm.tolist."""
+    import warnings
+
+    from kzg_snark_tpu_torch.utils import build
+
+    k, n, bits, c = SCHEDULE_SHAPES[shape]
+    sets = skewed_sets(k, n, "random", 70).to(cuda)
+    mk.msm_schedule(sets, bits, c)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mk.msm_schedule(sets, bits, c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    waits = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(waits) == 1
+    assert build.sync_counts() == {"msm.tolist": 1}
 
 
 @pytest.mark.cuda

@@ -54,18 +54,16 @@ SEED = 2 ** 31 + 17
 # Names of the harness's spans, which its readers select by prefix.
 HARNESS = ("commit.", "intt", "open", "host.", trace.BATCH_SPAN,
            "warmup.batch")
-# The waits of one batch: each of the two MSMs 4 in the schedule (the
-# nonzero count, bincount's min and max, the chunk totals) and 3 in the
-# affine conversion (x and y to the host, the identity flags); the
-# openings' scalars to the card; the evaluations to the host.
-MSM_SYNCS = {"msm.nonzero": 1, "msm.bincount": 2, "msm.tolist": 1}
+# The waits of one batch: each of the two MSMs 1 in the schedule (the
+# chunk total, the busiest window and the entry count, read together) and
+# 3 in the affine conversion (x and y to the host, the identity flags);
+# the openings' scalars to the card; the evaluations to the host.
+MSM_SYNCS = {"msm.tolist": 1}
 BATCH_SYNCS = {
-    "blob4844.b9": {"msm.nonzero": 2, "msm.bincount": 4, "msm.tolist": 2,
-                    "g1.to_affine_ints": 2, "limbs.to_words": 5,
-                    "limbs.to_tensor": 1},
-    "kzg2e20.b8": {"msm.nonzero": 2, "msm.bincount": 4, "msm.tolist": 2,
-                   "g1.to_affine_ints": 2, "limbs.to_words": 5,
-                   "limbs.to_tensor": 2},
+    "blob4844.b9": {"msm.tolist": 2, "g1.to_affine_ints": 2,
+                    "limbs.to_words": 5, "limbs.to_tensor": 1},
+    "kzg2e20.b8": {"msm.tolist": 2, "g1.to_affine_ints": 2,
+                   "limbs.to_words": 5, "limbs.to_tensor": 2},
 }
 PLONK_PHASES = ["setup", "round1_wires", "round1_commits_msm",
                 "round2_grand_product", "round2_commit_msm",
@@ -287,7 +285,7 @@ def test_32_port_spans_leave_the_harness_spans_and_feed_the_readers(
 
 def test_syncs_per_batch_reads_the_counter(monkeypatch):
     build.reset_launches()
-    build.count_sync("msm.bincount", 2)
+    build.count_sync("msm.tolist", 2)
     build.count_sync("limbs.to_words")
     record = SimpleNamespace(batches=[(0.0, 1.0, 9), (1.0, 2.0, 9)])
     assert syncs_per_batch.read(record) == 1.5
