@@ -55,7 +55,16 @@ Phases, in order, one printed line or block each:
                  step's device ms beside its bytes' bound, the whole
                  schedule beside the plain torch one, msm_sort beside
                  torch.sort(stable=True) of the same keys and its gather
-  msm_prepared   the bucket-route MSM through FusedMsm.prepare_points and
+  grouped        the grouped MSM (ops/msm_grouped.py) at peerdas.b9's
+                 three calls on the path's own inputs (the FK20 set-up
+                 table, fk20.msm, fk20.g1_dft with its window and complete
+                 adds): each kernel equal to its plain version, each
+                 kernel's device ms beside its bound, the fk20.msm shape
+                 by window width and beside one g1_ladder block a set;
+                 FK20's cells and proofs of 9 blobs equal to the
+                 benchmark's plain reference, with their launches and
+                 waits (alone: python3 chip_smoke.py --grouped)
+  msm_prepared  the bucket-route MSM through FusedMsm.prepare_points and
                  msm_prepared: BN254 at 2^16 and 2^20 (the 2^18 basis
                  tiled, complete adds), BLS12-381 at 2^16, k = 1 and 8
                  sets, each equal to MsmContext.msm (Jacobian words) and
@@ -2091,6 +2100,179 @@ def phase_schedule(torch, dev, rates) -> None:
             f"{sort_ms:.4f}")
 
 
+# peerdas.b9's FK20 (BLS12-381): blobs of n, cells of l, blobs a batch.
+PEERDAS_N, PEERDAS_CELL, PEERDAS_BLOBS = 4096, 64, 9
+GROUPED_WIDTHS = (4, 5, 6)      # window widths timed at fk20.msm's shape
+
+
+def grouped_schedule_bytes(plan) -> float:
+    """Bytes the grouped schedule reads and writes at least: the scalars
+    once (32 B a point a set), each digit's entry once (4 B) and each
+    segment's 2^(c-1) + 1 bucket offsets (4 B each); ``schedule_bytes``'
+    rule for one launch that does the digits and the sort."""
+    return (32.0 * plan.scalar_sets * plan.n + 4.0 * plan.segments * plan.n
+            + 4.0 * plan.segments * (plan.half + 1))
+
+
+def grouped_work(plan, limbs: int, live: int) -> tuple[float, float]:
+    """(accumulate products, reduce products) of a grouped MSM at its own
+    window width with ``live`` nonzero scalars a set: k W (live - B) mixed
+    adds a group; 2 (B - 1) complete adds a window, then c (W - 1)
+    doublings and W - 1 adds a set."""
+    sets, W, B, c = plan.scalar_sets, plan.windows, plan.half, plan.c
+    acc = sets * W * max(live - B, 0) * formula_products(limbs, MADD)
+    red = (sets * (W * 2 * (B - 1) + W - 1) * formula_products(limbs, ADD)
+           + sets * c * (W - 1) * formula_products(limbs, DOUBLE))
+    return float(acc), float(red)
+
+
+def phase_grouped(torch, dev, rates) -> None:
+    """The grouped MSM at each of peerdas.b9's three calls (BLS12-381,
+    blobs of 4096, cells of 64, 9 blobs), on the inputs the path makes:
+    the FK20 set-up table's (``fk20.circulant_inputs``, complete adds),
+    the Toeplitz products' (``fk20.msm``: the set-up table and the column
+    transforms of 9 random blobs, the adds ``resolve_complete`` gives) and
+    the G1 transform's (``fk20.g1_dft``: the C^_v and their parity sums,
+    the proof matrix's scalars, ``transform_c``, complete adds).  At each:
+    every kernel's output equal to its plain version's on the same inputs
+    (the plain torch steps, run on the card's tensors), the whole call
+    equal to the four kernels, its launches counted; device ms of each
+    kernel beside its bound (the schedule's bytes, the accumulate's and the
+    reduction's products over the nonzero scalars).  At fk20.msm's shape
+    also other window widths and the alternative, one g1_ladder block a
+    (group, set).  Then the batch's cells and proofs
+    (``compute_cells_and_kzg_proofs``) against the benchmark's plain
+    reference, every blob; proofs_dev's device ms by kernel, the
+    extension's, and a warm call's launches and host waits."""
+    from kzg_snark_tpu_torch.models.kzg import KZG
+    from kzg_snark_tpu_torch.ops import cuda_fr, fk20
+    from kzg_snark_tpu_torch.ops import msm_grouped as mg
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.utils import build
+    from kzgbench.plain import cells as plain
+    from kzgbench.plain.curves import CURVES
+    from kzgbench.plain.reference import Reference
+    from kzgbench.trace import short_name
+    curve = "bls12_381"
+    kzg = KZG(curve, backend="cuda", device=dev)
+    srs, _ = kzg.setup(PEERDAS_N - 1, tau=TAU)
+    core = kzg.cells_core(PEERDAS_N, PEERDAS_CELL)
+    ctx = core.ctx
+    fq, L = ctx.curve.f.consts, ctx.curve.num_limbs
+    bits = ctx.fused.total_bits
+    blobs = torch.stack([random_canonical(torch, PEERDAS_N, 9900 + b, dev)
+                         for b in range(PEERDAS_BLOBS)], dim=1)
+    coeffs = kzg._blob_coeffs(blobs, core)
+    bases, setup_sc = fk20.circulant_inputs(srs, PEERDAS_N, PEERDAS_CELL)
+    scalars = core.column_scalars(coeffs)
+    dft_xy, dft_sc = core.transform_inputs(
+        ctx.msm_grouped_prepared(core.table, scalars))
+    calls = (("fk20 set-up table", mg.grouped_table(bases), setup_sc, True,
+              None, core.m),
+             ("fk20.msm", core.table, scalars, mk.resolve_complete(None),
+              None, core.l),
+             ("fk20.g1_dft", dft_xy, dft_sc, True, core.transform_c,
+              core.m + 2))
+    for name, xy, sc, complete, c, live in calls:
+        G, k, _, n = sc.shape
+        plan = mg.grouped_plan(G, k, n, bits, c)
+        e, o, sl = mg.grouped_schedule(sc, plan)
+        part = mg.grouped_accumulate(fq, xy, e, o, sl, plan, complete)
+        sums = mg.grouped_window_sums(fq, part, sl, plan)
+        out = mg.grouped_horner(fq, sums, plan)
+        t0 = time.perf_counter()
+        want = mg.grouped_schedule_plain(sc, plan)
+        same = {"schedule": all(torch.equal(a, b)
+                                for a, b in zip((e, o, sl), want)),
+                "accumulate": torch.equal(part, mg.grouped_accumulate_plain(
+                    fq, xy, e, o, sl, plan.n, plan.cap, complete)),
+                "window sums": torch.equal(sums, mg.grouped_window_sums_plain(
+                    fq, part, sl, plan.cap)),
+                "fold": torch.equal(out, mk.horner_plain(
+                    fq, sums, plan.scalar_sets, plan.windows, plan.c))}
+        plain_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        build.reset_launches()
+        whole = ctx.msm_grouped_prepared(xy, sc, complete, c)
+        launches = sum(build.launch_counts().values())
+        same["whole call"] = torch.equal(whole, out.reshape(3, L, G, k))
+        differ = [step for step, ok in same.items() if not ok]
+        if differ:
+            raise AssertionError(f"grouped {name}: {differ} differ from "
+                                 f"the plain steps")
+        t = {"schedule": dev_ms(torch, lambda s: mg.grouped_schedule(
+                 s, plan), sc),
+             "accumulate": dev_ms(torch, lambda a, b, q: mg.grouped_accumulate(
+                 fq, xy, a, b, q, plan, complete), e, o, sl),
+             "window sums": dev_ms(torch, lambda p, q: mg.grouped_window_sums(
+                 fq, p, q, plan), part, sl),
+             "fold": dev_ms(torch, lambda q: mg.grouped_horner(fq, q, plan),
+                            sums),
+             "whole": dev_ms(torch, lambda s: ctx.msm_grouped_prepared(
+                 xy, s, complete, c), sc, reps=5)}
+        acc_p, red_p = grouped_work(plan, L, live)
+        b = {"schedule": bound(rates, grouped_schedule_bytes(plan), 0),
+             "accumulate": bound(rates, 4.0 * G * n * 2 * L, acc_p),
+             "reduce": bound(rates, 0, red_p)}
+        log(f"[grouped] {name}: G = {G}, k = {k}, n = {n} ({live} nonzero "
+            f"scalars a set), c = {plan.c}, W = {plan.windows}, complete "
+            f"adds {bool(complete)}: schedule, accumulate, window sums, fold "
+            f"and the whole call == the plain steps ({plain_s:.1f} s); "
+            f"device ms (bound ms, by): schedule {t['schedule']:.4f} "
+            f"({b['schedule']['bound_ms']:.4f}, bytes), accumulate "
+            f"{t['accumulate']:.4f} ({b['accumulate']['bound_ms']:.4f}, "
+            f"{b['accumulate']['bound_by']}), window sums "
+            f"{t['window sums']:.4f} + fold {t['fold']:.4f} "
+            f"({b['reduce']['bound_ms']:.4f}, products); the whole call "
+            f"{t['whole']:.4f}; {launches} launches a call")
+        if name == "fk20.msm":
+            widths = {w: dev_ms(torch, lambda s, w=w: mg.msm_grouped_prepared(
+                fq, xy, s, bits, complete, c=w), sc, reps=5)
+                for w in GROUPED_WIDTHS}
+            pts = srs.points[..., :n].contiguous()
+            ladder = dev_ms(torch, lambda p, s: cuda_fr.g1_ladder(
+                fq, p, s), pts, sc.reshape(G * k, 8, n), reps=3)
+            log(f"[grouped] {name} by window width c: " + ", ".join(
+                f"c = {w} {ms:.4f} ms" for w, ms in widths.items())
+                + f"; the alternative, g1_ladder's one block a set over "
+                f"{n} points and {G * k} sets: {ladder:.4f} ms")
+    cells, proofs = kzg.compute_cells_and_kzg_proofs(
+        blobs, cell_width=PEERDAS_CELL, coeffs=coeffs)
+    t0 = time.perf_counter()
+    want = plain.expected(Reference(CURVES[curve], PEERDAS_N, TAU),
+                          blobs.cpu().numpy().view("uint32"))
+    if fk20.cells_to_bytes(cells) != want["evaluations"] \
+            or [P for row in proofs for P in row] != want["proofs"]:
+        raise AssertionError("FK20: the cells or proofs of the batch differ "
+                             "from the plain reference")
+    ref_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    build.reset_launches()
+    kzg.compute_cells_and_kzg_proofs(
+        blobs, cell_width=PEERDAS_CELL, coeffs=coeffs)
+    launches, syncs = build.launch_counts(), build.sync_counts()
+    proofs_ms = dev_ms(torch, core.proofs_dev, coeffs, reps=5)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        core.proofs_dev(coeffs)
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            by_kernel[short_name(ev.key)[:60]] += ev.device_time_total
+    log("[grouped] proofs_dev's device ms by kernel: " + ", ".join(
+        f"{k} {us / 1e3:.4f}" for k, us in by_kernel.most_common(12)))
+    ext_ms = dev_ms(torch, lambda c: core.cells_dev(core.eval_dev(
+        c, core.order)), coeffs, reps=5)
+    log(f"[grouped] FK20 at {PEERDAS_BLOBS} blobs of {PEERDAS_N}, cells of "
+        f"{PEERDAS_CELL}: the {PEERDAS_BLOBS * core.cells} cells and proofs "
+        f"== the plain reference ({ref_s:.1f} s); proofs_dev "
+        f"{proofs_ms:.4f} ms, the extension {ext_ms:.4f} ms device; a warm "
+        f"compute_cells_and_kzg_proofs' launches "
+        f"{json.dumps(launches, sort_keys=True)}, waits "
+        f"{json.dumps(syncs, sort_keys=True)}")
+
+
 PREPARED_LOG_N = (16, 20)       # BN254 sizes of the prepared MSM checks
 PREPARED_SETS = (1, 8)
 PREPARED_RANGES = 6             # ranges of the forced split at 2^20
@@ -3582,6 +3764,21 @@ def main() -> int:
     if sys.argv[1:2] == ["--tree"]:
         print(json.dumps({"tree_times": tree_times(sys.argv[2])}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--grouped"]:
+        from kzg_snark_tpu_torch.utils.build import build_cuda
+        rates = device_rates(torch)
+        log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: "
+            f"{smi('name,power.limit')}")
+        from kzg_snark_tpu_torch.utils.build import kernel_resources
+        t0 = time.perf_counter()
+        lib_path = build_cuda()
+        log(f"[build] {lib_path} in {time.perf_counter() - t0:.2f} s")
+        for name, res in sorted(kernel_resources(lib_path).items()):
+            if "grouped" in name:
+                log(f"[build] {json.dumps(res, sort_keys=True)} {name}")
+        phase_grouped(torch, torch.device("cuda", 0), rates)
+        print(json.dumps({"ok": True, "grouped": True}), flush=True)
+        return 0
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kzg_snark_tpu_torch.utils.build import (build_cuda, cuda_lib,
@@ -3625,6 +3822,7 @@ def main() -> int:
     phase_ntt(torch, dev, paths, rates)
     phase_msm(torch, dev, paths, rates)
     phase_schedule(torch, dev, rates)
+    phase_grouped(torch, dev, rates)
     phase_msm_prepared(torch, dev, paths)
     phase_parity(dev)
     main_run = phase_main(torch, dev, paths)

@@ -37,6 +37,7 @@ class KZG:
         self.curve_type = curve_type
         self.backend = backend
         self.device = device     # where the "cuda" backend keeps the SRS
+        self.device_srs = None   # the cuda backend's last ``setup``
         self.rng = rng if rng is not None else DEFAULT_RNG
         # Fast mode serializes commitments canonically as (x, y, 1); compat
         # (host) mode keeps raw projective representatives for py_ecc
@@ -120,7 +121,57 @@ class KZG:
             for i in range(1, max_degree + 1):
                 powers_of_tau_G1.append(self.multiply(self.G1, int(tau_f ** i)))
         tau_G2 = self.multiply(self.G2, tau)
+        if self.backend == "cuda":
+            self.device_srs = powers_of_tau_G1
         return (powers_of_tau_G1, tau_G2)
+
+    # ------------------------------------------------------------------
+    def cells_core(self, n: int, cell_width: int):
+        """The cuda backend's FK20 core over the last ``setup``'s SRS for
+        polynomials of degree < n and cells of ``cell_width`` values, its
+        set-up table built once (``ops/fk20.py``)."""
+        from ..ops.fk20 import cells_core
+        if self.backend != "cuda":
+            raise ValueError("cells and cell proofs need the cuda backend")
+        return cells_core(self.device_srs, n, cell_width)
+
+    def _blob_coeffs(self, blobs, core):
+        from ..ops.ntt import ntt_context
+        be = core.be
+        mont = be.to_mont(blobs.reshape(8, -1)).reshape(blobs.shape)
+        return ntt_context(self.curve_type, core.n, core.ctx.device).intt(mont)
+
+    def _cells(self, blobs, cell_width, coeffs):
+        from ..ops.fk20 import FIELD_ELEMENTS_PER_CELL
+        from ..utils.profiling import span
+        core = self.cells_core(blobs.shape[-1],
+                               cell_width or FIELD_ELEMENTS_PER_CELL)
+        if coeffs is None:
+            coeffs = self._blob_coeffs(blobs, core)
+        with span("fk20.extend"):
+            return core, coeffs, core.cells_dev(core.eval_dev(coeffs,
+                                                              core.order))
+
+    def compute_cells(self, blobs, cell_width: int | None = None,
+                      coeffs=None):
+        """EIP-7594 ``compute_cells`` for k blobs at once: blobs (8, k, n)
+        canonical Fr words, the values at w^0 .. w^(n-1) (natural order),
+        -> the cells (8, k, 2n / l, l) canonical words on the device, each
+        cell the l values on its coset, in the specs' order.  ``coeffs``:
+        the blobs' coefficients (8, k, n) Montgomery, where the caller has
+        them."""
+        return self._cells(blobs, cell_width, coeffs)[2]
+
+    def compute_cells_and_kzg_proofs(self, blobs, cell_width: int | None = None,
+                                     coeffs=None):
+        """EIP-7594 ``compute_cells_and_kzg_proofs`` for k blobs at once, the
+        proofs by FK20 (``ops/fk20.py``): -> (cells as ``compute_cells``,
+        proofs: per blob its 2n / l cells' proofs as affine int pairs, None
+        for the identity)."""
+        core, coeffs, cells = self._cells(blobs, cell_width, coeffs)
+        flat = core.ctx.curve.to_affine_ints(core.proofs_dev(coeffs))
+        N, k = core.cells, blobs.shape[1]
+        return cells, [flat[b * N:(b + 1) * N] for b in range(k)]
 
     # ------------------------------------------------------------------
     def _as_polys(self, polynomials) -> list[Poly]:

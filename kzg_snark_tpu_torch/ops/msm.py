@@ -38,6 +38,7 @@ from . import cuda_fr
 from .fr import canonical_device, checked_enabled, fr_backend
 from .g1 import CurveOps, generator
 from .limbs import SCALAR_LIMBS, ints_to_words, to_tensor
+from .msm_grouped import grouped_table, msm_grouped_prepared
 from .msm_kernel import fused_msm, reduce_horner
 
 SMALL_THRESHOLD = cuda_fr.LADDER_POINTS
@@ -166,6 +167,28 @@ class MsmContext:
             else:
                 out = torch.cat([_scan_msm(self.curve, points, s, self._gen)
                                  for s in sets], dim=-1)
+        return self.curve.checked_output(out, "msm")
+
+    def msm_grouped(self, points: torch.Tensor, scalars: torch.Tensor,
+                    complete: bool | None = None) -> torch.Tensor:
+        """G MSMs of n points, each group with its own points and k scalar
+        sets, in four launches and no host wait (``ops/msm_grouped.py``):
+        points (3, L, G n) with Z = 1, never the identity (group g's at
+        [g n, (g + 1) n)); scalars (G, k, 8, n) canonical -> (3, L, G, k)
+        Jacobian.  ``complete`` as ``msm``: pass True for points computed
+        on the card."""
+        return self.msm_grouped_prepared(grouped_table(points), scalars,
+                                         complete)
+
+    def msm_grouped_prepared(self, table: torch.Tensor,
+                             scalars: torch.Tensor,
+                             complete: bool | None = None,
+                             c: int | None = None) -> torch.Tensor:
+        """``msm_grouped`` over the (G n, 2 L) table of ``grouped_table``,
+        which a fixed basis keeps; ``c``, the window width, by default
+        ``msm_grouped.window_bits`` of the group's n."""
+        out = msm_grouped_prepared(self.curve.f.consts, table, scalars,
+                                   self.fused.total_bits, complete, c)
         return self.curve.checked_output(out, "msm")
 
     def scalars_to_limbs(self, scalar_ints) -> torch.Tensor:

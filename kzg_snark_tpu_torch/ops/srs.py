@@ -35,6 +35,9 @@ class DeviceSRS:
         self.points = points
         self.device = canonical_device(points.device)
         self._curve = msm_context(curve_type, self.device).curve
+        # FK20's set-up by (n, cell width), built on first use
+        # (``ops/fk20.cells_core``).
+        self.cell_cores: dict = {}
 
     def __len__(self) -> int:
         return int(self.points.shape[-1])

@@ -82,6 +82,12 @@ CUDA_ENTRIES = {
                           _INT, _INT, _P, _P, _P],
     "kzg_msm_bucket_offsets": [_P, _P, _I64, _I64, _I64, _INT, _P, _P, _P,
                                _P, _P, _P, _P, _P],
+    "kzg_msm_grouped_schedule": [_P, _I64, _I64, _I64, _INT, _INT, _INT, _P,
+                                 _P, _P, _P],
+    "kzg_msm_accumulate_grouped": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                   _INT, _P, _INT, _P, _P],
+    "kzg_msm_window_sums_grouped": [_P, _P, _I64, _I64, _I64, _P, _P, _P],
+    "kzg_msm_horner_grouped": [_P, _I64, _INT, _INT, _P, _P, _P],
     "kzg_scan_tile": [],
     "kzg_scan_state_words": [_I64],
     "kzg_scan_window": [],

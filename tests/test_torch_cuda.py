@@ -7,12 +7,14 @@ operands and raises).  With a card (tests marked ``cuda``, skipped where
 its plain version on small numpy-seeded inputs and counts its launch
 (K1, K6, K7, K9, K10, ntt_pass, the SRS table's g1_fixed_base_table, the
 bucket route's msm_accumulate and msm_reduce, its schedule's msm_digits,
-msm_sort and msm_bucket_offsets, the chains' fr_scan and fr_pow, and the
-small MSM's g1_ladder), at BN254 and at BLS12-381 (Fr in
+msm_sort and msm_bucket_offsets, the chains' fr_scan and fr_pow, the
+small MSM's g1_ladder, and the grouped MSM's four kernels), at BN254 and at
+BLS12-381 (Fr in
 8 words, Fq in the kernels' 12-word instantiation); checked mode
 (``KZG_TPU_CHECKED``) traps a planted non-canonical kernel output; and one
-rank over NCCL (``parallel/``) equals the single-device path.  The
-full-size comparison is ``python3 chip_smoke.py``.
+rank over NCCL (``parallel/``) equals the single-device path; one
+full-size blob's cells and proofs by FK20 equal the benchmark's plain
+reference.  The full-size comparison is ``python3 chip_smoke.py``.
 """
 
 import numpy as np
@@ -883,3 +885,91 @@ def test_world_one_over_nccl_equals_single_device(cuda):
     single = msm_context("bn254", cuda)
     assert rank["cases"][1]["affine"] == single.curve.to_affine_ints(
         single.msm(pts, to_tensor(scalars, cuda)))[0]
+
+
+# The grouped MSM (ops/msm_grouped.py) and FK20 (ops/fk20.py).
+GROUPED_SHAPES = [(3, 4, 5), (8, 3, 64), (2, 8, 128)]
+
+
+def _grouped_inputs(curve_type, G, k, n, dev):
+    """Bases: [(i + 1) G] for the first group (a bucket's running sum meets
+    its next point), random points after; scalars random with the first set
+    all zero and the second all equal (one bucket a window holds them all,
+    in slots of CHUNK)."""
+    from kzg_snark_tpu_torch.ops.benchpoints import (generator_multiples,
+                                                      random_point_basis)
+    pts, _ = random_point_basis(curve_type, G * n, seed=G + n, device=dev)
+    pts[..., :n] = generator_multiples(curve_type, n, dev)
+    sc = torch.stack([torch.stack([words(n, 100 * g + s) for s in range(k)])
+                      for g in range(G)])
+    sc[:, 0] = 0
+    if k > 1:
+        sc[:, 1] = sc[:, 1, :, :1]
+    return pts, sc.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_grouped_kernels_match_plain(cuda, curve_type, shape):
+    """Each grouped kernel against its plain version on the same inputs:
+    the schedule's entries, offsets and slots, the accumulate (both adds),
+    the window sums and the fold word for word; then the whole grouped MSM
+    against the plain pipeline."""
+    from kzg_snark_tpu_torch.ops import msm_grouped as mg
+    from kzg_snark_tpu_torch.ops.msm import msm_context
+    G, k, n = shape
+    fq = fq_backend(curve_type, cuda).consts
+    bits = fr_backend(curve_type, cuda).modulus.bit_length()
+    pts, sc = _grouped_inputs(curve_type, G, k, n, cuda)
+    plan = mg.grouped_plan(G, k, n, bits)
+    before = dict(LAUNCHES)
+    entries, offsets, slots = mg.grouped_schedule(sc, plan)
+    assert LAUNCHES["msm_grouped_schedule"] == \
+        before.get("msm_grouped_schedule", 0) + 1
+    want = mg.grouped_schedule_plain(sc.cpu(), plan)
+    for got, exp in zip((entries, offsets, slots), want):
+        assert torch.equal(got.cpu(), exp)
+    xy = mk.point_table(pts)
+    for complete in (True, False) if curve_type == "bn254" else (True,):
+        part = mg.grouped_accumulate(fq, xy, entries, offsets, slots, plan,
+                                     complete)
+        assert torch.equal(part.cpu(), mg.grouped_accumulate_plain(
+            fq, xy.cpu(), *want, n, plan.cap, complete)), complete
+    sums = mg.grouped_window_sums(fq, part, slots, plan)
+    assert torch.equal(sums.cpu(), mg.grouped_window_sums_plain(
+        fq, part.cpu(), want[2], plan.cap))
+    out = mg.grouped_horner(fq, sums, plan)
+    assert torch.equal(out.cpu(), mk.horner_plain(
+        fq, sums.cpu(), G * k, plan.windows, plan.c))
+    ctx = msm_context(curve_type, cuda)
+    got = ctx.msm_grouped(pts, sc, complete=True)
+    assert torch.equal(got.cpu(), msm_context(curve_type, "cpu").msm_grouped(
+        pts.cpu(), sc.cpu(), complete=True))
+    assert bool((got[2, :, :, 0] == 0).all())       # the all-zero sets
+
+
+@pytest.mark.cuda
+def test_fk20_full_blob_matches_plain_reference(cuda):
+    """One full-size blob (n = 4096, cells of 64) at BLS12-381: its 128
+    cells and 128 proofs by FK20 on the card against the benchmark's plain
+    reference (the radix-2 extension and each cell's quotient at tau)."""
+    from kzg_snark_tpu_torch.models.kzg import KZG
+    from kzgbench.generator import make_pool
+    from kzgbench.plain import cells as plain
+    from kzgbench.plain.curves import CURVES
+    from kzgbench.plain.reference import Reference
+    from kzgbench.plain.transcript import field_bytes
+    n, tau = 4096, 0x1234567890ABCDEF1234567890ABCDEF
+    curve = CURVES["bls12_381"]
+    kzg = KZG("bls12_381", backend="cuda", device=cuda)
+    kzg.setup(n - 1, tau=tau)
+    blobs = make_pool(curve.r, n, 1, 1, 2 ** 31 + 3, cuda)[0]
+    cells, proofs = kzg.compute_cells_and_kzg_proofs(blobs)
+    assert cells.shape == (8, 1, 128, 64)
+    raw = field_bytes(cells.cpu().numpy().view(np.uint32).reshape(8, -1))
+    want = plain.expected(Reference(curve, n, tau),
+                          blobs.cpu().numpy().view(np.uint32))
+    assert [raw[i:i + 2048] for i in range(0, len(raw), 2048)] == \
+        want["evaluations"]
+    assert proofs[0] == want["proofs"]

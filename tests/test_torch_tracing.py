@@ -52,8 +52,8 @@ TINY = {"config": {"n": 8}, "traffic": {"batch": 2, "pool_batches": 2,
                                         "warmup_batches": 1}}
 SEED = 2 ** 31 + 17
 # Names of the harness's spans, which its readers select by prefix.
-HARNESS = ("commit.", "intt", "open", "host.", trace.BATCH_SPAN,
-           "warmup.batch")
+HARNESS = ("commit.", "intt", "open", "host.", "cell_proofs",
+           trace.BATCH_SPAN, "warmup.batch")
 # The waits of one batch: each of the two MSMs 1 in the schedule (the
 # chunk total, the busiest window and the entry count, read together) and
 # 3 in the affine conversion (x and y to the host, the identity flags);
@@ -64,6 +64,19 @@ BATCH_SYNCS = {
                     "limbs.to_words": 5, "limbs.to_tensor": 1},
     "kzg2e20.b8": {"msm.tolist": 2, "g1.to_affine_ints": 2,
                    "limbs.to_words": 5, "limbs.to_tensor": 2},
+    # The commitments' MSM; the proofs' affine conversion; the cells to the
+    # host.  FK20's grouped MSMs wait for nothing.
+    "peerdas.b9": {"msm.tolist": 1, "g1.to_affine_ints": 2,
+                   "limbs.to_words": 5},
+}
+# The port's spans each protocol's batch must open.
+PROTOCOL_SPANS = {
+    "blob": {"msm.schedule", "msm.accumulate", "kzg.open", "ntt.intt",
+             "g1.to_affine"},
+    "multi_open": {"msm.schedule", "msm.accumulate", "kzg.open", "ntt.intt",
+                   "g1.to_affine"},
+    "cells": {"msm.schedule", "msm.accumulate", "ntt.intt", "g1.to_affine",
+              "fk20.extend", "fk20.columns", "fk20.msm", "fk20.g1_dft"},
 }
 PLONK_PHASES = ["setup", "round1_wires", "round1_commits_msm",
                 "round2_grand_product", "round2_commit_msm",
@@ -334,9 +347,8 @@ def test_a_cell_batch_opens_few_port_spans_and_pins_its_waits(
     ranges = _annotations(tmp_path / "t.json")
     port = [s for s in ranges if not s[0].startswith(HARNESS)]
     assert port and all(s[0].split(".")[0] in ("msm", "kzg", "ntt", "g1",
-                                                "fr") for s in port)
-    assert {"msm.schedule", "msm.accumulate", "kzg.open", "ntt.intt",
-            "g1.to_affine"} <= {s[0] for s in port}
+                                                "fr", "fk20") for s in port)
+    assert PROTOCOL_SPANS[config["protocol"]] <= {s[0] for s in port}
     (batch,) = [s for s in ranges if s[0] == trace.BATCH_SPAN]
     # Every span of the batch lies within the walk back from its end.
     assert sum(batch[1] <= s[1] <= batch[2] for s in ranges) < 64
