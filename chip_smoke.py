@@ -55,6 +55,15 @@ Phases, in order, one printed line or block each:
                  step's device ms beside its bytes' bound, the whole
                  schedule beside the plain torch one, msm_sort beside
                  torch.sort(stable=True) of the same keys and its gather
+  msm_routes     the accumulate's chunk and range routes at the 2^20
+                 cell's two MSM calls (8 sets at 2^20, 1 set at 2^20 - 1)
+                 and Marlin's largest commit (1 set at 2^18) on the same
+                 inputs, each L of the range route and the
+                 chunk route equal to the host oracle: partials, device ms
+                 of the schedule, accumulate, window sums by threads a
+                 window and fold; registers, spills, blocks an SM; K8 and
+                 msm_reduce beside their bounds (alone: python3
+                 chip_smoke.py --routes)
   grouped        the grouped MSM (ops/msm_grouped.py) at peerdas.b9's
                  three calls on the path's own inputs (the FK20 set-up
                  table, fk20.msm, fk20.g1_dft with its window and complete
@@ -2067,13 +2076,14 @@ def phase_schedule(torch, dev, rates) -> None:
         keys, pay, _ = mk.msm_digits(sets, plan)
         live = keys >= 0
         nz_keys, nz_pay = keys[live], pay[live]
-        sorted_keys, _, base = mk.msm_sort(*mk.msm_digits(sets, plan), plan)
+        sorted_keys, sorted_pay, base = mk.msm_sort(
+            *mk.msm_digits(sets, plan), plan)
         del keys, pay, live
         t = {"digits": timed_ms(torch, lambda: mk.msm_digits(sets, plan), 5),
              "digits + sort": timed_ms(torch, lambda: mk.msm_sort(
                  *mk.msm_digits(sets, plan), plan), 5),
              "offsets": timed_ms(torch, lambda: mk.msm_bucket_offsets(
-                 sorted_keys, base, plan), 5),
+                 sorted_keys, sorted_pay, base, plan), 5),
              "schedule": timed_ms(torch, lambda: mk.msm_schedule(
                  sets, bits, c), 5),
              "plain torch schedule": timed_ms(
@@ -2098,6 +2108,142 @@ def phase_schedule(torch, dev, rates) -> None:
             f"the E int32 keys and the payload gather "
             f"{t['torch.sort + gather'][0]:.4f} against msm_sort "
             f"{sort_ms:.4f}")
+
+
+# The 2^20 cell's two MSM calls: (name, sets, n), BN254, random scalars on
+# a duplicate-free random basis (incomplete adds, as the cell's SRS).
+ROUTE_SHAPES = (("kzg2e20 commit", 8, 1 << 20),
+                ("kzg2e20 proof", 1, (1 << 20) - 1),
+                ("marlin commit 2^18", 1, 1 << 18))
+ROUTE_RUNS = (0, 32, 64, 128, 256, 512, 1024)   # L of each route; 0: chunks
+ROUTE_THREADS = (128, 256, 512, 1024)           # window-sum threads a window
+
+
+def phase_msm_routes(torch, dev, rates, resources) -> None:
+    """The accumulate's two routes at the 2^20 cell's MSM calls (8 sets at
+    n = 2^20, c = 14; 1 set at n = 2^20 - 1, c = 13), on the same inputs
+    in turns, and Marlin's largest commit (1 set at 2^18): the chunk route
+    and the range route at each L of ROUTE_RUNS (``accumulate_run``
+    replaced for the run), each MSM equal to the host oracle.  Device ms of the schedule, the accumulate, the window sums at
+    each threads-a-window of ROUTE_THREADS and at the route's own, and the
+    fold; the partials each route writes; the kernels' registers, spills
+    and the accumulate's blocks an SM; K8 and msm_reduce at the rule's
+    route beside their operations' bounds (``accumulate_work``,
+    ``window_sums_work``, ``fold_work``)."""
+    from kzg_snark_tpu_torch import constants as C
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.ops.fr import fq_backend
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops, generator
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
+    from kzg_snark_tpu_torch.ops.limbs import to_tensor
+    from kzg_snark_tpu_torch.utils.build import cuda_lib
+
+    lib = cuda_lib()
+    for name in ("k_msm_accumulate", "k_msm_window_sums", "k_msm_horner"):
+        args = (("false", 8), ("true", 8)) if name == "k_msm_accumulate" \
+            else ((8,),)
+        for a in args:
+            res = _resource(resources, name, a)
+            extra = ""
+            if name == "k_msm_accumulate":
+                extra = (f", {lib.kzg_msm_acc_blocks_per_sm(int(a[0] == 'true'), 8)}"
+                         f" blocks of {lib.kzg_msm_acc_threads()} an SM")
+            log(f"[msm_routes] {name}<{', '.join(map(str, a))}>: "
+                f"{res['registers']} registers, spills "
+                f"{res['spill_stores']} B st / {res['spill_loads']} B ld"
+                f"{extra}")
+    fq = fq_backend("bn254", dev).consts
+    curve = curve_ops("bn254", dev)
+    t0 = time.perf_counter()
+    pts, ks = random_point_basis("bn254", max(n for *_, n in ROUTE_SHAPES),
+                                 seed=20261019, device=dev)
+    xy = mk.point_table(pts)
+    log(f"[msm_routes] basis of {pts.shape[-1]} points in "
+        f"{time.perf_counter() - t0:.1f} s")
+    Fp = base_field("bn254")
+    gx, gy = generator("bn254")
+
+    def oracle(words, n):
+        out = []
+        for total in digit_sums(words, ks[:n]):
+            a = hc.normalize(hc.multiply((Fp(gx), Fp(gy), Fp(1)),
+                                         total % C.BN254_R))
+            out.append(None if a is None else (int(a[0]), int(a[1])))
+        return out
+
+    rule_of = mk.accumulate_run
+    try:
+        for name, k, n in ROUTE_SHAPES:
+            c = mk.window_bits(n)
+            W = mk.num_windows(254, c)
+            rule = rule_of(k, W, n, c)
+            words = random_sets(k, n, 9800 + k)
+            sc = to_tensor(words, dev)
+            want = oracle(words, n)
+            table = xy[:n]
+            rows = {}
+            for run in sorted(set(ROUTE_RUNS) | {rule}):
+                mk.accumulate_run = lambda *shape, run=run: run
+                sched = mk.msm_schedule(sc, 254, c)
+                runs = sched.run_chunks
+                parts = sched.chunk_off.numel() - 1
+                part = mk.msm_accumulate(fq, table, sched.entries,
+                                         sched.chunk_off, False, runs)
+                got = mk.msm_reduce(fq, part, sched.bucket_chunks, k, W, c,
+                                    sched.window_threads)
+                if curve.to_affine_ints(got) != want:
+                    raise AssertionError(f"{name}: L = {run} differs from "
+                                         f"the host oracle")
+                t_sched = timed_ms(torch, lambda: mk.msm_schedule(
+                    sc, 254, c), 3)[0]
+                t_acc = timed_ms(torch, lambda: mk.msm_accumulate(
+                    fq, table, sched.entries, sched.chunk_off, False, runs),
+                    3)[0]
+                ws = {}
+                for tpw in sorted(set(ROUTE_THREADS)
+                                  | {sched.window_threads}):
+                    ws[tpw] = timed_ms(torch, lambda: mk.reduce_window_sums(
+                        fq, part, sched.bucket_chunks, k * W, c, tpw), 3)[0]
+                wparts = mk.reduce_window_sums(fq, part, sched.bucket_chunks,
+                                               k * W, c, sched.window_threads)
+                t_fold = timed_ms(torch, lambda: mk.reduce_horner(
+                    fq, wparts, k, W, c), 3)[0]
+                rows[run] = (sched, t_acc, ws, t_fold)
+                threads = parts if runs is None else runs.numel() - 1
+                log(f"[msm_routes] {name} (k = {k}, n = {n}, c = {c}, W = "
+                    f"{W}) L = {run or 'chunks'}{' (rule)' if run == rule else ''}"
+                    f": == host oracle; partials {parts}, accumulate threads "
+                    f"{threads}, window-sum threads a window "
+                    f"{sched.window_threads}; device ms: schedule "
+                    f"{t_sched:.4f}, accumulate {t_acc:.4f}, window sums "
+                    + ", ".join(f"{t}: {v:.4f}" for t, v in ws.items())
+                    + f", fold {t_fold:.4f}; accumulate + window sums "
+                    f"(own threads) + fold "
+                    f"{t_acc + ws[sched.window_threads] + t_fold:.4f}")
+            sched, t_acc, ws, t_fold = rows[rule]
+            _, prod_a = accumulate_work(n, sched)
+            _, prod_w = window_sums_work(sched, k, W, c)
+            pieces = sched.window_threads // min(sched.window_threads,
+                                                 mk.REDUCE_BLOCK)
+            _, prod_f = fold_work(W, c, pieces, sets=k)
+            bound = {key: v / rates["products"] * 1e3 for key, v in
+                     (("acc", prod_a), ("ws", prod_w), ("fold", prod_f))}
+            t_ws = ws[sched.window_threads]
+            log(f"[msm_routes] {name} at the rule's route (L = "
+                f"{rule or 'chunks'}): K8 msm_accumulate {t_acc:.4f} ms "
+                f"(bound {bound['acc']:.4f}, operations: "
+                f"{100 * bound['acc'] / t_acc:.1f} %); msm_reduce "
+                f"{t_ws + t_fold:.4f} ms: window sums {t_ws:.4f} (bound "
+                f"{bound['ws']:.4f}), fold {t_fold:.4f} (bound "
+                f"{bound['fold']:.4f}); the chunk route: accumulate "
+                f"{rows[0][1]:.4f}, window sums "
+                f"{rows[0][2][rows[0][0].window_threads]:.4f}, fold "
+                f"{rows[0][3]:.4f}")
+            del rows, part, wparts
+    finally:
+        mk.accumulate_run = rule_of
 
 
 # peerdas.b9's FK20 (BLS12-381): blobs of n, cells of l, blobs a batch.
@@ -3764,6 +3910,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--tree"]:
         print(json.dumps({"tree_times": tree_times(sys.argv[2])}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--routes"]:
+        from kzg_snark_tpu_torch.utils.build import (build_cuda,
+                                                     kernel_resources)
+        rates = device_rates(torch)
+        log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: "
+            f"{smi('name,power.limit')}")
+        t0 = time.perf_counter()
+        lib_path = build_cuda()
+        log(f"[build] {lib_path} in {time.perf_counter() - t0:.2f} s")
+        phase_msm_routes(torch, torch.device("cuda", 0), rates,
+                         kernel_resources(lib_path))
+        print(json.dumps({"ok": True, "routes": True}), flush=True)
+        return 0
     if sys.argv[1:2] == ["--grouped"]:
         from kzg_snark_tpu_torch.utils.build import build_cuda
         rates = device_rates(torch)
@@ -3822,6 +3981,7 @@ def main() -> int:
     phase_ntt(torch, dev, paths, rates)
     phase_msm(torch, dev, paths, rates)
     phase_schedule(torch, dev, rates)
+    phase_msm_routes(torch, dev, rates, resources)
     phase_grouped(torch, dev, rates)
     phase_msm_prepared(torch, dev, paths)
     phase_parity(dev)

@@ -12,6 +12,7 @@
 #include <string.h>
 
 #include "msm.cuh"
+#include "msm_chunks.cuh"
 #include "ntt.cuh"
 #include "scan.cuh"
 #include "srs.cuh"
@@ -195,20 +196,23 @@ static int impl_g1_fixed_base_table(const void* base, void* table,
 
 template <int NL>
 static int impl_msm_accumulate(const void* xy, const void* entries,
-                               const void* chunk_off, int64_t chunks,
+                               const void* chunk_off, const void* run_chunks,
+                               int64_t threads, int64_t chunks,
                                void* partials, int complete,
                                const void* consts) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
-  for (int64_t c = 0; c < chunks; c++) {
+  for (int64_t r = 0; r < threads; r++) {
     if (complete) {
-      msm_accumulate_thread<true>(c, (const uint32_t*)xy,
+      msm_accumulate_thread<true>(r, (const uint32_t*)xy,
                                   (const int32_t*)entries,
                                   (const int32_t*)chunk_off,
+                                  (const int32_t*)run_chunks,
                                   (uint32_t*)partials, chunks, F);
     } else {
-      msm_accumulate_thread<false>(c, (const uint32_t*)xy,
+      msm_accumulate_thread<false>(r, (const uint32_t*)xy,
                                    (const int32_t*)entries,
                                    (const int32_t*)chunk_off,
+                                   (const int32_t*)run_chunks,
                                    (uint32_t*)partials, chunks, F);
     }
   }
@@ -539,11 +543,68 @@ extern "C" int host_g1_fixed_base_table(const void* base, void* table,
 }
 
 extern "C" int host_msm_accumulate(const void* xy, const void* entries,
-                                   const void* chunk_off, int64_t chunks,
-                                   void* partials, int complete,
-                                   const void* consts) {
+                                   const void* chunk_off,
+                                   const void* run_chunks, int64_t threads,
+                                   int64_t chunks, void* partials,
+                                   int complete, const void* consts) {
   return KZG_BY_LIMBS(consts, impl_msm_accumulate, xy, entries, chunk_off,
-                      chunks, partials, complete, consts);
+                      run_chunks, threads, chunks, partials, complete,
+                      consts);
+}
+
+// kzg_msm_bucket_offsets' last three steps on the E sorted keys, a bucket
+// at a time in the kernels' order: the buckets' runs, each segment's chunk
+// scan (msm_chunks.cuh's counts), the segments' scan and the busiest, then
+// each bucket's chunk offsets (and run starts and chunk-start bits in the
+// E payloads pay) and the tails.  bco (S half + 1), chunk_off (C + 1),
+// run_chunks (ceil(E / run) + 1 where run > 0), info (C, the busiest
+// window's chunks, E).
+extern "C" int host_msm_bucket_offsets(const void* keys, int64_t E,
+                                       int64_t segments, int64_t half,
+                                       int chunk, int run, void* bco,
+                                       void* chunk_off, void* run_chunks,
+                                       void* pay, void* info) {
+  const int32_t* k = (const int32_t*)keys;
+  int32_t* b = (int32_t*)bco;
+  int32_t* out = (int32_t*)info;
+  const int64_t nb = segments * half;
+  int32_t* start = (int32_t*)calloc(2 * nb + segments + 1, sizeof(int32_t));
+  if (!start) return -1;
+  int32_t* end = start + nb;
+  int32_t* cbase = end + nb;
+  int32_t* entries = (int32_t*)pay;
+  for (int64_t p = 0; p < E; p++) {
+    const bool first = p == 0 || k[p - 1] != k[p];
+    if (first) start[k[p]] = (int32_t)p;
+    if (p + 1 == E || k[p + 1] != k[p]) end[k[p]] = (int32_t)(p + 1);
+    if (run && msm_range_chunk_start(p, first, run))
+      entries[p] = (int32_t)((uint32_t)entries[p] | MSM_CHUNK_START);
+  }
+  int32_t most = 0;
+  for (int64_t s = 0; s < segments; s++) {
+    int32_t total = 0;
+    for (int64_t m = 0; m < half; m++) {
+      const int64_t q = s * half + m;
+      b[q] = total;
+      total += msm_bucket_chunk_count(start[q], end[q], chunk, run);
+    }
+    cbase[s + 1] = cbase[s] + total;
+    most = total > most ? total : most;
+  }
+  for (int64_t q = 0; q < nb; q++) {
+    b[q] += cbase[q / half];
+    msm_bucket_chunk_offsets(start[q], end[q], chunk, run, b[q],
+                             (int32_t*)chunk_off, (int32_t*)run_chunks);
+  }
+  const int32_t C = cbase[segments];
+  b[nb] = C;
+  ((int32_t*)chunk_off)[C] = (int32_t)E;
+  if (run) ((int32_t*)run_chunks)[(E + run - 1) / run] = C;
+  out[0] = C;
+  out[1] = most;
+  out[2] = (int32_t)E;
+  free(start);
+  return 0;
 }
 
 extern "C" int host_msm_window_sums(const void* partials, int64_t chunks,

@@ -5,14 +5,19 @@
 // The schedule comes from the wrapper (ops/msm_kernel.py): every nonzero
 // signed digit of every (set, window) is an entry, the entries are sorted by
 // bucket key (set * W + window) * half + |digit| - 1 (stable, so a bucket's
-// points keep index order), and each bucket's run is cut into chunks of at
-// most T entries.
+// points keep index order), and each bucket's run is cut into chunks
+// (msm_chunks.cuh: at most T entries on the chunk route; at the bucket's
+// start and every L entries of the whole order on the range route).
 //
 // xy:        (n, 2 NL) uint32, point-major affine Montgomery (x limbs, y
 //            limbs).
-// entries:   (E,) int32, point index << 1 | sign, in bucket order.
+// entries:   (E,) int32, point index << 1 | sign, in bucket order; on the
+//            range route each chunk's first entry | MSM_CHUNK_START.
 // chunk_off: (C + 1,) int32, chunk c covers entries [chunk_off[c],
 //            chunk_off[c + 1]); chunks are in bucket order.
+// run_chunks: (R + 1,) int32 on the range route, accumulate thread r walks
+//            chunks [run_chunks[r], run_chunks[r + 1]); none on the chunk
+//            route, where thread r takes chunk r.
 // bco:       (nb + 1,) int32, bucket b owns chunks [bco[b], bco[b + 1]).
 // partials:  (3, NL, C) uint32 Jacobian, one per chunk.
 //
@@ -22,6 +27,7 @@
 #pragma once
 
 #include "curve.cuh"
+#include "msm_chunks.cuh"
 
 template <int NL>
 KZG_HD void g1_select(G1J<NL>& R, bool c, const G1J<NL>& A, const G1J<NL>& B) {
@@ -30,11 +36,13 @@ KZG_HD void g1_select(G1J<NL>& R, bool c, const G1J<NL>& A, const G1J<NL>& B) {
   fe_select<NL>(R.Z, c, A.Z, B.Z);
 }
 
-// Entry -> its point's affine words (x, y), the sign not applied.
+// Entry -> its point's affine words (x, y), the sign and the chunk-start
+// bit not applied.
 template <int NL>
 KZG_HD void msm_load_point(uint32_t x[NL], uint32_t y[NL], const uint32_t* xy,
                            int32_t entry) {
-  const uint32_t* p = xy + (int64_t)((uint32_t)entry >> 1) * 2 * NL;
+  const uint32_t* p =
+      xy + (int64_t)(((uint32_t)entry & ~MSM_CHUNK_START) >> 1) * 2 * NL;
 #ifdef __CUDA_ARCH__
   // 16-byte loads: a row is 8 NL bytes (64 or 96), so each stays aligned.
   const uint4* v = reinterpret_cast<const uint4*>(p);
@@ -200,18 +208,28 @@ KZG_HD void g1_add_acc(G1J<NL>& P, const G1J<NL>& Q,
   fe_sub(P.Y, U1, J, F);                           // Y3
 }
 
-// Chunk c: its first point is loaded with Z = 1 (not added to the identity,
-// so the incomplete add never meets acc == q on a duplicate-free basis),
-// the rest are mixed-added in entry order, y negated for a negative digit.
-// The next entry's gather is issued inside the current add, once the
-// current point is used up (into the same registers), so its random read
-// overlaps the add's products.
+// Thread r: chunks [run_chunks[r], run_chunks[r + 1]) (chunk r alone when
+// run_chunks is null), walked as one run of entries.  A chunk's first
+// point is loaded with Z = 1 (not added to a point, so the incomplete add
+// never meets acc == q on a duplicate-free basis); the rest are mixed-added
+// in entry order, y negated for a negative digit.  Inside a run each next
+// chunk's first entry carries MSM_CHUNK_START: there the partial is stored
+// and the chunk starts from the identity, whose add loads its point with
+// Z = 1.  The next entry's gather is issued inside the current add, once
+// the current point is used up (into the same registers), across chunk
+// ends too, so its random read overlaps the add's products.
 template <bool COMPLETE, int NL>
-KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
+KZG_HD void msm_accumulate_thread(int64_t r, const uint32_t* xy,
                                   const int32_t* entries,
-                                  const int32_t* chunk_off, uint32_t* partials,
-                                  int64_t chunks, const FieldConsts<NL>& F) {
-  const int32_t s = chunk_off[c], e = chunk_off[c + 1];
+                                  const int32_t* chunk_off,
+                                  const int32_t* run_chunks,
+                                  uint32_t* partials, int64_t chunks,
+                                  const FieldConsts<NL>& F) {
+  const int32_t first = run_chunks ? run_chunks[r] : (int32_t)r;
+  const int32_t s = chunk_off[first];
+  const int32_t e = chunk_off[run_chunks ? run_chunks[r + 1] : r + 1];
+  uint32_t* out = partials + first;  // this chunk's partial, words `chunks`
+                                     // apart
   G1J<NL> acc;
   int32_t ent = entries[s];
   msm_load_point<NL>(acc.X, acc.Y, xy, ent);
@@ -224,6 +242,10 @@ KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
   }
 #pragma unroll 1
   for (int32_t j = s + 1; j < e; j++) {
+    if ((uint32_t)ent & MSM_CHUNK_START) {
+      g1_store(out++, chunks, 0, acc);
+      g1_set_identity(acc, F);
+    }
     if (ent & 1) fe_neg(y, y, F);
     const bool more = j + 1 < e;
     const int32_t next = more ? entries[j + 1] : 0;
@@ -232,7 +254,7 @@ KZG_HD void msm_accumulate_thread(int64_t c, const uint32_t* xy,
     });
     ent = next;
   }
-  g1_store(partials, chunks, c, acc);
+  g1_store(out, chunks, 0, acc);
 }
 
 // Doubling that leaves the identity alone (its X, Y stay as they are).

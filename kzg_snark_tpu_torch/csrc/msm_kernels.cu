@@ -7,11 +7,26 @@
 // forced c = 7 (37 windows) and, ported as it was, left one thread per
 // (window, lane) cell (9472 threads at 2^16 points) walking a 58 MB bucket
 // table in device memory.  Here the wrapper sorts the nonzero digits by
-// bucket (plain torch, like the XLA ops around the JAX kernels), c grows
-// with n (10 at 2^16: 26 windows), and each thread accumulates one chunk of
-// at most T points of one bucket in registers: one thread per chunk (about
-// 1.1e5 at 2^16), one (3, NL) partial written per chunk, no table and no
-// atomics.  What bounds it: integer products.  A mixed add is 4 squarings
+// bucket (msm_schedule_kernels.cu), c grows with n (10 at 2^16: 26
+// windows), and each thread accumulates the sorted entries of its work in
+// registers, one (3, NL) partial written a chunk (a piece of one bucket), no
+// table and no atomics.  Two routes, chosen by the wrapper from the MSM's
+// shapes (ops/msm_kernel.py accumulate_run), one loop
+// (msm.cuh msm_accumulate_thread):
+//   chunk route: one thread a chunk of at most T = 16 entries of one bucket
+//     (about 1.1e5 threads at 2^16).  What bounds its partials: a bucket of
+//     m entries writes ceil(m / T), so at 128-256 entries a bucket (2^20
+//     points) the reduction merges 8-16 partials a bucket back; and a
+//     bucket's short last chunk idles its warp's other lanes.
+//   range route: one thread a run of L consecutive sorted entries, across
+//     bucket and segment bounds, storing its partial at each chunk start it
+//     meets (the entry's MSM_CHUNK_START bit) and restarting there.  Every
+//     thread does L entries, and the partials are about E / L + the
+//     nonempty buckets.  What bounds L: the runs, E / L, have to fill the
+//     card, and past a bucket's load a longer run saves few partials, so
+//     the route is taken only where both leave L above T (L = 128 at the
+//     2^20 cell's calls: 2.4 M partials in place of 10.4 M at 8 sets).
+// What bounds both: integer products.  A mixed add is 4 squarings
 // and 7 products (about 1.4e3 32-bit products at 8 words) for 64 bytes
 // gathered, so the card's multipliers, not its memory, set the time.  The
 // design: the carry-chained product (PROD_CHAIN, chain.cuh: 184
@@ -27,10 +42,14 @@
 // per (set, window): running sums over the window's chunk partials, cut into
 // equal pieces of events (msm.cuh), each piece's Wt + off R by a c-bit
 // double-and-add, then a tree in shared memory in a fixed order; every
-// product PROD_CHAIN, and up to 255 registers a thread (the launch is a
-// block or two an SM, so occupancy does not matter).  What bounds it: each
-// thread's chain of dependent curve operations (about 8 events, c
-// doublings and the tree's 7 levels), not the card's operations.  Launch
+// product PROD_CHAIN, and up to 255 registers a thread (232 at 8 words: 2
+// blocks of 128 an SM).  What bounds it: the events (a complete add each)
+// and each thread's fixed tail, its c-bit double-and-add and its share of
+// the tree.  On the chunk route the threads a window follow the events,
+// about 8 a thread.  On the range route, with about a quarter of the
+// events, the launch takes at most about one wave (ops/msm_kernel.py
+// window_threads): more threads only add tails (8 sets at 2^20: 2.8 ms at
+// 128 threads a window, 4.3 at 1024).  Launch
 // 2, one block per scalar set: the window totals as a halving tree over
 // each window's block partials (one add a thread a level), then the Horner
 // fold acc = 2^c acc + S_w on the 32 lanes of one warp.  What bounds it:
@@ -67,17 +86,19 @@ constexpr int acc_min_blocks(int NL, bool complete) {
   return NL == 8 ? (complete ? 3 : 4) : 1;
 }
 
+// Thread r < threads: run r of run_chunks, or chunk r where it is null.
 template <bool COMPLETE, int NL>
 __global__ void __launch_bounds__(kAccThreads, acc_min_blocks(NL, COMPLETE))
     k_msm_accumulate(const uint32_t* __restrict__ xy,
                      const int32_t* __restrict__ entries,
                      const int32_t* __restrict__ chunk_off,
+                     const int32_t* __restrict__ run_chunks, int64_t threads,
                      uint32_t* __restrict__ partials, int64_t chunks,
                      FieldConsts<NL> F) {
-  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= chunks) return;
-  msm_accumulate_thread<COMPLETE>(c, xy, entries, chunk_off, partials, chunks,
-                                  F);
+  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= threads) return;
+  msm_accumulate_thread<COMPLETE>(r, xy, entries, chunk_off, run_chunks,
+                                  partials, chunks, F);
 }
 
 template <int NL>
@@ -139,19 +160,22 @@ int acc_blocks_per_sm(int complete) {
 
 template <int NL>
 int launch_accumulate(const void* xy, const void* entries,
-                      const void* chunk_off, int64_t chunks, void* partials,
+                      const void* chunk_off, const void* run_chunks,
+                      int64_t threads, int64_t chunks, void* partials,
                       int complete, const void* consts, void* stream) {
   const FieldConsts<NL> F = consts_of<NL>(consts);
-  unsigned blocks = (unsigned)((chunks + kAccThreads - 1) / kAccThreads);
+  unsigned blocks = (unsigned)((threads + kAccThreads - 1) / kAccThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (complete) {
     k_msm_accumulate<true, NL><<<blocks, kAccThreads, 0, s>>>(
         (const uint32_t*)xy, (const int32_t*)entries,
-        (const int32_t*)chunk_off, (uint32_t*)partials, chunks, F);
+        (const int32_t*)chunk_off, (const int32_t*)run_chunks, threads,
+        (uint32_t*)partials, chunks, F);
   } else {
     k_msm_accumulate<false, NL><<<blocks, kAccThreads, 0, s>>>(
         (const uint32_t*)xy, (const int32_t*)entries,
-        (const int32_t*)chunk_off, (uint32_t*)partials, chunks, F);
+        (const int32_t*)chunk_off, (const int32_t*)run_chunks, threads,
+        (uint32_t*)partials, chunks, F);
   }
   return (int)cudaGetLastError();
 }
@@ -192,13 +216,18 @@ extern "C" int kzg_msm_acc_blocks_per_sm(int complete, int limbs) {
 
 extern "C" int kzg_msm_acc_threads() { return kAccThreads; }
 
+// run_chunks null: one thread a chunk (threads = chunks); else `threads`
+// runs, thread r walking chunks [run_chunks[r], run_chunks[r + 1]).
 extern "C" int kzg_msm_accumulate(const void* xy, const void* entries,
-                                  const void* chunk_off, int64_t chunks,
-                                  void* partials, int complete,
-                                  const void* consts, void* stream) {
-  if (chunks <= 0) return 0;
+                                  const void* chunk_off,
+                                  const void* run_chunks, int64_t threads,
+                                  int64_t chunks, void* partials,
+                                  int complete, const void* consts,
+                                  void* stream) {
+  if (chunks <= 0 || threads <= 0) return 0;
   return KZG_BY_LIMBS(consts, launch_accumulate, xy, entries, chunk_off,
-                      chunks, partials, complete, consts, stream);
+                      run_chunks, threads, chunks, partials, complete, consts,
+                      stream);
 }
 
 // windows = sets * W; tpw a power of two; the block has min(tpw, 128)

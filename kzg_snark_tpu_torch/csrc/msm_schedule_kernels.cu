@@ -23,12 +23,19 @@
 //                           base[s + 1]), base the nonzero digits' scan.
 //   kzg_msm_bucket_offsets  the buckets' runs in the sorted keys (no
 //                           atomics: a run's first and last position write
-//                           its bounds), each bucket's ceil(count / CHUNK)
-//                           chunks scanned a segment, then across
-//                           segments, one thread a bucket writing its own
-//                           chunk offsets; the chunk total C, the busiest
-//                           window's chunks and the entry count E in one
-//                           3-word block, the host's one read a call.
+//                           its bounds), each bucket's chunks (msm_chunks.cuh:
+//                           ceil(count / CHUNK) on the chunk route, its
+//                           start and the accumulate runs' starts inside it
+//                           on the range route) scanned a segment, then
+//                           across segments, one thread a bucket writing
+//                           its own chunk offsets and, on the range route,
+//                           the first chunk of each run that starts in it
+//                           (the run pass, a thread an entry, sets the
+//                           chunk-start bit of each chunk's first
+//                           payload);
+//                           the chunk total C, the busiest window's chunks
+//                           and the entry count E in one 3-word block, the
+//                           host's one read a call.
 //
 // Replaces no Pallas kernel: the JAX package's schedule was XLA ops around
 // its kernels (kzg_snark_tpu/ops/msm_kernel.py signed_digits and the
@@ -66,6 +73,8 @@
 // 4096 (the blob cell's digits on 9 blocks, 0.165 ms).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "msm_chunks.cuh"
 
 namespace {
 
@@ -315,17 +324,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Thread p < E: a bucket's first position writes its start, its last its
-// end (start and end zeroed before: an empty bucket counts 0).
+// end (start and end zeroed before: an empty bucket counts 0); on the range
+// route (run > 0) a chunk's first payload gets MSM_CHUNK_START.
 __global__ void k_msm_bucket_runs(const int32_t* __restrict__ keys,
                                   const int32_t* __restrict__ base, int64_t S,
-                                  int32_t* __restrict__ start,
-                                  int32_t* __restrict__ end) {
+                                  int run, int32_t* __restrict__ start,
+                                  int32_t* __restrict__ end,
+                                  int32_t* __restrict__ pay) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t E = base[S];
   if (p >= E) return;
   const int32_t g = keys[p];
-  if (p == 0 || keys[p - 1] != g) start[g] = (int32_t)p;
+  const bool first = p == 0 || keys[p - 1] != g;
+  if (first) start[g] = (int32_t)p;
   if (p + 1 == E || keys[p + 1] != g) end[g] = (int32_t)(p + 1);
+  if (run && msm_range_chunk_start(p, first, run))
+    pay[p] = (int32_t)((uint32_t)pay[p] | MSM_CHUNK_START);
 }
 
 // Block s: the chunks of segment s's buckets, scanned into bco (local to
@@ -333,35 +347,36 @@ __global__ void k_msm_bucket_runs(const int32_t* __restrict__ keys,
 __global__ void __launch_bounds__(kScanThreads)
     k_msm_bucket_chunks(const int32_t* __restrict__ start,
                         const int32_t* __restrict__ end, int64_t half,
-                        int chunk, int32_t* __restrict__ bco,
+                        int chunk, int run, int32_t* __restrict__ bco,
                         int32_t* __restrict__ tot) {
   const int64_t b0 = blockIdx.x * half;
   const int64_t total = block_scan(bco + b0, half, [&](int64_t m) {
-    return (end[b0 + m] - start[b0 + m] + chunk - 1) / chunk;
+    return msm_bucket_chunk_count(start[b0 + m], end[b0 + m], chunk, run);
   });
   if (threadIdx.x == 0) tot[blockIdx.x] = (int32_t)total;
 }
 
-// Thread b < nb: bucket b's chunk offset (its segment's base added) and
-// its chunks' entry offsets; thread nb: the tails and info = (C, the
-// busiest window's chunks, E).
+// Thread b < nb: bucket b's chunk offset (its segment's base added), its
+// chunks' entry offsets and, on the range route, the runs that start in
+// it; thread nb: the tails and info = (C, the busiest window's chunks, E).
 __global__ void k_msm_chunk_offsets(
     const int32_t* __restrict__ start, const int32_t* __restrict__ end,
     const int32_t* __restrict__ cbase, const int32_t* __restrict__ base,
     const int32_t* __restrict__ most, int64_t S, int64_t half, int chunk,
-    int32_t* __restrict__ bco, int32_t* __restrict__ chunk_off,
-    int32_t* __restrict__ info) {
+    int run, int32_t* __restrict__ bco, int32_t* __restrict__ chunk_off,
+    int32_t* __restrict__ run_chunks, int32_t* __restrict__ info) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nb = S * half;
   if (b < nb) {
-    int32_t cb = bco[b] + cbase[b / half];
+    const int32_t cb = bco[b] + cbase[b / half];
     bco[b] = cb;
-    const int32_t st = start[b], k = end[b] - st;
-    for (int32_t q = 0; q < k; q += chunk) chunk_off[cb++] = st + q;
+    msm_bucket_chunk_offsets(start[b], end[b], chunk, run, cb, chunk_off,
+                             run_chunks);
   } else if (b == nb) {
     const int32_t C = cbase[S], E = base[S];
     bco[nb] = C;
     chunk_off[C] = E;
+    if (run) run_chunks[((int64_t)E + run - 1) / run] = C;
     info[0] = C;
     info[1] = *most;
     info[2] = E;
@@ -444,16 +459,19 @@ extern "C" int kzg_msm_sort_pass(const void* keys, const void* pay,
 
 // Step 3: the sorted keys (digits long, the first E = base[segments] in
 // bucket order) -> bco (segments half + 1), chunk_off (C + 1 of its
-// capacity) and info (C, the busiest window's chunks, E).  bounds (2
-// segments half), tot (segments), cbase (segments + 1) and most (1) are
-// scratch.
+// capacity), on the range route (run > 0) run_chunks (ceil(E / run) + 1 of
+// its capacity) and MSM_CHUNK_START on each chunk's first entry of the
+// sorted payloads pay, in place (both untouched on the chunk route), and
+// info (C, the busiest window's chunks, E).  bounds (2 segments half), tot
+// (segments), cbase (segments + 1) and most (1) are scratch.
 extern "C" int kzg_msm_bucket_offsets(const void* keys, const void* base,
                                       int64_t segments, int64_t half,
-                                      int64_t digits, int chunk, void* bounds,
-                                      void* tot, void* cbase, void* most,
-                                      void* bco, void* chunk_off, void* info,
+                                      int64_t digits, int chunk, int run,
+                                      void* bounds, void* tot, void* cbase,
+                                      void* most, void* bco, void* chunk_off,
+                                      void* run_chunks, void* pay, void* info,
                                       void* stream) {
-  if (segments <= 0 || half <= 0 || chunk <= 0) return -1;
+  if (segments <= 0 || half <= 0 || chunk <= 0 || run < 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t nb = segments * half;
   int32_t* start = (int32_t*)bounds;
@@ -463,12 +481,12 @@ extern "C" int kzg_msm_bucket_offsets(const void* keys, const void* base,
   if (digits > 0) {
     k_msm_bucket_runs<<<(unsigned)((digits + kThreads - 1) / kThreads),
                         kThreads, 0, s>>>((const int32_t*)keys,
-                                          (const int32_t*)base, segments,
-                                          start, end);
+                                          (const int32_t*)base, segments, run,
+                                          start, end, (int32_t*)pay);
     KZG_LAUNCHED();
   }
   k_msm_bucket_chunks<<<(unsigned)segments, kScanThreads, 0, s>>>(
-      start, end, half, chunk, (int32_t*)bco, (int32_t*)tot);
+      start, end, half, chunk, run, (int32_t*)bco, (int32_t*)tot);
   KZG_LAUNCHED();
   k_msm_segment_scan<<<1, kScanThreads, 0, s>>>(
       (const int32_t*)tot, segments, (int32_t*)cbase, (int32_t*)most);
@@ -476,7 +494,8 @@ extern "C" int kzg_msm_bucket_offsets(const void* keys, const void* base,
   k_msm_chunk_offsets<<<(unsigned)((nb + kThreads) / kThreads), kThreads, 0,
                         s>>>(start, end, (const int32_t*)cbase,
                              (const int32_t*)base, (const int32_t*)most,
-                             segments, half, chunk, (int32_t*)bco,
-                             (int32_t*)chunk_off, (int32_t*)info);
+                             segments, half, chunk, run, (int32_t*)bco,
+                             (int32_t*)chunk_off, (int32_t*)run_chunks,
+                             (int32_t*)info);
   return (int)cudaGetLastError();
 }

@@ -12,19 +12,46 @@ for the H100 (``csrc/msm_schedule_kernels.cu``, ``csrc/msm_kernels.cu``,
    each (set, window) segment (``SchedulePlan.passes``: one of c - 1 bits
    up to c = 10, two above), the first dropping the zero digits; then
    ``msm_bucket_offsets``: each bucket's count from its run in the sorted
-   keys, its run cut into chunks of at most ``CHUNK`` entries, the chunk
-   offsets written a bucket a thread;
-3. ``msm_accumulate`` (K8): one thread a chunk mixed-adds its points into a
-   Jacobian accumulator in registers and writes one partial;
+   keys, its run cut into chunks (below), the chunk offsets written a
+   bucket a thread;
+3. ``msm_accumulate`` (K8): each thread mixed-adds the points of its chunks
+   into a Jacobian accumulator in registers and writes a partial a chunk;
 4. ``msm_reduce`` (in place of the K6 / K7 chains): window sums
    sum_m m B_m from the chunk partials (one launch), then the window
    totals (a halving tree) and the Horner fold over windows, one warp a
    scalar set (a second launch).
 
+How the sorted entries become chunks, one partial each, is the route, chosen
+from the MSM's shapes alone (``accumulate_run``, ``csrc/msm_chunks.cuh``):
+
+- the chunk route: each bucket's run cut every ``CHUNK`` = 16 entries, one
+  accumulate thread a chunk.  A bucket of m entries writes ceil(m / 16)
+  partials, which the window sums merge back with complete adds: at 2^20
+  points (128-256 entries a bucket) about three quarters of their work.
+- the range route: each accumulate thread walks a run of L consecutive
+  sorted entries (across bucket and segment bounds), storing its partial
+  at each bucket's end and starting the next bucket's from its first
+  point; the chunks are the pieces the run and bucket bounds cut, about
+  E / L + the nonempty buckets.  ``BucketSchedule.run_chunks`` gives each
+  run's first chunk, and each chunk's first entry carries ``CHUNK_START``
+  (bit 31), so the walk holds no offsets in its loop.  What bounds L: the
+  E / L runs must still fill the card (``ACC_FILL_THREADS``), and past a
+  bucket's load a longer run saves few partials; the route is taken only
+  where that leaves L above ``CHUNK`` and writes fewer partials than the
+  chunk route: the 2^20 MSMs (L = 128) and Marlin's 2^18 commit (L = 32),
+  not the blob cells' n = 4096 nor the provers' 2^16.  The window sums
+  then launch at most about one wave (``RANGE_WINDOW_THREADS``).
+
+Either way the chunks are in bucket order and each lies in one bucket, so the
+window sums read them alike; only the split of a bucket's sum between the
+accumulate (a mixed add an entry) and the window sums (a complete add a
+partial) moves.  Each MSM call counts its route and partials
+(``utils/build.count_msm_route``).
+
 ``msm_schedule`` runs 1 and 2; its plan comes from the shapes alone
 (``schedule_plan``).  It gives what ``bucket_schedule(signed_digits(...))``,
 the plain torch reference of the same steps, gives: the same entries, chunk
-offsets, bucket chunk offsets and reduce threads.
+offsets, bucket chunk offsets, run chunks and reduce threads.
 
 While a profiler records, ``FusedMsm`` opens a span a step:
 ``msm.table`` (the point table), ``msm.schedule`` (1 and 2),
@@ -54,10 +81,10 @@ the schedule, not routed to a trash bucket.
 
 The schedule's arrays are int32, as the kernels read them.  Each is
 bounded by B = k W max(n, 2^(c-1)) for k sets of W windows over n points:
-``entries`` holds index << 1 | sign < 2 n <= B (W >= 16); ``chunk_off``
-holds entry offsets up to E, the nonzero digits, at most k W n; the
-bucket keys and ``bucket_chunks`` stay below k W 2^(c-1) buckets and C <= E
-chunks.  ``schedule_plan`` and ``bucket_schedule`` raise ValueError when B
+``entries`` holds index << 1 | sign < 2 n <= B (W >= 16), so bit 31 is
+free for the range route's ``CHUNK_START``; ``chunk_off`` holds entry
+offsets up to E, the nonzero digits, at most k W n; the bucket keys and
+``bucket_chunks`` stay below k W 2^(c-1) buckets and C <= E chunks.  ``schedule_plan`` and ``bucket_schedule`` raise ValueError when B
 exceeds ``MAX_SCHEDULE_ENTRIES`` (2^31 - 1), so no cast can wrap, and
 ``msm_prepared`` cuts an MSM into contiguous point ranges whose own B
 stays at or under it (``point_ranges``, from the shapes alone): each range
@@ -73,7 +100,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import env_complete_add
-from ..utils.build import check, count_launch, count_sync, cuda_lib
+from ..utils.build import (check, count_launch, count_msm_route, count_sync,
+                           cuda_lib)
 from ..utils.profiling import span
 from . import cuda_fr
 from .fr import canonical_device, fr_backend
@@ -81,13 +109,24 @@ from .g1 import curve_ops
 from .limbs import FieldConsts
 
 MAX_WINDOW_BITS = 16        # digit magnitudes fit the 16 bits below the sign
-CHUNK = 16                  # most entries a chunk (one accumulate thread)
+CHUNK = 16                  # most entries a chunk on the chunk route
+# The fewest accumulate threads that still fill an H100: about two waves of
+# k_msm_accumulate<false, 8> (132 SMs x 4 blocks of 128).  Measured at the
+# 2^20 cell's calls: a mixed add cost the same from 1.2 M runs down to
+# about 0.16 M and 20 % more at 82 K (chip_smoke.py --routes).
+ACC_FILL_THREADS = 1 << 17
 EVENTS_PER_THREAD = 8       # window-sum events a reduce thread, busiest window
+# The most window-sum threads of a range-route call: about one wave of
+# k_msm_window_sums<8> (132 SMs x 2 blocks of 128).  With a quarter of the
+# chunk route's events, more threads only add c-bit tails (measured: 8
+# sets at 2^20 took 2.88 ms at 128 threads a window, 4.31 at 1024).
+RANGE_WINDOW_THREADS = 1 << 15
 MAX_WINDOW_THREADS = 1024
 REDUCE_BLOCK = 128          # most threads of a window-sum block
 MAX_FOLD_PARTIALS = 256     # most block partials a set of the fold launch
 MAG_MASK = 0xFFFF
 SIGN_SHIFT = 16
+CHUNK_START = -(1 << 31)    # bit 31 of a range-route entry: starts a chunk
 MAX_SCHEDULE_ENTRIES = 2 ** 31 - 1  # bound of the schedule's int32 arrays
 SORT_TILES = (512, 4096)    # least and most entries a tile of the sort
 MAX_PASS_BITS = 9           # key bits a counting pass sorts by: 512 bins
@@ -174,16 +213,21 @@ def _window_index(total_bits: int, c: int, device):
 class BucketSchedule(NamedTuple):
     """The sorted entries of one MSM and their chunks.
 
-    entries:   (E,) int32 point index << 1 | sign, in bucket order.
+    entries:   (E,) int32 point index << 1 | sign, in bucket order; on the
+        range route each chunk's first entry | ``CHUNK_START`` (bit 31).
     chunk_off: (C + 1,) int32 entry offsets of the chunks.
     bucket_chunks: (nb + 1,) int32 chunk offsets of the buckets, nb =
         sets * windows * 2^(c-1), bucket key (set * W + w) 2^(c-1) + mag - 1.
     window_threads: reduce threads a window (a power of two).
+    run_chunks: on the range route (R + 1,) int32, the first chunk of each
+        run of L entries (run r starts at entry r L) and C last; None on
+        the chunk route.
     """
     entries: torch.Tensor
     chunk_off: torch.Tensor
     bucket_chunks: torch.Tensor
     window_threads: int
+    run_chunks: torch.Tensor | None = None
 
 
 def schedule_bound(sets: int, n: int, windows: int, c: int) -> int:
@@ -230,6 +274,30 @@ def _check_bound(k: int, W: int, n: int, c: int, name: str) -> None:
             f"(point_ranges)")
 
 
+def accumulate_run(sets: int, windows: int, n: int, c: int) -> int:
+    """The accumulate's route for k = ``sets`` sets of W = ``windows``
+    c-bit windows over n points, from the shapes alone: L, the entries a
+    run of the range route, or 0 for the chunk route.
+
+    With E = k W n digits (every digit nonzero, the most there can be) and
+    B = k W 2^(c-1) buckets: L is the smaller of E / ``ACC_FILL_THREADS``
+    (the runs fill the card) and E / B, a bucket's entries at an even load
+    (past it the runs' partials are fewer than the buckets', and a longer
+    run saves little), rounded down to a power of two.  The range route is
+    taken where L > ``CHUNK`` and its partials at an even load, E / L + B,
+    are fewer than the chunk route's, B ceil((E / B) / CHUNK).  Measured at
+    the 2^20 cell's calls (``chip_smoke.py --routes``): L = 128 for both,
+    the least accumulate and window-sum time of L in 32 .. 1024."""
+    digits = sets * windows * n
+    buckets = sets * windows << (c - 1)
+    run = _pow2_floor(min(digits // ACC_FILL_THREADS, digits // buckets))
+    if run <= CHUNK:
+        return 0
+    load = -(-digits // buckets)
+    chunked = buckets * -(-load // CHUNK)
+    return run if digits // run + min(buckets, digits) < chunked else 0
+
+
 def _window_threads(busiest: int, half: int, events_per_thread: int) -> int:
     """Reduce threads a window: the busiest window's chunks plus its
     2^(c-1) steps over ``events_per_thread``, a power of two."""
@@ -237,20 +305,69 @@ def _window_threads(busiest: int, half: int, events_per_thread: int) -> int:
                MAX_WINDOW_THREADS)
 
 
+def window_threads(busiest: int, half: int, windows: int, run: int) -> int:
+    """Reduce threads a window on the route of ``run``: ``EVENTS_PER_THREAD``
+    events a thread (``_window_threads``); on the range route (run > 0) at
+    most ``RANGE_WINDOW_THREADS`` over the call's windows, a power of
+    two."""
+    tpw = _window_threads(busiest, half, EVENTS_PER_THREAD)
+    if run:
+        tpw = min(tpw, _pow2_floor(RANGE_WINDOW_THREADS // windows))
+    return tpw
+
+
+def _chunks_plain(start: torch.Tensor, counts: torch.Tensor, half: int,
+                  chunk: int, run: int):
+    """Buckets' starts and counts (nb,) int64 -> bco (nb + 1,), each
+    chunk's entry offset (C,) and the busiest window's chunks
+    (``csrc/msm_chunks.cuh`` in torch; one wait for C and the busiest)."""
+    end = start + counts
+    if run:
+        per = torch.where(counts > 0, 1 + (end - 1) // run - start // run, 0)
+    else:
+        per = (counts + chunk - 1) // chunk
+    bco = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
+    C, busiest = torch.stack([bco[-1], (bco[half::half]
+                                        - bco[:-1:half]).max()]).tolist()
+    dev = start.device
+    bucket = torch.repeat_interleave(torch.arange(per.numel(), device=dev),
+                                     per, output_size=C)
+    rank = torch.arange(C, device=dev) - bco[bucket]
+    first = start[bucket]
+    if run:
+        off = torch.where(rank == 0, first, (first // run + rank) * run)
+    else:
+        off = first + rank * chunk
+    return bco, off, busiest
+
+
+def _run_chunks_plain(off: torch.Tensor, E: int, run: int) -> torch.Tensor:
+    """The chunk offsets (C,) -> (ceil(E / run) + 1,): the chunk that
+    starts at each run's first entry, then C."""
+    starts = torch.arange(0, E, run, device=off.device)
+    return torch.cat([torch.searchsorted(off, starts),
+                      starts.new_full((1,), off.numel())])
+
+
 def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
-                    events_per_thread: int = EVENTS_PER_THREAD
-                    ) -> BucketSchedule:
+                    events_per_thread: int | None = None,
+                    run: int | None = None) -> BucketSchedule:
     """Digits (k, W, n) -> the schedule of the accumulate and the reduce,
     in plain torch: the reference ``msm_schedule`` is held to, on no path
     of the port (on the card it waits for the host four times: the nonzero
-    count, ``bincount``'s min and max, the totals).  The reduce threads a
-    window follow the busiest window (``_window_threads``).  Raises
-    ValueError when ``schedule_bound`` exceeds ``MAX_SCHEDULE_ENTRIES``:
-    the int32 arrays would wrap (``point_ranges`` splits such an MSM)."""
+    count, ``bincount``'s min and max, the totals).  The route by the
+    shapes (``accumulate_run``) unless ``run`` is given (0: the chunk
+    route, whose chunk is ``chunk``); the reduce threads a window follow
+    the busiest window, by the route's rule (``window_threads``) or at
+    ``events_per_thread`` where given (``_window_threads``).  Raises
+    ValueError when
+    ``schedule_bound`` exceeds ``MAX_SCHEDULE_ENTRIES``: the int32 arrays
+    would wrap (``point_ranges`` splits such an MSM)."""
     k, W, n = digits.shape
     half = 1 << (c - 1)
     _check_bound(k, W, n, c, "bucket_schedule")
-    dev = digits.device
+    if run is None:
+        run = accumulate_run(k, W, n, c)
     flat = digits.reshape(-1)
     sel = torch.nonzero(flat & MAG_MASK).squeeze(1)     # (set, window, i)
     d = flat[sel].to(torch.int64)
@@ -258,21 +375,20 @@ def bucket_schedule(digits: torch.Tensor, c: int, chunk: int = CHUNK,
     payload = (((sel % n) << 1) | (d >> SIGN_SHIFT)).to(torch.int32)
     keys, perm = torch.sort(key, stable=True)
     entries = payload[perm]
-    nb = k * W * half
-    counts = torch.bincount(keys, minlength=nb)
-    per = (counts + chunk - 1) // chunk
-    bco = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
-    per_window = bco[half::half] - bco[:-1:half]
-    chunks, busiest = torch.stack([bco[-1], per_window.max()]).tolist()
-    bucket = torch.repeat_interleave(
-        torch.arange(nb, device=dev), per, output_size=chunks)
-    rank = torch.arange(chunks, device=dev) - bco[bucket]
+    counts = torch.bincount(keys, minlength=k * W * half)
     start = torch.cumsum(counts, 0) - counts
-    chunk_off = torch.cat([start[bucket] + rank * chunk,
-                           start.new_full((1,), sel.numel())])
-    return BucketSchedule(entries, chunk_off.to(torch.int32),
-                          bco.to(torch.int32),
-                          _window_threads(busiest, half, events_per_thread))
+    bco, off, busiest = _chunks_plain(start, counts, half, chunk, run)
+    E = sel.numel()
+    chunk_off = torch.cat([off, start.new_full((1,), E)]).to(torch.int32)
+    runs = None
+    if run:
+        runs = _run_chunks_plain(off, E, run).to(torch.int32)
+        entries[off] |= CHUNK_START
+    threads = (_window_threads(busiest, half, events_per_thread)
+               if events_per_thread else
+               window_threads(busiest, half, k * W, run))
+    return BucketSchedule(entries, chunk_off, bco.to(torch.int32), threads,
+                          runs)
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +406,8 @@ class SchedulePlan(NamedTuple):
     ``MAX_PASS_BITS`` bits (512 bins) a pass.  ``tile``: entries a tile,
     one block of each kernel, an eighth of n rounded up to a power of two
     within ``SORT_TILES`` (so a small n still spreads over the SMs);
-    ``tiles`` a segment.
+    ``tiles`` a segment.  ``run``: the accumulate's route, L entries a run
+    of the range route or 0 for the chunk route (``accumulate_run``).
     """
     sets: int
     windows: int
@@ -299,6 +416,7 @@ class SchedulePlan(NamedTuple):
     passes: tuple
     tile: int
     tiles: int
+    run: int = 0
 
     @property
     def segments(self) -> int:
@@ -320,18 +438,28 @@ class SchedulePlan(NamedTuple):
 
     @property
     def chunk_capacity(self) -> int:
-        """Entries of the chunk offsets' buffer: C + 1 for any digits.  A
-        bucket of m entries makes ceil(m / CHUNK) <= m / CHUNK + 1 chunks,
-        and every chunk holds an entry."""
+        """Entries of the chunk offsets' buffer: C + 1 for any digits.
+        Every chunk holds an entry; on the chunk route a bucket of m
+        entries makes ceil(m / CHUNK) <= m / CHUNK + 1 chunks, on the range
+        route the chunks start at a nonempty bucket's start or at one of
+        the ceil(E / L) runs' starts."""
         m = self.digits
-        return min(m, m // CHUNK + min(m, self.buckets)) + 1
+        per = -(-m // self.run) if self.run else m // CHUNK
+        return min(m, per + min(m, self.buckets)) + 1
+
+    @property
+    def run_capacity(self) -> int:
+        """Entries of the run chunks' buffer on the range route: R + 1 with
+        R = ceil(E / L) runs for any digits (1 on the chunk route)."""
+        return -(-self.digits // self.run) + 1 if self.run else 1
 
 
 def schedule_plan(sets: int, n: int, windows: int, c: int) -> SchedulePlan:
     """The plan of k = ``sets`` sets of W = ``windows`` c-bit windows over
     n points: as few passes as keep each at ``MAX_PASS_BITS`` bits or less,
-    the low pass taking the odd bit; the tile by n.  Raises ValueError past
-    ``MAX_SCHEDULE_ENTRIES`` (``bucket_schedule``'s bound)."""
+    the low pass taking the odd bit; the tile by n; the route by the shapes
+    (``accumulate_run``).  Raises ValueError past ``MAX_SCHEDULE_ENTRIES``
+    (``bucket_schedule``'s bound)."""
     if not 2 <= c <= MAX_WINDOW_BITS:
         raise ValueError(f"window width {c} outside 2..{MAX_WINDOW_BITS}")
     _check_bound(sets, windows, n, c, "msm_schedule")
@@ -345,7 +473,7 @@ def schedule_plan(sets: int, n: int, windows: int, c: int) -> SchedulePlan:
     lo, hi = SORT_TILES
     tile = min(hi, max(lo, (1 << (max(n, 1) - 1).bit_length()) // 8))
     return SchedulePlan(sets, windows, n, c, tuple(passes), tile,
-                        -(-n // tile))
+                        -(-n // tile), accumulate_run(sets, windows, n, c))
 
 
 def msm_digits_plain(scalars: torch.Tensor, plan: SchedulePlan):
@@ -458,10 +586,11 @@ def msm_sort(keys: torch.Tensor, pay: torch.Tensor, hist: torch.Tensor,
     return src[0], src[1], base
 
 
-def msm_bucket_offsets_plain(keys: torch.Tensor, base: torch.Tensor,
-                             plan: SchedulePlan):
+def msm_bucket_offsets_plain(keys: torch.Tensor, pay: torch.Tensor,
+                             base: torch.Tensor, plan: SchedulePlan):
     """Plain version of ``msm_bucket_offsets``: bucket bounds from the runs
-    of the sorted keys, chunks scanned a segment and across segments."""
+    of the sorted keys, chunks (``_chunks_plain``) scanned a segment and
+    across segments; on the range route the chunk starts marked in pay."""
     S, half, dev = plan.segments, plan.half, keys.device
     nb, E = plan.buckets, int(base[-1])
     sk = keys[:E].to(torch.int64)
@@ -474,37 +603,40 @@ def msm_bucket_offsets_plain(keys: torch.Tensor, base: torch.Tensor,
     end = torch.zeros_like(start)
     start[sk[first]] = p[first]
     end[sk[last]] = p[last] + 1
-    per = ((end - start + CHUNK - 1) // CHUNK).reshape(S, half)
-    tot = per.sum(1)
-    cbase = torch.cat([tot.new_zeros(1), torch.cumsum(tot, 0)])
-    bco = torch.cat([(torch.cumsum(per, 1) - per + cbase[:-1, None]
-                      ).reshape(-1), cbase[-1:]])
-    C = int(cbase[-1])
-    bucket = torch.repeat_interleave(torch.arange(nb, device=dev),
-                                     per.reshape(-1), output_size=C)
-    rank = torch.arange(C, device=dev) - bco[bucket]
+    bco, off, busiest = _chunks_plain(start, end - start, half, CHUNK,
+                                      plan.run)
+    C = off.numel()
     chunk_off = torch.zeros(plan.chunk_capacity, dtype=torch.int64,
                             device=dev)
-    chunk_off[:C] = start[bucket] + rank * CHUNK
+    chunk_off[:C] = off
     chunk_off[C] = E
-    info = torch.tensor([C, int(tot.max()), E], device=dev)
+    runs = torch.zeros(plan.run_capacity, dtype=torch.int64, device=dev)
+    if plan.run:
+        got = _run_chunks_plain(off, E, plan.run)
+        runs[:got.numel()] = got
+        pay[off] |= CHUNK_START
+    info = torch.tensor([C, busiest, E], device=dev)
     return (bco.to(torch.int32), chunk_off.to(torch.int32),
-            info.to(torch.int32))
+            runs.to(torch.int32), info.to(torch.int32))
 
 
-def msm_bucket_offsets(keys: torch.Tensor, base: torch.Tensor,
-                       plan: SchedulePlan):
-    """Step 2's offsets: ``msm_sort``'s keys and base -> bucket_chunks
-    (k W 2^(c-1) + 1,), the chunk offsets (C + 1 entries of
-    ``plan.chunk_capacity``) and info (3,): C, the busiest window's chunks
-    and E."""
-    if cuda_fr._on_cpu(keys, base):
-        return msm_bucket_offsets_plain(keys, base, plan)
-    cuda_fr._require_cuda("msm_bucket_offsets", keys, base)
+def msm_bucket_offsets(keys: torch.Tensor, pay: torch.Tensor,
+                       base: torch.Tensor, plan: SchedulePlan):
+    """Step 2's offsets: ``msm_sort``'s keys, payloads and base ->
+    bucket_chunks (k W 2^(c-1) + 1,), the chunk offsets (C + 1 entries of
+    ``plan.chunk_capacity``), the run chunks (on the range route
+    ceil(E / L) + 1 entries of ``plan.run_capacity``) and info (3,): C,
+    the busiest window's chunks and E.  On the range route each chunk's
+    first payload gets ``CHUNK_START``, in place."""
+    if cuda_fr._on_cpu(keys, pay, base):
+        return msm_bucket_offsets_plain(keys, pay, base, plan)
+    cuda_fr._require_cuda("msm_bucket_offsets", keys, pay, base)
     S, nb, dev = plan.segments, plan.buckets, keys.device
-    if keys.shape != (plan.digits,) or base.shape != (S + 1,):
+    if keys.shape != (plan.digits,) or pay.shape != keys.shape \
+            or base.shape != (S + 1,):
         raise ValueError(f"msm_bucket_offsets: keys {tuple(keys.shape)}, "
-                         f"base {tuple(base.shape)}")
+                         f"payloads {tuple(pay.shape)}, base "
+                         f"{tuple(base.shape)}")
 
     def scratch(m):
         return torch.empty(m, dtype=torch.int32, device=dev)
@@ -512,13 +644,16 @@ def msm_bucket_offsets(keys: torch.Tensor, base: torch.Tensor,
         scratch(1)
     bco, chunk_off, info = scratch(nb + 1), scratch(plan.chunk_capacity), \
         scratch(3)
+    runs = scratch(plan.run_capacity)
     count_launch("msm_bucket_offsets", 4)
     check(cuda_lib().kzg_msm_bucket_offsets(
         keys.data_ptr(), base.data_ptr(), S, plan.half, plan.digits, CHUNK,
-        bounds.data_ptr(), tot.data_ptr(), cbase.data_ptr(), most.data_ptr(),
-        bco.data_ptr(), chunk_off.data_ptr(), info.data_ptr(),
-        cuda_fr._stream(keys)), "msm_bucket_offsets")
-    return bco, chunk_off, info
+        plan.run, bounds.data_ptr(), tot.data_ptr(), cbase.data_ptr(),
+        most.data_ptr(), bco.data_ptr(), chunk_off.data_ptr(),
+        runs.data_ptr(), pay.data_ptr(), info.data_ptr(),
+        cuda_fr._stream(keys)),
+        "msm_bucket_offsets")
+    return bco, chunk_off, runs, info
 
 
 def msm_schedule(scalars: torch.Tensor, total_bits: int, c: int
@@ -531,12 +666,14 @@ def msm_schedule(scalars: torch.Tensor, total_bits: int, c: int
     plan = schedule_plan(k, n, num_windows(total_bits, c), c)
     keys, pay, hist = msm_digits(scalars.contiguous(), plan)
     keys, pay, base = msm_sort(keys, pay, hist, plan)
-    bco, chunk_off, info = msm_bucket_offsets(keys, base, plan)
+    bco, chunk_off, runs, info = msm_bucket_offsets(keys, pay, base, plan)
     count_sync("msm.tolist")
     chunks, busiest, entries = info.tolist()
-    return BucketSchedule(pay[:entries], chunk_off[:chunks + 1], bco,
-                          _window_threads(busiest, plan.half,
-                                          EVENTS_PER_THREAD))
+    L = plan.run
+    return BucketSchedule(
+        pay[:entries], chunk_off[:chunks + 1], bco,
+        window_threads(busiest, plan.half, plan.segments, L),
+        runs[:-(-entries // L) + 1] if L else None)
 
 
 def point_table(points: torch.Tensor) -> torch.Tensor:
@@ -552,8 +689,8 @@ def point_table(points: torch.Tensor) -> torch.Tensor:
 
 def _load_entries(f, xy: torch.Tensor, ent: torch.Tensor):
     """Entries (m,) -> affine planes (L, m), y negated for a negative
-    digit."""
-    e = ent.to(torch.int64)
+    digit (the chunk-start bit dropped)."""
+    e = ent.to(torch.int64) & 0x7FFFFFFF
     pt = xy[e >> 1]
     L = xy.shape[1] // 2
     x, y = pt[:, :L].t(), pt[:, L:].t()
@@ -564,7 +701,9 @@ def msm_accumulate_plain(fc: FieldConsts, xy: torch.Tensor,
                          entries: torch.Tensor, chunk_off: torch.Tensor,
                          complete: bool) -> torch.Tensor:
     """Plain version of the accumulate, vectorized over chunks: the first
-    entry loaded with Z = 1, the rest mixed-added in order."""
+    entry loaded with Z = 1, the rest mixed-added in order.  A chunk's
+    partial does not depend on which thread walks it, so it serves both
+    routes."""
     f = cuda_fr.PlainField(fc)
     madd = (cuda_fr.add_mixed_formula if complete
             else cuda_fr.add_mixed_fast_formula)
@@ -586,25 +725,35 @@ def msm_accumulate_plain(fc: FieldConsts, xy: torch.Tensor,
 
 
 def msm_accumulate(fc: FieldConsts, xy: torch.Tensor, entries: torch.Tensor,
-                   chunk_off: torch.Tensor, complete: bool) -> torch.Tensor:
+                   chunk_off: torch.Tensor, complete: bool,
+                   run_chunks: torch.Tensor | None = None) -> torch.Tensor:
     """K8: xy (n, 2 L) points, sorted entries (E,), chunk offsets (C + 1,)
-    -> chunk partials (3, L, C) Jacobian."""
+    -> chunk partials (3, L, C) Jacobian.  One thread a chunk, or, given
+    the range route's ``run_chunks`` (R + 1,), one thread a run."""
     if cuda_fr._on_cpu(xy, entries, chunk_off):
         return msm_accumulate_plain(fc, xy, entries, chunk_off, complete)
     cuda_fr._require_cuda("msm_accumulate", xy, entries, chunk_off)
     L = fc.num_limbs
     if xy.dim() != 2 or xy.shape[1] != 2 * L or entries.dim() != 1 \
-            or chunk_off.dim() != 1 or chunk_off.numel() < 1:
+            or chunk_off.dim() != 1 or chunk_off.numel() < 1 \
+            or (run_chunks is not None and (run_chunks.dim() != 1
+                                            or run_chunks.numel() < 1)):
         raise ValueError(
             f"msm_accumulate: points {tuple(xy.shape)}, entries "
-            f"{tuple(entries.shape)}, chunk offsets {tuple(chunk_off.shape)}")
+            f"{tuple(entries.shape)}, chunk offsets {tuple(chunk_off.shape)}"
+            f", run chunks {None if run_chunks is None else tuple(run_chunks.shape)}")
     chunks = chunk_off.numel() - 1
     out = torch.empty((3, L, chunks), dtype=torch.int32, device=xy.device)
+    if run_chunks is None:
+        threads, runs = chunks, None
+    else:
+        cuda_fr._require_cuda("msm_accumulate", run_chunks)
+        threads, runs = run_chunks.numel() - 1, run_chunks.data_ptr()
     if chunks:
         count_launch("msm_accumulate", limbs=L)
         check(cuda_lib().kzg_msm_accumulate(
-            xy.data_ptr(), entries.data_ptr(), chunk_off.data_ptr(), chunks,
-            out.data_ptr(), int(bool(complete)), fc.ptr,
+            xy.data_ptr(), entries.data_ptr(), chunk_off.data_ptr(), runs,
+            threads, chunks, out.data_ptr(), int(bool(complete)), fc.ptr,
             cuda_fr._stream(xy)), "msm_accumulate")
     return out
 
@@ -843,9 +992,12 @@ class FusedMsm:
     def _bucket_msm(self, table, sets, complete: bool) -> torch.Tensor:
         k, c, W, sched = self.schedule(sets, table.shape[0])
         fc = self.curve.f.consts
+        count_msm_route("chunks" if sched.run_chunks is None else "ranges",
+                        sched.chunk_off.numel() - 1)
         with span("msm.accumulate"):
             partials = msm_accumulate(fc, table, sched.entries,
-                                      sched.chunk_off, complete)
+                                      sched.chunk_off, complete,
+                                      sched.run_chunks)
         with span("msm.reduce"):
             return msm_reduce(fc, partials, sched.bucket_chunks, k, W, c,
                               sched.window_threads)

@@ -26,7 +26,9 @@ or points (:func:`launch_widths`) and at which limb count
 beside them (:func:`count_collective`, :func:`collective_counts`), and
 every place where the host waits for the card (a blocking copy, a value
 read back, a synchronize) counts its waits under its site's name
-(:func:`count_sync`, :func:`sync_counts`).
+(:func:`count_sync`, :func:`sync_counts`), and every bucket MSM call counts
+its accumulate's route and the partials it wrote (:func:`count_msm_route`,
+:func:`msm_route_counts`).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ CUDA_ENTRIES = {
     "kzg_ntt_tile": [_INT],
     "kzg_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P, _P],
     "kzg_fr_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
-    "kzg_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P, _P],
+    "kzg_msm_accumulate": [_P, _P, _P, _P, _I64, _I64, _P, _INT, _P, _P],
     "kzg_msm_acc_blocks_per_sm": [_INT, _INT],
     "kzg_msm_acc_threads": [],
     "kzg_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P, _P],
@@ -80,8 +82,8 @@ CUDA_ENTRIES = {
                        _P, _P],
     "kzg_msm_sort_pass": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _I64, _INT,
                           _INT, _INT, _P, _P, _P],
-    "kzg_msm_bucket_offsets": [_P, _P, _I64, _I64, _I64, _INT, _P, _P, _P,
-                               _P, _P, _P, _P, _P],
+    "kzg_msm_bucket_offsets": [_P, _P, _I64, _I64, _I64, _INT, _INT, _P,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "kzg_msm_grouped_schedule": [_P, _I64, _I64, _I64, _INT, _INT, _INT, _P,
                                  _P, _P, _P],
     "kzg_msm_accumulate_grouped": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
@@ -106,7 +108,9 @@ HOST_ENTRIES = {
     "host_ntt_tile": [_INT],
     "host_ntt_pass": [_P, _P, _P, _I64, _INT, _INT, _INT, _P],
     "host_g1_fixed_base_table": [_P, _P, _INT, _INT, _P],
-    "host_msm_accumulate": [_P, _P, _P, _I64, _P, _INT, _P],
+    "host_msm_accumulate": [_P, _P, _P, _P, _I64, _I64, _P, _INT, _P],
+    "host_msm_bucket_offsets": [_P, _I64, _I64, _I64, _INT, _INT, _P, _P, _P,
+                                _P, _P],
     "host_msm_window_sums": [_P, _I64, _P, _I64, _I64, _INT, _I64, _P, _P],
     "host_msm_horner": [_P, _I64, _INT, _INT, _INT, _P, _P],
     "host_scan_tile": [],
@@ -136,6 +140,9 @@ COLLECTIVES: collections.Counter = collections.Counter()
 COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 # site -> host waits on the device.
 SYNCS: collections.Counter = collections.Counter()
+# MSM route -> bucket MSM calls and the chunk partials their accumulate wrote.
+MSM_ROUTES: collections.Counter = collections.Counter()
+MSM_PARTIALS: collections.Counter = collections.Counter()
 
 
 def _width_class(width: int) -> str:
@@ -168,14 +175,25 @@ def count_sync(site: str, waits: int = 1) -> None:
     SYNCS[site] += waits
 
 
+def count_msm_route(route: str, partials: int) -> None:
+    """Count one bucket MSM call on ``route`` ("chunks" or "ranges",
+    ``ops/msm_kernel.accumulate_run``) that wrote ``partials`` chunk
+    partials.  The count is read with the schedule's one wait, so it costs
+    none."""
+    MSM_ROUTES[route] += 1
+    MSM_PARTIALS[route] += partials
+
+
 def reset_launches() -> None:
-    """Set the launch, collective and sync counts to 0."""
+    """Set the launch, collective, sync and MSM route counts to 0."""
     LAUNCHES.clear()
     LAUNCH_WIDTHS.clear()
     LAUNCH_LIMBS.clear()
     COLLECTIVES.clear()
     COLLECTIVE_BYTES.clear()
     SYNCS.clear()
+    MSM_ROUTES.clear()
+    MSM_PARTIALS.clear()
 
 
 def launch_counts() -> dict[str, int]:
@@ -185,6 +203,12 @@ def launch_counts() -> dict[str, int]:
 def sync_counts() -> dict[str, int]:
     """{site: host waits} since the last reset."""
     return dict(SYNCS)
+
+
+def msm_route_counts() -> dict[str, dict[str, int]]:
+    """{route: {"calls": k, "partials": p}} since the last reset."""
+    return {route: {"calls": k, "partials": MSM_PARTIALS[route]}
+            for route, k in sorted(MSM_ROUTES.items())}
 
 
 def collective_counts() -> dict[str, dict[str, int]]:

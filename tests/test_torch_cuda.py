@@ -470,7 +470,7 @@ def test_schedule_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         mk.msm_sort(flat, flat, hist, plan)
     with pytest.raises(ValueError, match="CUDA"):
-        mk.msm_bucket_offsets(flat, base, plan)
+        mk.msm_bucket_offsets(flat, flat, base, plan)
 
 
 # (sets, n, scalar bits, c) of the schedule's card tests: the 2^20 cell's
@@ -522,9 +522,13 @@ def test_schedule_kernels_match_plain(cuda, shape, skew):
     assert torch.equal(base.cpu(), wbase)
     assert torch.equal(keys[:E].cpu(), wkeys[:E])
     assert torch.equal(pay[:E].cpu(), wpay[:E])
-    bco, chunk_off, info = mk.msm_bucket_offsets(keys, base, plan)
-    wbco, wchunk_off, winfo = mk.msm_bucket_offsets(wkeys, wbase, plan)
+    bco, chunk_off, runs, info = mk.msm_bucket_offsets(keys, pay, base,
+                                                       plan)
+    wbco, wchunk_off, _, winfo = mk.msm_bucket_offsets(wkeys, wpay, wbase,
+                                                       plan)
     C = int(winfo[0])
+    assert plan.run == 0 and runs.numel() == 1
+    assert torch.equal(pay[:E].cpu(), wpay[:E])
     assert torch.equal(info.cpu(), winfo) and torch.equal(bco.cpu(), wbco)
     assert torch.equal(chunk_off[:C + 1].cpu(), wchunk_off[:C + 1])
     assert {name: LAUNCHES[name] - before[name]
@@ -536,6 +540,77 @@ def test_schedule_kernels_match_plain(cuda, shape, skew):
     for field in ("entries", "chunk_off", "bucket_chunks"):
         assert torch.equal(getattr(got, field), getattr(ref, field)), field
     assert got.window_threads == ref.window_threads
+    assert got.run_chunks is None and ref.run_chunks is None
+
+
+def smallest_range_shape(bits=254):
+    """The fewest points, in steps of 4096, at which one set takes the
+    range route (``accumulate_run`` with the real ``ACC_FILL_THREADS``)."""
+    n = 4096
+    while True:
+        c = mk.window_bits(n)
+        W = mk.num_windows(bits, c)
+        if mk.accumulate_run(1, W, n, c):
+            return n, c, W
+        n += 4096
+
+
+@pytest.mark.cuda
+def test_range_route_kernels_match_plain(cuda):
+    """At the smallest one-set shape where the rule takes the range route:
+    msm_bucket_offsets (bucket and chunk offsets, the runs' first chunks,
+    info) against its plain version and msm_schedule against
+    bucket_schedule(signed_digits) with run_chunks; msm_accumulate over
+    the runs (both adds, one launch) against the plain partials; both
+    reduce launches against their plain versions; FusedMsm.msm counts one
+    call on the range route with its partials."""
+    from kzg_snark_tpu_torch.ops.benchpoints import random_point_basis
+    from kzg_snark_tpu_torch.utils import build
+
+    n, c, W = smallest_range_shape()
+    plan = mk.schedule_plan(1, n, W, c)
+    assert mk.CHUNK < plan.run <= 64
+    sets = skewed_sets(1, n, "random", 80)
+    sets[0, :, : n // 8] = sets[0, :, :1]        # heavy buckets over runs
+    sc = sets.to(cuda)
+    keys, pay, base = mk.msm_sort(*mk.msm_digits(sc, plan), plan)
+    wpay = pay.clone()
+    got = mk.msm_bucket_offsets(keys, pay, base, plan)
+    want = mk.msm_bucket_offsets_plain(keys, wpay, base, plan)
+    C, _, E = (int(v) for v in want[3])
+    R = -(-E // plan.run)
+    assert torch.equal(pay[:E], wpay[:E])
+    assert int((pay[:E] < 0).sum()) == C
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[1][:C + 1], want[1][:C + 1])
+    assert torch.equal(got[2][:R + 1], want[2][:R + 1])
+    s = mk.msm_schedule(sc, 254, c)
+    ref = mk.bucket_schedule(mk.signed_digits(sc, 254, c), c)
+    for field in ("entries", "chunk_off", "bucket_chunks", "run_chunks"):
+        assert torch.equal(getattr(s, field), getattr(ref, field)), field
+    assert s.window_threads == ref.window_threads
+    assert s.run_chunks.numel() == R + 1 and C < E // mk.CHUNK
+    fq = fq_backend("bn254", cuda).consts
+    pts, _ = random_point_basis("bn254", n, seed=4, device=cuda)
+    xy = mk.point_table(pts)
+    for complete in (False, True):
+        before = LAUNCHES["msm_accumulate"]
+        part = mk.msm_accumulate(fq, xy, s.entries, s.chunk_off, complete,
+                                 s.run_chunks)
+        assert LAUNCHES["msm_accumulate"] == before + 1
+        assert torch.equal(part, mk.msm_accumulate_plain(
+            fq, xy, s.entries, s.chunk_off, complete))
+    wparts = mk.reduce_window_sums(fq, part, s.bucket_chunks, W, c,
+                                   s.window_threads)
+    assert torch.equal(wparts, mk.window_sums_plain(
+        fq, part, s.bucket_chunks, W, c, s.window_threads))
+    res = mk.reduce_horner(fq, wparts, 1, W, c)
+    assert torch.equal(res, mk.horner_plain(fq, wparts, 1, W, c))
+    build.reset_launches()
+    assert torch.equal(mk.FusedMsm("bn254", cuda).msm(pts, sc, complete=True),
+                       res)
+    assert build.msm_route_counts() == {"ranges": {"calls": 1,
+                                                   "partials": C}}
 
 
 @pytest.mark.parametrize("curve_type, k", [("bn254", 8), ("bls12_381", 9)])

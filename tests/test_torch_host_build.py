@@ -662,8 +662,9 @@ def _check_accumulate(lib, complete, curve_type):
     part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, complete)
     out = np.empty(tuple(part.shape), dtype=np.uint32)
     xyw, ent, off = _words(xy), _words(s.entries), _words(s.chunk_off)
-    lib.host_msm_accumulate(_ptr(xyw), _ptr(ent), _ptr(off), part.shape[-1],
-                            _ptr(out), int(complete), fc.ptr)
+    lib.host_msm_accumulate(_ptr(xyw), _ptr(ent), _ptr(off), None,
+                            part.shape[-1], part.shape[-1], _ptr(out),
+                            int(complete), fc.ptr)
     assert np.array_equal(out, _words(part))
 
 
@@ -686,8 +687,8 @@ def test_msm_accumulate_structured(lib, curve_type, complete):
     part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, complete)
     out = np.empty(tuple(part.shape), dtype=np.uint32)
     lib.host_msm_accumulate(_ptr(_words(xy)), _ptr(_words(s.entries)),
-                            _ptr(_words(s.chunk_off)), part.shape[-1],
-                            _ptr(out), int(complete), fc.ptr)
+                            _ptr(_words(s.chunk_off)), None, part.shape[-1],
+                            part.shape[-1], _ptr(out), int(complete), fc.ptr)
     assert np.array_equal(out, _words(part))
     from kzg_snark_tpu_torch.ops.g1 import curve_ops
     first = curve_ops(curve_type, "cpu").to_affine_ints(part[..., :1])[0]
@@ -976,3 +977,180 @@ def test_chain_ptx_interpreted(modulus):
         _run_ptx(steps[W, "final_sub"], env)
         got = sum(v << (32 * j) for j, v in enumerate(env["t"][:W]))
         assert got == x * x * pow(R, -1, p) % p, x
+
+
+# The range route (one accumulate thread a run of L sorted entries, a
+# partial at each bucket end): its offsets, its walk and the window sums
+# over its partials, on the CPU at c = 5 (16 buckets a window), where 600
+# points load each bucket with about 37 entries.
+RANGE_N, RANGE_C = 600, 5
+
+
+def _range_case(curve_type, seed=8):
+    """Points, W and the digits of three sets at c = 5: the first with
+    half its scalars equal (a heavy bucket a window, spanning several runs
+    of every L below 300), one random, one all zero (every window empty);
+    the top window holds a few heavy buckets."""
+    n, c = RANGE_N, RANGE_C
+    pts = _basis(n, curve_type)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(3, 8, n), dtype=np.uint64)
+    words[:, 7] &= (1 << 29) - 1
+    words[0, :, :n // 2] = words[0, :, :1]
+    words[2] = 0
+    bits = fr_backend(curve_type, "cpu").modulus.bit_length()
+    dig = signed_digits(to_tensor(words.astype(np.uint32), "cpu"), bits, c)
+    return pts, dig.shape[1], dig
+
+
+@pytest.mark.parametrize("run", [0, 1, 4, 32, 128])
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_bucket_offsets_routes(lib, curve_type, run):
+    """``msm_chunks.cuh`` under g++ a bucket at a time, as the offsets
+    kernels run it, against the plain offsets and ``bucket_schedule``:
+    the chunk route (run 0) and runs of 1, 4, 32 and 128 entries, so a
+    bucket spans several runs and a run several buckets (the top window's
+    few heavy ones, the empty windows of the all-zero set)."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    _, W, dig = _range_case(curve_type)
+    k, c = dig.shape[0], RANGE_C
+    plan = mk.schedule_plan(k, RANGE_N, W, c)._replace(run=run)
+    flat = dig.reshape(-1).to(torch.int64)
+    mag = flat & mk.MAG_MASK
+    seg = torch.arange(flat.numel()) // RANGE_N
+    keys = torch.sort(torch.where(mag > 0, seg * plan.half + mag - 1,
+                                  1 << 30))[0]
+    E = int((mag > 0).sum())
+    keys = keys.to(torch.int32)
+    pay = torch.arange(keys.numel(), dtype=torch.int32) << 1
+    base = torch.tensor([0] * plan.segments + [E], dtype=torch.int32)
+    hp = np.ascontiguousarray(pay[:E].numpy())
+    bco, chunk_off, runs, info = mk.msm_bucket_offsets_plain(keys, pay, base,
+                                                             plan)
+    hb = np.zeros(plan.buckets + 1, np.int32)
+    hc = np.zeros(plan.chunk_capacity, np.int32)
+    hr = np.zeros(plan.run_capacity, np.int32)
+    hi = np.zeros(3, np.int32)
+    kw = np.ascontiguousarray(keys[:E].numpy())
+    assert lib.host_msm_bucket_offsets(
+        _ptr(kw), E, plan.segments, plan.half, mk.CHUNK, run, _ptr(hb),
+        _ptr(hc), _ptr(hr), _ptr(hp), _ptr(hi)) == 0
+    C = int(info[0])
+    assert np.array_equal(hi, info.numpy()) and int(info[2]) == E
+    # The chunk-start bits: on the range route at every chunk's first
+    # entry, on the chunk route none.
+    assert np.array_equal(hp, pay[:E].numpy())
+    assert int((pay[:E] < 0).sum()) == (C if run else 0)
+    assert np.array_equal(hb, bco.numpy())
+    assert np.array_equal(hc[:C + 1], chunk_off[:C + 1].numpy())
+    ref = bucket_schedule(dig, c, run=run)
+    assert torch.equal(ref.chunk_off, chunk_off[:C + 1])
+    assert torch.equal(ref.bucket_chunks, bco)
+    if run:
+        R = -(-E // run)
+        assert np.array_equal(hr[:R + 1], runs[:R + 1].numpy())
+        assert torch.equal(ref.run_chunks, runs[:R + 1])
+        # Some bucket spans three runs or more; below L = 37 some run
+        # crosses three buckets or more.
+        per = bco.diff()
+        assert int(per.max()) >= 3
+        if run >= 32:
+            assert int(runs.diff()[:R].max()) >= 3
+    else:
+        assert ref.run_chunks is None
+        assert int(chunk_off[:C + 1].diff().max()) <= mk.CHUNK
+
+
+@pytest.mark.parametrize("complete", [False, True])
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_accumulate_range_walk(lib, curve_type, complete):
+    """The accumulate's run walk under g++ (one thread a run of 32 entries:
+    restarts at bucket ends, the prefetch across them) against the plain
+    partials of the same chunks, both adds, both limb counts."""
+    pts, _, dig = _range_case(curve_type)
+    s = bucket_schedule(dig, RANGE_C, run=32)
+    fc = fq_backend(curve_type, "cpu").consts
+    xy = point_table(pts)
+    part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, complete)
+    out = np.empty(tuple(part.shape), dtype=np.uint32)
+    runs = s.run_chunks.numel() - 1
+    lib.host_msm_accumulate(_ptr(_words(xy)), _ptr(_words(s.entries)),
+                            _ptr(_words(s.chunk_off)),
+                            _ptr(_words(s.run_chunks)), runs, part.shape[-1],
+                            _ptr(out), int(complete), fc.ptr)
+    assert np.array_equal(out, _words(part))
+
+
+@pytest.mark.parametrize("run", [3, 32])
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_accumulate_range_structured(lib, curve_type, run):
+    """[(i + 1) G] with every scalar 1 on the range route with complete
+    adds: window 0's bucket 1 holds all 136 points, cut every L entries, so
+    each run restarts the bucket from its first point (Z = 1) and the first
+    chunk's G + 2G meets 3G; the partials add up to 136 * 137 / 2 G."""
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    n, c = 136, 8
+    pts = generator_multiples(curve_type, n, "cpu")
+    fc = fq_backend(curve_type, "cpu").consts
+    ones = torch.zeros((1, 8, n), dtype=torch.int32)
+    ones[0, 0] = 1
+    bits = fr_backend(curve_type, "cpu").modulus.bit_length()
+    s = bucket_schedule(signed_digits(ones, bits, c), c, run=run)
+    assert s.chunk_off.numel() - 1 == -(-n // run)
+    xy = point_table(pts)
+    part = msm_accumulate_plain(fc, xy, s.entries, s.chunk_off, True)
+    out = np.empty(tuple(part.shape), dtype=np.uint32)
+    lib.host_msm_accumulate(_ptr(_words(xy)), _ptr(_words(s.entries)),
+                            _ptr(_words(s.chunk_off)),
+                            _ptr(_words(s.run_chunks)),
+                            s.run_chunks.numel() - 1, part.shape[-1],
+                            _ptr(out), 1, fc.ptr)
+    assert np.array_equal(out, _words(part))
+    from kzg_snark_tpu_torch.ops.g1 import generator
+    from kzg_snark_tpu_torch.ops.host import curve as hc
+    from kzg_snark_tpu_torch.ops.host.field import base_field
+    curve = curve_ops(curve_type, "cpu")
+    total = part[..., :1]
+    for j in range(1, part.shape[-1]):
+        total = curve.add(total, part[..., j:j + 1])
+    Fp = base_field(curve_type)
+    gx, gy = generator(curve_type)
+    a = hc.normalize(hc.multiply((Fp(gx), Fp(gy), Fp(1)), n * (n + 1) // 2))
+    assert curve.to_affine_ints(total) == [(int(a[0]), int(a[1]))]
+    # The first chunk is G + ... + L G = L (L + 1) / 2 G.
+    a = hc.normalize(hc.multiply((Fp(gx), Fp(gy), Fp(1)),
+                                 run * (run + 1) // 2))
+    assert curve.to_affine_ints(part[..., :1]) == [(int(a[0]), int(a[1]))]
+
+
+@pytest.mark.parametrize("curve_type", ["bn254", "bls12_381"])
+def test_msm_reduce_range_partials(lib, curve_type):
+    """Both reduce launches under g++ over the range route's partials (L =
+    32), whose windows hold fewer partials than the chunk route's; the
+    result equals the chunk route's MSM."""
+    pts, W, dig = _range_case(curve_type)
+    k, c = dig.shape[0], RANGE_C
+    fc = fq_backend(curve_type, "cpu").consts
+    results = []
+    for run in (32, 0):
+        s = bucket_schedule(dig, c, run=run)
+        part = msm_accumulate_plain(fc, point_table(pts), s.entries,
+                                    s.chunk_off, True)
+        wp = window_sums_plain(fc, part, s.bucket_chunks, k * W, c,
+                               s.window_threads)
+        out = np.empty(tuple(wp.shape), dtype=np.uint32)
+        lib.host_msm_window_sums(_ptr(_words(part)), part.shape[-1],
+                                 _ptr(_words(s.bucket_chunks)), k * W,
+                                 1 << (c - 1), c, s.window_threads, _ptr(out),
+                                 fc.ptr)
+        assert np.array_equal(out, _words(wp))
+        res = horner_plain(fc, wp, k, W, c)
+        got = np.empty(tuple(res.shape), dtype=np.uint32)
+        lib.host_msm_horner(_ptr(out), k, W, wp.shape[-1] // (k * W), c,
+                            _ptr(got), fc.ptr)
+        assert np.array_equal(got, _words(res))
+        results.append(res)
+    from kzg_snark_tpu_torch.ops.g1 import curve_ops
+    curve = curve_ops(curve_type, "cpu")
+    aff = [curve.to_affine_ints(r) for r in results]
+    assert aff[0] == aff[1] and aff[0][2] is None

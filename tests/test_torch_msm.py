@@ -303,3 +303,32 @@ def test_complete_add_variable_read_at_call_time(monkeypatch):
         monkeypatch.setenv("KZG_TPU_COMPLETE_ADD", value)
         assert resolve_complete(None) is complete
         assert resolve_complete(not complete) is (not complete)
+
+
+@pytest.mark.parametrize("complete", [False, True])
+@pytest.mark.parametrize("route", ["chunks", "ranges"])
+def test_bucket_route_both_accumulate_routes_match_host_oracle(
+        monkeypatch, route, complete):
+    """Both routes of the accumulate (``accumulate_run``) equal the host
+    oracle on random, all-equal and half-zero sets, and count their call.
+    At n = 2048 with c lowered to 6 (64 entries a bucket) a lowered
+    ACC_FILL_THREADS gives runs of 64 entries; the default keeps the chunk
+    route."""
+    from kzg_snark_tpu_torch.ops import msm_kernel as mk
+    from kzg_snark_tpu_torch.utils import build
+    n = 2048
+    monkeypatch.setattr(mk, "window_bits", lambda m: 6)
+    if route == "ranges":
+        monkeypatch.setattr(mk, "ACC_FILL_THREADS", 3 * 43 * n // 64)
+    assert mk.accumulate_run(3, 43, n, 6) == (64 if route == "ranges" else 0)
+    pts, ks = basis(n)
+    ctx = msm_context("bn254", "cpu")
+    rng = np.random.default_rng(17)
+    sets = [SKEWED[name](n, rng) for name in ("random", "all-equal",
+                                               "half-zero")]
+    lim = torch.stack([ctx.scalars_to_limbs(s) for s in sets])
+    build.reset_launches()
+    got = ctx.curve.to_affine_ints(ctx.msm(pts, lim, complete=complete))
+    assert got == [host_point(sum(a * b for a, b in zip(s, ks)))
+                   for s in sets]
+    assert set(build.msm_route_counts()) == {route}

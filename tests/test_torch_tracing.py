@@ -397,6 +397,14 @@ def test_every_wait_of_a_card_batch_is_counted(cell):
     print(f"{cell}: {len(waits)} warned waits at {where}; counted "
           f"{build.sync_counts()}")
     assert build.sync_counts() == BATCH_SYNCS[cell]
+    # The accumulate's route (ops/msm_kernel.accumulate_run): both 2^20
+    # MSM calls of a batch take the range route, no blob cell's call does.
+    routes = build.msm_route_counts()
+    print(f"{cell}: MSM routes {routes}")
+    if cell == "kzg2e20.b8":
+        assert set(routes) == {"ranges"} and routes["ranges"]["calls"] == 2
+    else:
+        assert set(routes) == {"chunks"}
     assert waits
     assert [[f"{f.filename}:{f.lineno} {f.name}" for f in stack[-6:]]
             for _, stack in waits if _uncounted(stack)] == []
